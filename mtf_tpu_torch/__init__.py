@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of `mtf_tpu` for NVIDIA Hopper (H100).
+
+The port keeps the JAX package's module layout (`mtf_tpu_torch/ops/warp.py`
+is the counterpart of `mtf_tpu/ops/warp.py`, and so on) and is held
+against it by `tests/test_torch_*.py`. It never imports JAX.
+
+Idiom: plain functions on tensors with an explicit leading batch axis B
+(in place of `vmap`), fixed-count Python loops (in place of
+`lax.while_loop`), an explicit `device` on every constructor, and
+`NamedTuple`s of tensors for tracker state.
+
+Slice covered: FCLK + SSD + 8-DOF homography with dense linear sampling
+from a hoisted crop and coarse-to-fine point decimation, batched as a
+tracker fleet. The one TPU kernel on that path, the chain-fused LK
+iteration, is a CUDA kernel (`csrc/lk_fused_chain.cu`).
+"""
+import torch
+
+# Every 3x3 warp product on the tracking path ran at Precision.HIGHEST in
+# JAX: rounding the image-scale translations showed up as a ~1 px
+# tracking bias. TF32 keeps ~3 decimal digits, so keep float32 matmuls
+# and convolutions at full float32 precision on the card.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from mtf_tpu_torch.factory import create_tracker  # noqa: E402,F401
