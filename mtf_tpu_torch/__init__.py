@@ -6,13 +6,17 @@ against it by `tests/test_torch_*.py`. It never imports JAX.
 
 Idiom: plain functions on tensors with an explicit leading batch axis B
 (in place of `vmap`), fixed-count Python loops (in place of
-`lax.while_loop`), an explicit `device` on every constructor, and
-`NamedTuple`s of tensors for tracker state.
+`lax.while_loop`), a `device` on every entry point (None means the card;
+`device="cpu"` runs on the CPU), and `NamedTuple`s of tensors for tracker
+state.
 
-Slice covered: FCLK + SSD + 8-DOF homography with dense linear sampling
-from a hoisted crop and coarse-to-fine point decimation, batched as a
-tracker fleet. The one TPU kernel on that path, the chain-fused LK
-iteration, is a CUDA kernel (`csrc/lk_fused_chain.cu`).
+Slices covered: FCLK and ESM, each optionally with Levenberg-Marquardt
+(`fclm`, `eslm`), with the SSD or NCC appearance model on the 8-DOF
+homography, dense linear sampling from a hoisted crop and coarse-to-fine
+point decimation, batched as a tracker fleet. The one TPU kernel on that
+path, the chain-fused LK iteration, is a CUDA kernel
+(`csrc/lk_fused_chain.cu`) in four instantiations: SSD and NCC moments,
+each with and without ESM's template-Jacobian operand.
 """
 import torch
 

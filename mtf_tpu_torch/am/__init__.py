@@ -1,16 +1,13 @@
 from mtf_tpu_torch.am.base import AM, AMParams, AMState, IlluminationModel  # noqa: F401
+from mtf_tpu_torch.am.ncc import NCC
 from mtf_tpu_torch.am.ssd import SSD
 
-AM_REGISTRY = {"ssd": SSD}
+AM_REGISTRY = {"ssd": SSD, "ncc": NCC}
 
 
 def get_am(key: str, params: AMParams | None = None, ilm=None) -> AM:
     """Construct an AM from its reference factory key."""
     k = key.lower()
-    if k in ("ncc", "esm"):
-        raise NotImplementedError(
-            f"AM {key!r} is not ported yet: NCC comes with ROADMAP Queue 1, "
-            "slice 2")
     if k not in AM_REGISTRY:
         raise NotImplementedError(
             f"AM {key!r} is not ported yet: the remaining AMs come with "

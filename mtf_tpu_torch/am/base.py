@@ -1,8 +1,9 @@
 """Appearance-model base (port of `mtf_tpu/am/base.py`).
 
-The JAX package derives every AM derivative by AD. The ported slice
-needs none: for SSD the patch gradient is the residual and the self
-Hessian is exactly -J^T J, which the LK path forms in closed form.
+The JAX package derives every AM derivative by AD. The ported slices
+need none: for SSD the patch gradient is the residual and the self
+Hessian is exactly -J^T J; for NCC the chain kernel's moments give the
+gradient and self Hessian in closed form (`ops/kernels/lk_fused.py`).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ class AMState(NamedTuple):
 
     template: raw template patch (B, N, C)
     p_am:     photometric params (B, P); empty for plain AMs
-    extra:    per-AM extras (none for SSD)
+    extra:    per-AM extras (SSD: none; NCC: (n0,), the centred unit
+              template (B, N, C))
     """
     template: torch.Tensor
     p_am: torch.Tensor
@@ -60,12 +62,22 @@ class AM:
     def _similarity(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def _init_extra(self, patch0: torch.Tensor):
+        return ()
+
     def init(self, patch0: torch.Tensor) -> AMState:
         """Template initialization from patches (B, N, C)."""
         return AMState(template=patch0,
                        p_am=self.ilm.identity_params(
-                           patch0.shape[:-2], patch0.dtype, patch0.device))
+                           patch0.shape[:-2], patch0.dtype, patch0.device),
+                       extra=self._init_extra(patch0))
 
     def f(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
         """Similarity of candidate patches vs state (higher = better)."""
         return self._similarity(state, self.ilm.apply(patch, state.p_am))
+
+    def f_corrected(self, state: AMState, corrected: torch.Tensor
+                    ) -> torch.Tensor:
+        """Similarity on an already illumination-corrected patch (the LM
+        objective of the LK path)."""
+        return self._similarity(state, corrected)

@@ -85,6 +85,26 @@ def crop_origin(pts: torch.Tensor, size: int, full: int,
                        float(full - size))
 
 
+def sample_windows(win: torch.Tensor, x: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """Dense-convention linear values of per-tracker windows: win
+    (B, Hc, Wc) at window coordinates x, y (B, N) -> (B, N). Coordinates
+    are clamped to [0.001, size - 1.001] of each window, as
+    `sample(window, pts, "linear_mm")` does for one window."""
+    b, hc, wc = win.shape
+    cx = torch.clamp(x, 0.001, wc - 1.001)
+    cy = torch.clamp(y, 0.001, hc - 1.001)
+    fxs, fys = torch.floor(cx), torch.floor(cy)
+    fx, fy = cx - fxs, cy - fys
+    i00 = fys.long() * wc + fxs.long()
+    taps = win.reshape(b, hc * wc).gather(
+        1, torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1], dim=-1))
+    v00, v01, v10, v11 = taps.chunk(4, dim=-1)
+    top = v00 * (1.0 - fx) + v01 * fx
+    bot = v10 * (1.0 - fx) + v11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
 def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
                  crop: int | None = None, need_grad: bool = True):
     """Dense-convention linear sampling -> (patch (..., N, C),

@@ -49,6 +49,11 @@ class SMParams:
     crop: int | None = None        # window size for dense sampling
     coarse_pt_iters: tuple = ()    # ((stride, n_iters), ...) coarse phases
     hess_type: str = "self0"
+    jac_type: str = "original"     # original | diff_of_jacs (ESM)
+    enable_lm: bool = False        # Levenberg-Marquardt damping w/ rollback
+    lm_delta0: float = 1e-3
+    lm_up: float = 10.0
+    lm_down: float = 0.1
 
 
 def make_region(corners_img: torch.Tensor, resx: int,

@@ -1,19 +1,29 @@
-"""Forward-compositional Lucas-Kanade, chain-fused path (port of the
-`LKBase`/`FCLK` fast path in `mtf_tpu/sm/lk.py`).
+"""Lucas-Kanade on the chain-fused path (port of the `LKBase` fast path
+of `mtf_tpu/sm/lk.py`): forward compositional LK (`FCLK`) and ESM, each
+with optional Levenberg-Marquardt accept/reject (the `*lm` keys).
 
-Slice: SSD appearance, 8-DOF homography, dense linear sampling
-(`interp="linear_mm"`) from a window of `crop` pixels hoisted out of the
-iteration loop, selft Hessian (for SSD exactly -J^T J) and optional
-coarse-to-fine point decimation (`coarse_pt_iters`). Every Gauss-Newton
-iteration is one call of the chain kernel (`lk_fused_chain`) for all B
-trackers; the 3x3 warp algebra and the 8x8 solve stay in PyTorch.
+Slices 1 and 2: SSD or NCC appearance, 8-DOF homography, dense linear
+sampling (`interp="linear_mm"`) from a window of `crop` pixels hoisted
+out of the iteration loop, selft Hessian and optional coarse-to-fine
+point decimation (`coarse_pt_iters`). Every Gauss-Newton iteration is one
+call of the chain kernel (`lk_fused_chain`) for all B trackers, in the
+AM's mode (SSD, or NCC moments) and, for ESM, with the template
+Jacobian as its constant J0 operand (mean Jacobian ½(J + J0)). The 3x3
+warp algebra, the NCC combine, the 8x8 solve and the LM test stay in
+PyTorch.
 
 The update runs a fixed number of iterations (`epsilon <= 0`, the
 fixed-iteration mode of the JAX package), so every tracker takes the same
-steps and no done mask is needed.
+steps and no done mask is needed. LM keeps a per-tracker damping and
+accepts or rejects each tracker's step with `torch.where`, evaluating f
+phase-consistently: on the phase's (blurred, decimated) window and points
+against the phase's template, re-seeded at every phase boundary.
 
 Unlike the JAX fast path, which casts the frame to bf16 for the TPU's
-MXU before the blur and crop, the window stays float32 here.
+MXU before the blur and crop, the window stays float32 here. The JAX LM
+path blurs its cropped window instead of the frame; the two differ only
+within one blur radius of the window's edge, which the crop margin
+keeps the points' taps clear of.
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ import torch.nn.functional as F
 
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import warp as W
-from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
+from mtf_tpu_torch.am.ncc import NCC
+from mtf_tpu_torch.ops.kernels.lk_fused import (lk_fused_chain, ncc_combine,
+                                                ncc_moments)
 from mtf_tpu_torch.ops.linalg import neg_def_solve
 from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
 from mtf_tpu_torch.ssm.projective import Homography
@@ -38,7 +50,7 @@ _CROP_MARGIN = 4.0
 class LKCache(NamedTuple):
     """Per-tracker quantities cached at init."""
     J0: torch.Tensor     # (B, N, S) template pixel Jacobian at identity
-    H0: torch.Tensor     # (B, S, S) initial self Hessian, -J0^T J0
+    H0: torch.Tensor     # (B, S, S) initial self Hessian (SSD -J0^T J0)
     coarse: tuple = ()   # per coarse phase (templ_s (B, n_s), H0_s (B, S, S),
                          # J_s (B, n_s, S)) sampled from the blurred init
                          # frame at the decimated grid
@@ -80,28 +92,31 @@ def _homogeneous(base_pts: torch.Tensor) -> torch.Tensor:
     return W.homogenize(base_pts).transpose(1, 2).contiguous()
 
 
-class FCLK(SearchMethod):
-    """Forward compositional LK on the chain-fused path."""
+class LKBase(SearchMethod):
+    """Shared LK machinery on the chain-fused path; subclasses pick the
+    Jacobian (`use_esm_jac`)."""
 
-    name = "fclk"
+    use_esm_jac = False     # True -> mean of init + current Jacobians
 
     def __init__(self, am, ssm, prm):
         super().__init__(am, ssm, prm)
         need = {
-            "am 'ssd'": am.name == "ssd",
+            "am 'ssd' or 'ncc'": am.name in ("ssd", "ncc"),
             "ssm '8'": isinstance(ssm, Homography),
             "interp 'linear_mm'": prm.interp == "linear_mm",
             "border 'replicate'": prm.border == "replicate",
             "a crop window": prm.crop is not None,
             "hess_type 'selft'": prm.hess_type == "selft",
             "epsilon <= 0 (fixed iterations)": prm.epsilon <= 0.0,
+            "jac_type 'original'": prm.jac_type == "original",
         }
         missing = [k for k, ok in need.items() if not ok]
         if missing:
             raise NotImplementedError(
-                f"FCLK is ported for {', '.join(need)} only; this "
-                f"configuration lacks {', '.join(missing)}. The other LK "
-                "options come with ROADMAP Queue 1, slices 2 and 4")
+                f"{type(self).__name__} is ported for {', '.join(need)} "
+                f"only; this configuration lacks {', '.join(missing)}. The "
+                "other LK options come with ROADMAP Queue 1b (the rest of "
+                "slice 2) and Queue 1, slice 4")
         for i, (stride, _) in enumerate(prm.coarse_pt_iters):
             self.register_buffer(
                 f"coarse_idx{i}",
@@ -132,38 +147,98 @@ class FCLK(SearchMethod):
              + grad[:, :, 0, 1:2] * jy.transpose(1, 2))      # (B, N, S)
         return patch, J
 
+    def _self_hessian(self, patch: torch.Tensor,
+                      J: torch.Tensor) -> torch.Tensor:
+        """Self Hessian at a perfect match with `patch` (B, N) through
+        the pixel Jacobian J (B, N, S), in closed form: SSD -J^T J; NCC
+        minus the combine of the chain kernel's moments with
+        n0 = centre-normed patch (what the JAX package gets by AD)."""
+        if self.am.name == "ssd":
+            return -(J.transpose(1, 2) @ J)
+        n0 = NCC._center_norm(patch[..., None])[..., 0]
+        return -ncc_combine(*ncc_moments(patch, n0, J.transpose(1, 2)))[1]
+
     def _init_extra(self, state: TrackerState, frame: torch.Tensor):
         if frame.dim() != 2:
             raise NotImplementedError(
                 "multi-channel frames come with ROADMAP Queue 1, slice 4")
-        _, J0 = self._patch_and_jac0(state.region, frame)
+        patch0, J0 = self._patch_and_jac0(state.region, frame)
         coarse = []
         for i, (stride, _) in enumerate(self.prm.coarse_pt_iters):
             idx = self._coarse_index(i)
             p_b, J_b = self._patch_and_jac0(state.region,
                                             _blur2(frame, stride))
-            Js = J_b[:, idx]
-            coarse.append((p_b[:, idx, 0], -(Js.transpose(1, 2) @ Js), Js))
-        return LKCache(J0=J0, H0=-(J0.transpose(1, 2) @ J0),
+            p_s, Js = p_b[:, idx, 0], J_b[:, idx]
+            coarse.append((p_s, self._self_hessian(p_s, Js), Js))
+        return LKCache(J0=J0, H0=self._self_hessian(patch0[..., 0], J0),
                        coarse=tuple(coarse))
 
     # -- one Gauss-Newton iteration ------------------------------------
+    def _window_warp(self, state: TrackerState, ssm_state: torch.Tensor,
+                     offs3: torch.Tensor) -> torch.Tensor:
+        """M0 = norm o W(p) shifted into window coordinates (rows 0/1
+        minus offset * row 2)."""
+        M0 = state.region.norm_mat @ self.ssm.to_matrix(ssm_state)
+        return (M0 - offs3[:, :, None] * M0[:, 2:3, :]).contiguous()
+
     def _iteration(self, state: TrackerState, ssm_state: torch.Tensor,
-                   window: torch.Tensor, offs3: torch.Tensor,
-                   ph: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
-        """Chain-fused iteration: M0 = norm o W(p) shifted into window
-        coordinates, the kernel, then the damped selft solve."""
+                   offs3: torch.Tensor, phase, delta) -> torch.Tensor:
+        """Chain-fused iteration: the kernel in the AM's mode, then the
+        damped selft solve and the compositional update. `delta` (B,) is
+        the LM damping, or None."""
         ssm = self.ssm
-        M0 = state.region.norm_mat @ ssm.to_matrix(ssm_state)
-        # window coords: rows 0/1 minus offset * row 2
-        M0 = (M0 - offs3[:, :, None] * M0[:, 2:3, :]).contiguous()
-        _, g, jtj = lk_fused_chain(window, M0, ssm.generators, ph, templ)
-        # SSD: selft == -J^T J at the current J
-        S = ssm.dof
-        Hd = -jtj - 1e-7 * torch.eye(S, dtype=jtj.dtype, device=jtj.device)
+        window, ph, templ, j0, _ = phase
+        M0 = self._window_warp(state, ssm_state, offs3)
+        _, g, h = lk_fused_chain(window, M0, ssm.generators, ph, templ,
+                                 am=self.am.name, j0=j0)
+        # selft: SSD -J^T J at the current J (with ESM's mean Jacobian the
+        # ESM normal matrix); NCC the closed form of the moments
+        H = -h
+        eye = torch.eye(ssm.dof, dtype=H.dtype, device=H.device)
+        if delta is not None:
+            # Marquardt damping of the fused path: no mean-|diag| floor
+            H = H - delta[:, None, None] * torch.diag_embed(
+                H.diagonal(dim1=-2, dim2=-1).abs())
+        Hd = H - 1e-7 * eye
         return ssm.compositional_update(ssm_state, neg_def_solve(Hd, g))
 
+    def _f(self, state: TrackerState, ssm_state: torch.Tensor,
+           offs3: torch.Tensor, phase) -> torch.Tensor:
+        """The LM objective (B,): f of the phase's AM state on its window
+        sampled at its points."""
+        window, ph, _, _, am_state = phase
+        q = self._window_warp(state, ssm_state, offs3) @ ph  # (B, 3, N)
+        val = interp.sample_windows(window, q[:, 0] / q[:, 2],
+                                    q[:, 1] / q[:, 2])
+        return self.am.f_corrected(am_state, val[..., None])
+
     # -- full update ----------------------------------------------------
+    def _phases(self, state: TrackerState, win: torch.Tensor,
+                strides: list):
+        """Per phase, coarse ones first: (n_iters, (window, points
+        (B, 3, n), kernel template (B, n), J0 operand (B, S, n) or None,
+        AM state of the phase's template))."""
+        prm, am = self.prm, self.am
+        ph_full = _homogeneous(state.region.base_pts)
+
+        def operands(window, ph, am_state, J):
+            # the kernel's NCC mode takes the centred unit template n0
+            t = am_state.extra[0] if am.name == "ncc" else am_state.template
+            j0 = (J.transpose(1, 2).contiguous() if self.use_esm_jac
+                  else None)
+            return (window, ph, t[..., 0].contiguous(), j0, am_state)
+
+        out = []
+        for i, ((stride, n_it), (templ_s, _, Js)) in enumerate(
+                zip(prm.coarse_pt_iters, state.extra.coarse)):
+            window = win[1 + strides.index(stride)] if stride > 1 else win[0]
+            out.append((int(n_it), operands(
+                window, ph_full[:, :, self._coarse_index(i)],
+                am.init(templ_s[..., None]), Js)))
+        out.append((prm.max_iters, operands(win[0], ph_full, state.am_state,
+                                            state.extra.J0)))
+        return out
+
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
         prm, ssm = self.prm, self.ssm
@@ -185,25 +260,47 @@ class FCLK(SearchMethod):
         cols = x0.long()[:, None] + torch.arange(wc, device=dev)
         win = stk[:, rows[:, :, None], cols[:, None, :]]     # (V, B, hc, wc)
         offs3 = torch.stack([x0, y0, torch.zeros_like(x0)], dim=-1)
-        ph_full = _homogeneous(state.region.base_pts)
 
         ssm_state = state.ssm_state
+        delta = (torch.full_like(x0, prm.lm_delta0) if prm.enable_lm
+                 else None)
         it = 0
-        for i, ((stride, n_it), pack) in enumerate(
-                zip(prm.coarse_pt_iters, state.extra.coarse)):
-            idx = self._coarse_index(i)
-            window = win[1 + strides.index(stride)] if stride > 1 else win[0]
-            ph = ph_full[:, :, idx]
-            hi = min(it + int(n_it), prm.max_iters)
+        for n_it, phase in self._phases(state, win, strides):
+            hi = min(it + n_it, prm.max_iters)
+            if delta is not None:
+                f_prev = self._f(state, ssm_state, offs3, phase)
             for _ in range(it, hi):
-                ssm_state = self._iteration(state, ssm_state, window, offs3,
-                                            ph, pack[0])
+                new = self._iteration(state, ssm_state, offs3, phase, delta)
+                if delta is None:
+                    ssm_state = new
+                    continue
+                # LM: keep a step only where it does not lower f
+                f_new = self._f(state, new, offs3, phase)
+                accept = f_new >= f_prev
+                ssm_state = torch.where(accept[:, None], new, ssm_state)
+                delta = torch.where(accept, delta * prm.lm_down,
+                                    delta * prm.lm_up)
+                f_prev = torch.where(accept, f_new, f_prev)
             it = hi
-        templ = state.am_state.template[..., 0]
-        for _ in range(it, prm.max_iters):
-            ssm_state = self._iteration(state, ssm_state, win[0], offs3,
-                                        ph_full, templ)
         return state._replace(ssm_state=ssm_state)
 
 
-SM_LK_REGISTRY = {"fclk": FCLK, "fc": FCLK}
+class FCLK(LKBase):
+    """Forward compositional LK (NT/FCLK.cc)."""
+    name = "fclk"
+
+
+class ESM(LKBase):
+    """Efficient second-order minimization: mean of the init and current
+    Jacobians (NT/ESM.cc:228-230)."""
+    name = "esm"
+    use_esm_jac = True
+
+
+# every key of the JAX registry that maps to FCLK or ESM; FESM and ESMH
+# collapse to ESM there too
+SM_LK_REGISTRY = {"fclk": FCLK, "fc": FCLK, "fclm": FCLK,
+                  "esm": ESM, "fesm": ESM, "esmh": ESM, "eslm": ESM,
+                  "esl": ESM}
+
+LM_KEYS = {"eslm", "esl", "fclm"}

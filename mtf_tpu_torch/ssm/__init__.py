@@ -3,7 +3,8 @@ from mtf_tpu_torch.ssm.projective import SSM_REGISTRY
 
 
 def get_ssm(key: str, device=None) -> SSM:
-    """Construct an SSM from its reference factory key."""
+    """Construct an SSM from its reference factory key, on `device`
+    (None: the card)."""
     k = key.lower()
     if k not in SSM_REGISTRY:
         raise NotImplementedError(

@@ -1,14 +1,16 @@
 """State-space model algebra (port of `mtf_tpu/ssm/base.py`).
 
 An SSM is an `nn.Module` whose only tensor is its generator basis
-(a registered buffer, so `.to(device)` moves it). Its methods are plain
-functions of batched states (..., S) and 3x3 warps (..., 3, 3).
+(a registered buffer, so `.to(device)` moves it), on the card unless
+`device` says otherwise. Its methods are plain functions of batched
+states (..., S) and 3x3 warps (..., 3, 3).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from mtf_tpu_torch import _device
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.linalg import inv3x3
 
@@ -23,7 +25,8 @@ class SSM(nn.Module):
     def __init__(self, device=None):
         super().__init__()
         self.register_buffer("generators", torch.as_tensor(
-            self._generators(), dtype=torch.float32, device=device))
+            self._generators(), dtype=torch.float32,
+            device=_device.resolve(device)))
 
     def _generators(self):  # (dof, 3, 3)
         raise NotImplementedError

@@ -74,7 +74,8 @@ def ref():
 
 
 def _port_fleet(donate=False):
-    return TrackerFleet(tcreate("fclk", "ssd", "8", **CFG), donate=donate)
+    return TrackerFleet(tcreate("fclk", "ssd", "8", device="cpu", **CFG),
+                        donate=donate)
 
 
 @pytest.mark.parametrize("jax_path", ["generic", "pallas"])
@@ -92,9 +93,9 @@ def test_update_runs_ten_chain_iterations(ref, monkeypatch):
     st = fl.initialize(ref["frame"], CORNERS)
     calls = []
 
-    def spy(window, M0, gens, ph, templ):
+    def spy(window, M0, gens, ph, templ, **kw):
         calls.append(ph.shape[-1])
-        return lk_fused_chain(window, M0, gens, ph, templ)
+        return lk_fused_chain(window, M0, gens, ph, templ, **kw)
 
     monkeypatch.setattr(lk_mod, "lk_fused_chain", spy)
     fl.update(st, ref["f2"])
@@ -102,7 +103,7 @@ def test_update_runs_ten_chain_iterations(ref, monkeypatch):
 
 
 def test_synthetic_frames_match(ref):
-    ssm = tcreate("fclk", "ssd", "8", **CFG).ssm
+    ssm = tcreate("fclk", "ssd", "8", device="cpu", **CFG).ssm
     frames, gt = tsynth.synthetic_sequence(
         ref["frame"], CORNERS, ssm, n_frames=4, sigma_scale=0.004, seed=3)
     np.testing.assert_allclose(frames.numpy(), ref["frames"], atol=1e-3,
@@ -119,7 +120,7 @@ def test_synthetic_noise_and_drift_match():
               gain_drift=0.05, bias_drift=1.5)
     jf, jgt = jsynth.synthetic_sequence(img, corners,
                                         jcreate("fclk", "ssd", "8").ssm, **kw)
-    ssm = tcreate("fclk", "ssd", "8", **CFG).ssm
+    ssm = tcreate("fclk", "ssd", "8", device="cpu", **CFG).ssm
     tf, tgt = tsynth.synthetic_sequence(img, corners, ssm, **kw)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=1e-3, rtol=0)
     np.testing.assert_allclose(tgt, jgt, atol=1e-3, rtol=0)
@@ -142,7 +143,7 @@ def test_convert_round_trip_and_update(ref):
     """A JAX-initialised state, converted and updated by the port, gives
     the JAX update; converting back gives the JAX state unchanged."""
     jst = ref["state0"]
-    tst = convert.to_torch(jst)
+    tst = convert.to_torch(jst, device="cpu")
     back = convert.to_numpy(tst)
     for a, b in zip(jax.tree.leaves(tuple(back)), jax.tree.leaves(
             (jst.ssm_state, jst.am_state, jst.region, jst.extra))):
@@ -154,7 +155,7 @@ def test_convert_round_trip_and_update(ref):
 
 def test_convert_single_tracker(ref):
     one = jax.tree.map(lambda x: x[0], ref["state0"])
-    tst = convert.to_torch(one)
+    tst = convert.to_torch(one, device="cpu")
     assert tst.ssm_state.shape == (1, 8)
     assert tst.extra.coarse[0][0].shape == (1, 169)
     back = convert.to_numpy(tst, squeeze=True)
@@ -184,4 +185,4 @@ def test_donate_updates_state_in_place(ref):
 ])
 def test_factory_rejects_unported(args, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcreate(*args, **kw)
+        tcreate(*args, device="cpu", **kw)

@@ -1,5 +1,6 @@
 """CUDA-kernel tests of `mtf_tpu_torch`, and the JAX-free input helpers
-the chain-kernel tests share.
+the chain-kernel tests share (all four modes: SSD and NCC, each with and
+without ESM's J0 operand).
 
 The `gpu` tests skip where there is no CUDA device (the CUDA kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -16,6 +17,8 @@ from mtf_tpu_torch.ssm.projective import Homography
 
 HC = WC = 144
 N_POINTS = [169, 625, 2500]
+# (am, esm) of the kernel instantiations beyond K1
+NEW_MODES = [("ncc", False), ("ssd", True), ("ncc", True)]
 
 
 def _window(rng):
@@ -33,7 +36,7 @@ def chain_inputs(n, b=3, seed=0):
     so inside the TPU kernel's 128-row bands."""
     rng = np.random.default_rng(seed)
     side = int(round(np.sqrt(n)))
-    gens = Homography()._generators()
+    gens = Homography(device="cpu")._generators()
     win = np.stack([_window(rng) for _ in range(b)])
     lin = np.linspace(-0.5, 0.5, side)
     g = np.stack(np.meshgrid(lin, lin), -1).reshape(-1, 2)
@@ -51,6 +54,23 @@ def chain_inputs(n, b=3, seed=0):
     M0[0] = [[1, 0, 40], [0, 1, 40.25], [0, 0, 1]]
     templ = rng.uniform(0, 255, (b, n)).astype(np.float32)
     return win, M0, gens, ph.astype(np.float32), templ
+
+
+def mode_inputs(n, am, esm, b=3, seed=0):
+    """`chain_inputs` plus the mode's operands: for NCC the template is
+    centred and scaled to unit norm (the kernel's n0), and with ESM a
+    random J0 (b, 8, n) on the scale of the pixel Jacobian rides along
+    (None without ESM)."""
+    win, M0, gens, ph, templ = chain_inputs(n, b, seed)
+    if am == "ncc":
+        c = templ - templ.mean(-1, keepdims=True)
+        templ = (c / (np.linalg.norm(c, axis=-1, keepdims=True) + 1e-8)
+                 ).astype(np.float32)
+    j0 = None
+    if esm:
+        rng = np.random.default_rng(seed + 100)
+        j0 = rng.normal(0, 30.0, (b, 8, n)).astype(np.float32)
+    return (win, M0, gens, ph, templ), j0
 
 
 def assert_norm_close(got, want, rel):
@@ -78,10 +98,10 @@ def test_cuda_k1_matches_plain(cuda_device, n):
     """The CUDA kernel against the plain form on the card: val within
     1e-3, g and JtJ within 1e-4 of their norms (summation order differs)."""
     args = _on(cuda_device, chain_inputs(n, b=16))
-    before = tk.lk_fused_chain.launches
+    before = tk.lk_fused_chain_raw.launches["ssd"]
     val, g, h = tk.lk_fused_chain(*args)
     torch.cuda.synchronize()
-    assert tk.lk_fused_chain.launches == before + 1
+    assert tk.lk_fused_chain_raw.launches["ssd"] == before + 1
     v0, g0, h0 = tk.lk_fused_chain_ref(*args)
     assert float((val - v0).abs().max()) <= 1e-3
     for b in range(16):
@@ -100,3 +120,37 @@ def test_cuda_k1_rejects_bad_inputs(cuda_device):
         tk.lk_fused_chain(win, M0, gens, ph[:, :, :100], templ)
     with pytest.raises(ValueError):
         tk.lk_fused_chain(win, M0.cpu(), gens, ph, templ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", N_POINTS)
+@pytest.mark.parametrize("am,esm", NEW_MODES)
+def test_cuda_k2_k3_match_plain(cuda_device, am, esm, n):
+    """The NCC-moment and ESM instantiations against the plain form on
+    the card: val within 1e-3, every raw sum within 1e-4 of its norm."""
+    arrays, j0 = mode_inputs(n, am, esm, b=16)
+    args = _on(cuda_device, arrays)
+    j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+    mode = tk.mode_name(am, esm)
+    before = tk.lk_fused_chain_raw.launches[mode]
+    got = tk.lk_fused_chain_raw(*args, am=am, j0=j0)
+    torch.cuda.synchronize()
+    assert tk.lk_fused_chain_raw.launches[mode] == before + 1
+    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-3
+    for a, w in zip(got[1:], want[1:]):
+        for b in range(16):
+            assert_norm_close(a[b].cpu(), w[b].cpu(), 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_k3_rejects_bad_j0(cuda_device):
+    arrays, j0 = mode_inputs(169, "ncc", True, b=2)
+    args = _on(cuda_device, arrays)
+    j0 = _on(cuda_device, [j0])[0]
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(*args, am="ncc", j0=j0[:, :, :100])
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(*args, am="ncc", j0=j0.transpose(1, 2))
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(*args, am="zncc")
