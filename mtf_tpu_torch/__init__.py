@@ -13,10 +13,13 @@ state.
 Slices covered: FCLK and ESM, each optionally with Levenberg-Marquardt
 (`fclm`, `eslm`), with the SSD or NCC appearance model on the 8-DOF
 homography, dense linear sampling from a hoisted crop and coarse-to-fine
-point decimation, batched as a tracker fleet. The one TPU kernel on that
-path, the chain-fused LK iteration, is a CUDA kernel
-(`csrc/lk_fused_chain.cu`) in four instantiations: SSD and NCC moments,
-each with and without ESM's template-Jacobian operand.
+point decimation, batched as a tracker fleet; and RKLT, the grid tracker
+(pyramidal patch flow fused by RANSAC, LMedS or least squares) refined
+by ESM-LM. Two TPU kernels are on those paths, each a CUDA kernel: the
+chain-fused LK iteration (`csrc/lk_fused_chain.cu`) in four
+instantiations, SSD and NCC moments, each with and without ESM's
+template-Jacobian operand; and the grid flow (`csrc/grid_flow.cu`), all
+iterations of a pyramid level for every patch in one launch.
 """
 import torch
 

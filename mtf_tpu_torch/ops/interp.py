@@ -85,12 +85,14 @@ def crop_origin(pts: torch.Tensor, size: int, full: int,
                        float(full - size))
 
 
-def sample_windows(win: torch.Tensor, x: torch.Tensor,
-                   y: torch.Tensor) -> torch.Tensor:
+def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   need_grad: bool = False):
     """Dense-convention linear values of per-tracker windows: win
     (B, Hc, Wc) at window coordinates x, y (B, N) -> (B, N). Coordinates
     are clamped to [0.001, size - 1.001] of each window, as
-    `sample(window, pts, "linear_mm")` does for one window."""
+    `sample(window, pts, "linear_mm")` does for one window. With
+    `need_grad`, returns (val, dx, dy), the derivatives by the dense
+    convention (0 along an axis at an exactly integer coordinate)."""
     b, hc, wc = win.shape
     cx = torch.clamp(x, 0.001, wc - 1.001)
     cy = torch.clamp(y, 0.001, hc - 1.001)
@@ -102,7 +104,13 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor,
     v00, v01, v10, v11 = taps.chunk(4, dim=-1)
     top = v00 * (1.0 - fx) + v01 * fx
     bot = v10 * (1.0 - fx) + v11 * fx
-    return top * (1.0 - fy) + bot * fy
+    val = top * (1.0 - fy) + bot * fy
+    if not need_grad:
+        return val
+    zero = torch.zeros_like(val)
+    dx = torch.where(fx > 0, (v01 - v00) * (1.0 - fy) + (v11 - v10) * fy,
+                     zero)
+    return val, dx, torch.where(fy > 0, bot - top, zero)
 
 
 def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,

@@ -13,6 +13,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -43,6 +44,13 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                            "machine with the CUDA toolkit")
     return found
+
+
+def load_all(names) -> dict[str, Built]:
+    """`load` each of `names`, their nvcc builds running side by side."""
+    names = list(names)
+    with ThreadPoolExecutor(max(1, len(names))) as ex:
+        return dict(zip(names, ex.map(load, names)))
 
 
 def load(name: str) -> Built:

@@ -34,6 +34,18 @@ def neg_def_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return chol_solve_small(-H, g)
 
 
+def solve2x2(H: torch.Tensor, b: torch.Tensor,
+             eps: float = 1e-12) -> torch.Tensor:
+    """Closed-form solve of 2x2 systems H (..., 2, 2), b (..., 2) (the
+    grid's translation systems). A determinant under `eps` in magnitude
+    becomes sign(det) * eps + eps, the JAX package's guard (so 0 -> eps)."""
+    det = H[..., 0, 0] * H[..., 1, 1] - H[..., 0, 1] * H[..., 1, 0]
+    det = torch.where(det.abs() < eps, torch.sign(det) * eps + eps, det)
+    x0 = (H[..., 1, 1] * b[..., 0] - H[..., 0, 1] * b[..., 1]) / det
+    x1 = (H[..., 0, 0] * b[..., 1] - H[..., 1, 0] * b[..., 0]) / det
+    return torch.stack([x0, x1], dim=-1)
+
+
 def inv3x3(M: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of (..., 3, 3) matrices."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]

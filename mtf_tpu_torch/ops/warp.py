@@ -64,10 +64,13 @@ def normalize_pts(pts: torch.Tensor, eps: float = 1e-12):
     return (pts - c[..., None, :]) * s[..., None, None], T
 
 
-def homography_dlt(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+def homography_dlt(src: torch.Tensor, dst: torch.Tensor,
+                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """Normalized DLT homography with dst ~ W @ src, for (..., N, 2)
-    correspondences. As in the JAX package, the h22 = 1 gauge turns the
-    fit into an 8x8 normal-equation solve on the unrolled Cholesky."""
+    correspondences and optional per-point weights (..., N) (robust
+    refits: each point's two rows scaled by sqrt(max(w, 0))). As in the
+    JAX package, the h22 = 1 gauge turns the fit into an 8x8
+    normal-equation solve on the unrolled Cholesky."""
     src_n, Ts = normalize_pts(src)
     dst_n, Td = normalize_pts(dst)
     x, y = src_n[..., 0], src_n[..., 1]
@@ -77,6 +80,9 @@ def homography_dlt(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     r1 = torch.stack([x, y, o, z, z, z, -X * x, -X * y, -X], dim=-1)
     r2 = torch.stack([z, z, z, x, y, o, -Y * x, -Y * y, -Y], dim=-1)
     A = torch.cat([r1, r2], dim=-2)                          # (..., 2N, 9)
+    if weights is not None:
+        wsq = torch.sqrt(torch.clamp(weights, min=0.0))
+        A = A * torch.cat([wsq, wsq], dim=-1)[..., None]
     AtA = A.transpose(-1, -2) @ A
     scale = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1) / 9.0
     M = AtA[..., :8, :8] + (1e-9 * scale)[..., None, None] * torch.eye(

@@ -15,6 +15,24 @@ from __future__ import annotations
 import torch
 
 
+def _copy_leaves(dst, src) -> None:
+    """Write every tensor of state `src` into the tensor at the same
+    place of `dst` (same structure of tuples and NamedTuples); tensors the
+    update carried over unchanged are skipped."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+    elif isinstance(dst, tuple):
+        if not isinstance(src, tuple) or len(src) != len(dst):
+            raise ValueError("donate: the update changed the state's "
+                             "structure")
+        for d, s in zip(dst, src):
+            _copy_leaves(d, s)
+    elif dst is not None or src is not None:
+        raise ValueError(f"donate: cannot write {type(src).__name__} into "
+                         f"{type(dst).__name__}")
+
+
 class TrackerFleet:
     """Fleet of one tracker program over a batch of regions."""
 
@@ -35,9 +53,7 @@ class TrackerFleet:
         new = self.sm.update(states, frame)
         if not self.donate:
             return new
-        # the ported update learns no template: ssm_state is the only
-        # state tensor it replaces
-        states.ssm_state.copy_(new.ssm_state)
+        _copy_leaves(states, new)
         return states
 
     def corners(self, states) -> torch.Tensor:

@@ -127,3 +127,12 @@ class SearchMethod(nn.Module):
     def corners(self, state: TrackerState) -> torch.Tensor:
         """(B, 2, 4) MTF corner matrices."""
         return image_corners(self.ssm, state).transpose(-1, -2)
+
+    def set_region(self, state: TrackerState,
+                   corners_img: torch.Tensor) -> TrackerState:
+        """Move each tracked region to corners (B, 4, 2) without touching
+        its template: the corners are mapped back into the template frame
+        and the SSM state is fitted to them."""
+        c_t = W.apply_warp(inv3x3(state.region.norm_mat), corners_img)
+        return state._replace(
+            ssm_state=self.ssm.fit_pts(state.region.base_corners, c_t))

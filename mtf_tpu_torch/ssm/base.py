@@ -44,6 +44,18 @@ class SSM(nn.Module):
     def warp_pts(self, state: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
         return W.apply_warp(self.to_matrix(state), pts)
 
+    def fit_pts(self, src: torch.Tensor, dst: torch.Tensor,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
+        """Least-squares state (..., S) mapping src to dst points
+        (..., N, 2), optionally weighted per point (..., N): the
+        homography DLT projected through `from_matrix`."""
+        if self.dof < 8:
+            raise NotImplementedError(
+                f"fit_pts for {self.dof}-DOF SSMs (affine and similitude "
+                "DLTs) is not ported yet: it comes with ROADMAP Queue 1, "
+                "slice 4")
+        return self.from_matrix(W.homography_dlt(src, dst, weights))
+
     def compose(self, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
         """State of W(s1) @ W(s2) (s2 applied first in the template
         frame), at full float32 precision."""

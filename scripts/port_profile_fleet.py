@@ -3,9 +3,9 @@ the card.
 
     python scripts/port_profile_fleet.py [sm am B] ...
 
-Each argument triple (default: "fclk ssd 1280", "esm ncc 1024" and
-"eslm ncc 1024") is one fleet in `chip_smoke.py`'s configuration, on its
-scene and corners. Per fleet: 3 warm-up updates, the wall time of 20
+Each argument triple (default: "fclk ssd 1280", "esm ncc 1024",
+"eslm ncc 1024" and "rklt ssd 384") is one fleet in `chip_smoke.py`'s
+configuration for its key, on its scene and corners. Per fleet: 3 warm-up updates, the wall time of 20
 updates by the host clock (ending in a synchronize), then 5 updates under
 `torch.profiler` (CPU and CUDA): the device time of all kernels per
 update, the busy share (that time over the unprofiled update's wall
@@ -35,7 +35,7 @@ def profile(key: str, am: str, b: int, card: str) -> dict:
     dev = torch.device("cuda", 0)
     frame = torch.as_tensor(cs._scene(0), device=dev)
     fleet = TrackerFleet(create_tracker(key, am, "8", device=dev,
-                                        **cs.slice_cfg()), donate=True)
+                                        **cs.cfg_of(key)), donate=True)
     st = fleet.initialize(frame, cs._corners(b))
     for _ in range(3):
         st = fleet.update(st, frame)
@@ -85,7 +85,7 @@ def main(argv) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     triples = ([argv[i:i + 3] for i in range(0, len(argv), 3)] if argv
                else [["fclk", "ssd", "1280"], ["esm", "ncc", "1024"],
-                     ["eslm", "ncc", "1024"]])
+                     ["eslm", "ncc", "1024"], ["rklt", "ssd", "384"]])
     for key, am, b in triples:
         print(json.dumps(profile(key, am, int(b), card)), flush=True)
     return 0

@@ -176,7 +176,7 @@ def test_donate_updates_state_in_place(ref):
     (("esm", "ncc", "8"), {}),
     (("fclk", "ncc", "8"), {}),
     (("fclk", "ssd", "2"), {}),
-    (("rklt", "ssd", "8"), {}),
+    (("rklt", "ssd", "8"), {**CFG, "enable_spi": True}),
     (("fclk", "ssd", "8"), {**CFG, "interp": "linear"}),
     (("fclk", "ssd", "8"), {**CFG, "epsilon": 0.01}),
     (("fclk", "ssd", "8"), {**CFG, "hess_type": "self0"}),

@@ -1,6 +1,6 @@
 """CUDA-kernel tests of `mtf_tpu_torch`, and the JAX-free input helpers
-the chain-kernel tests share (all four modes: SSD and NCC, each with and
-without ESM's J0 operand).
+the kernel tests share: the chain kernel's (all four modes: SSD and NCC,
+each with and without ESM's J0 operand) and the grid-flow kernel K5's.
 
 The `gpu` tests skip where there is no CUDA device (the CUDA kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from mtf_tpu_torch.ops import interp
+from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.ops.kernels import lk_fused as tk
 from mtf_tpu_torch.ssm.projective import Homography
 
@@ -21,8 +23,8 @@ N_POINTS = [169, 625, 2500]
 NEW_MODES = [("ncc", False), ("ssd", True), ("ncc", True)]
 
 
-def _window(rng):
-    img = np.cumsum(np.cumsum(rng.normal(0, 1, (HC, WC)), 0), 1)
+def _window(rng, size=HC):
+    img = np.cumsum(np.cumsum(rng.normal(0, 1, (size, size)), 0), 1)
     return ((img - img.min()) / (img.max() - img.min()) * 255.0).astype(
         np.float32)
 
@@ -71,6 +73,36 @@ def mode_inputs(n, am, esm, b=3, seed=0):
         rng = np.random.default_rng(seed + 100)
         j0 = rng.normal(0, 30.0, (b, 8, n)).astype(np.float32)
     return (win, M0, gens, ph, templ), j0
+
+
+def k5_inputs(n, b=2, seed=5, hw=64, p=8, scale=20.0, zncc=True):
+    """Grid-flow (K5) numpy operands and the planted shift: b smooth
+    (hw, hw) windows; p patch centres in the window's middle, each with a
+    side x side point lattice of template spacing 1/(side + 1) (the
+    patch spans ~0.9 `scale` px); templates sampled from the window at
+    the points moved by a shift of up to 1.5 px, standardised per patch
+    with `zncc`. Every point and its taps stay inside the window. Returns
+    (win (b, hw, hw), pts (b, 2, p*n), templ (b, p*n), scale (b,),
+    shift (b, p, 2) px)."""
+    rng = np.random.default_rng(seed)
+    win = np.stack([_window(rng, hw) for _ in range(b)])
+    side = int(round(np.sqrt(n)))
+    o = np.linspace(-0.5, 0.5, side) * side / (side + 1) * scale
+    off = np.stack(np.meshgrid(o, o), -1).reshape(-1, 2)
+    ctr = rng.uniform(hw * 0.3, hw * 0.7, (b, p, 2))
+    shift = rng.uniform(-1.5, 1.5, (b, p, 2))
+    pts = (ctr[:, :, None] + off[None, None]).reshape(b, p * n, 2)
+    moved = torch.tensor(pts + np.repeat(shift, n, axis=1),
+                         dtype=torch.float32)
+    val = interp.sample_windows(torch.tensor(win), moved[..., 0],
+                                moved[..., 1]).numpy().reshape(b, p, n)
+    templ = val
+    if zncc:
+        templ = (val - val.mean(-1, keepdims=True)) / (
+            val.std(-1, keepdims=True) + 1e-6)
+    return (win, np.ascontiguousarray(pts.transpose(0, 2, 1), np.float32),
+            templ.reshape(b, -1).astype(np.float32),
+            np.full((b,), scale, np.float32), shift)
 
 
 def assert_norm_close(got, want, rel):
@@ -154,3 +186,36 @@ def test_cuda_k3_rejects_bad_j0(cuda_device):
         tk.lk_fused_chain(*args, am="ncc", j0=j0.transpose(1, 2))
     with pytest.raises(ValueError):
         tk.lk_fused_chain(*args, am="zncc")
+
+
+# per-level shapes of the grid's K5 calls: (points per patch, iterations,
+# window), and n = 100 for the kernel's 4-points-per-lane instantiation
+K5_CASES = [(16, 8, 96), (64, 1, 160), (100, 3, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,iters,hw", K5_CASES)
+def test_cuda_k5_matches_plain(cuda_device, n, iters, hw):
+    """The CUDA grid-flow kernel against the plain form on the card:
+    disp within 1e-4 template units (summation order differs), one
+    launch per call."""
+    args = _on(cuda_device, k5_inputs(n, b=8, hw=hw, p=30)[:4])
+    before = gf.grid_flow.launches
+    got = gf.grid_flow(*args, n, iters)
+    torch.cuda.synchronize()
+    assert gf.grid_flow.launches == before + 1
+    want = gf.grid_flow_ref(*args, n, iters)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_k5_rejects_bad_inputs(cuda_device):
+    win, pts, templ, scale = _on(cuda_device, k5_inputs(16, b=2)[:4])
+    with pytest.raises(TypeError):
+        gf.grid_flow(win.double(), pts, templ, scale, 16, 2)
+    with pytest.raises(ValueError):
+        gf.grid_flow(win, pts[:, :, :100], templ, scale, 16, 2)
+    with pytest.raises(ValueError):
+        gf.grid_flow(win, pts, templ, scale, 24, 2)
+    with pytest.raises(ValueError):
+        gf.grid_flow(win, pts, templ, scale.cpu(), 16, 2)
