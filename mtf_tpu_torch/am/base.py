@@ -16,7 +16,7 @@ import torch
 class AMState(NamedTuple):
     """Appearance side of the tracker state.
 
-    template: raw template patch (B, N, C)
+    template: raw template patch (B, N, C), C >= 1 channels
     p_am:     photometric params (B, P); empty for plain AMs
     extra:    per-AM extras (SSD: none; NCC: (n0,), the centred unit
               template (B, N, C))
@@ -28,9 +28,10 @@ class AMState(NamedTuple):
 
 @dataclass(frozen=True)
 class AMParams:
-    """Shared AM configuration (the fields the ported slice reads)."""
+    """Shared AM configuration (the fields the ported slices read)."""
     resx: int = 50
     resy: int = 50
+    n_channels: int = 1     # 3 for the multi-channel keys (mcssd, ssd3)
 
 
 class IlluminationModel:

@@ -7,7 +7,9 @@ from mtf_tpu_torch.am.base import AM, AMState
 
 
 class SSD(AM):
-    """f = -||It - I0||^2 / 2 per tracker, over patches (B, N, C)."""
+    """f = -||It - I0||^2 / 2 per tracker, over patches (B, N, C): every
+    channel of a multi-channel patch (the `mcssd` / `ssd3` keys,
+    `AMParams.n_channels` 3) adds to one sum."""
     name = "ssd"
 
     def _similarity(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:

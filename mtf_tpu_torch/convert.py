@@ -9,13 +9,16 @@ NamedTuples holding numpy arrays laid out as the JAX package lays them
 out, so the JAX NamedTuples can be rebuilt field by field. Fields are
 read by name; nothing of JAX is imported.
 
-Layouts (JAX per tracker -> port, B leading):
-  ssm_state (S,) -> (B, S); am_state.template (N, 1) -> (B, N, 1);
+Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
+3 for mcssd; the tap kind of `interp` changes none of them):
+  ssm_state (S,) -> (B, S); am_state.template (N, C) -> (B, N, C);
   am_state.p_am (0,) -> (B, 0); am_state.extra () for SSD, (n0 (N, 1),)
   for NCC -> batched; region.norm_mat (3, 3), base_pts (N, 2),
   base_corners (4, 2) -> batched;
-  LK extra: J0 (N, S), H0 (S, S) and each coarse pack (templ_s (n_s,),
-  H0_s (S, S), J_s (n_s, S)) -> batched;
+  LK extra: J0 (N·C, S) with rows interleaved n·C + c, H0 (S, S) and
+  each coarse pack (templ_s (n_s,) for gray or (n_s, C), H0_s (S, S),
+  J_s (n_s·C, S), interleaved alike) -> batched, the port keeping the JAX
+  package's row order;
   grid extra: templates (L, P, n, 1), offsets (n, 2), centers0 (P, 2),
   inlier_mask (P,) -> batched. The JAX `key` has no counterpart: the
   port's update counter `step` (a 0-d int64 CPU tensor) starts at 0, and

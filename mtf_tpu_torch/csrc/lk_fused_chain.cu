@@ -1,22 +1,32 @@
-// Chain-fused LK iteration, one channel, linear taps, 8-DOF: the SSD mode
-// (K1), the NCC moment mode (K2) and the ESM mean-Jacobian mode (K3) of one
-// kernel template, instantiated four times (ssd, ncc) x (no ESM, ESM).
+// Chain-fused LK iteration, 8-DOF: the SSD mode (K1), the NCC moment mode
+// (K2), the ESM mean-Jacobian mode (K3) and the multi-channel SSD mode
+// (K4), each with linear, Catmull-Rom or cubic B-spline taps (K1c), of one
+// kernel template. Only what the trackers reach is instantiated: the four
+// single-channel modes (ssd, ncc) x (no ESM, ESM) and multi-channel SSD
+// without ESM, each for the three tap kinds (15 instantiations).
 //
 // Replaces the TPU kernel mtf_tpu/ops/pallas/lk_fused.py:_chain_kernel_one
-// (ch == 1, blur 0; pallas_call at lk_fused.py:442). Contract, per tracker b:
-//   inputs   win (Hc, Wc) f32 window, M0 (3, 3) window <- template-frame
-//            warp, gens (8, 3, 3) SSM generators, ph (3, N) homogeneous
-//            base points, templ (N,) (NCC: the centred unit template n0),
-//            ESM only: j0 (8, N) template-side pixel Jacobian
-//   per point  (val, dx, dy) the dense-convention bilinear sample at the
-//            projected point clamped to [0.001, size - 1.001] (the
-//            replicate border; the derivative along an axis is 0 at an
-//            exactly integer coordinate, as phi'(0) = 0 in the dense
-//            form), Jm = dx * jx + dy * jy with (jx, jy) the
-//            quotient-rule Jacobian w.r.t. the 8 state params, and with
-//            ESM Jm := (Jm + J0) / 2
-//   outputs  val (N,), and
-//            SSD: g (8) = Jm (templ - val), h (8, 8) = Jm Jm^T;
+// (ch 1-4, blur 0, kind linear / cubic / cubic_bspl; pallas_call at
+// lk_fused.py:442). Contract, per tracker b:
+//   inputs   win (C, Hc, Wc) f32 window (C = 1 outside the MC mode),
+//            M0 (3, 3) window <- template-frame warp, gens (8, 3, 3) SSM
+//            generators, ph (3, N) homogeneous base points, templ (C, N)
+//            (NCC: the centred unit template n0), ESM only: j0 (8, N)
+//            template-side pixel Jacobian
+//   per point  the projected point, clamped to [0.001, size - 1.001]
+//            (linear) or [1.001, size - 2.001] (cubic kinds): the
+//            replicate border, every tap inside the window; the dense tap
+//            weights phi(t) and phi'(t) at t = k - x per axis (linear:
+//            2 taps, the derivative along an axis is 0 at an exactly
+//            integer coordinate, as phi'(0) = 0 in the dense form; cubic:
+//            4 taps, phi' continuous); (jx, jy) the quotient-rule
+//            Jacobian w.r.t. the 8 state params, computed once per point;
+//            per channel c: (val_c, dx_c, dy_c) from channel c's taps at
+//            the shared tap positions and weights, Jm_c = dx_c jx + dy_c jy,
+//            with ESM Jm := (Jm + J0) / 2
+//   outputs  val (C, N), and
+//            SSD: g (8) = sum_c Jm_c (templ_c - val_c),
+//                 h (8, 8) = sum_c Jm_c Jm_c^T;
 //            NCC: g (8) = a = Jm n0, h (8, 8) = R = Jm Jm^T,
 //                 mom (2, 8) = [Jm val; Jm 1], scal (5) = (sum val,
 //                 sum val^2, sum n0 val, live count, sum n0).
@@ -36,22 +46,30 @@
 // 8 + 36 + 16 + 5 = 65), then a warp-shuffle + shared-memory block
 // reduction writes them out without atomics (deterministic summation
 // order). j0 is laid out (B, 8, N), so neighbouring threads read
-// neighbouring points of each row.
+// neighbouring points of each row. The MC mode sums its channels into the
+// same 44 accumulators (no register grows with C); the channel count is a
+// runtime loop, so one instantiation takes C = 1-4, and the single-channel
+// modes keep C = 1 at compile time. The TPU kernel builds its (Wc, TN)
+// tap-weight matrices once and shares them across channels; here the
+// shared part is per point: projection, warp Jacobian, tap positions and
+// weights once, then C times only the tap reads and the accumulation.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32), each input read once and
 // each output written once: per tracker the window pixels the points' taps
-// cover (at most the 144x144 f32 window, 83 KB), the points (12 B/point),
-// the template (4 B/point), with ESM j0 (32 B/point), and val written
-// (4 B/point); ~200 FLOPs per point (SSD) to ~260 (NCC + ESM). At B = 1024,
-// N = 2500, NCC + ESM: ~85 MB of windows, 82 MB of j0, 31 MB of points,
-// 10 + 10 MB of template and values, ~0.21 GB in all, ~0.06 ms; ~0.7 GFLOP
-// is ~0.01 ms. Memory bounds every mode. The kernel's own limit is the
-// exposed latency of the dependent tap gathers: K1 at B = 1280, N = 2500
-// took 0.17 ms on an H100 80GB HBM3 at 700 W. Neighbouring threads take
-// neighbouring points, which map to neighbouring pixels, so tap reads
-// coalesce. The register accumulators leave one 256-thread block per SM,
-// which leaves little to hide that latency; the NCC modes hold 21 more
-// accumulators than SSD and may spill. Fewer live registers, several
+// cover (at most C x the 144x144 f32 window, 83 KB per channel), the
+// points (12 B/point), the template and val (4 B/point/channel each), with
+// ESM j0 (32 B/point); ~360 FLOPs per point for linear SSD, ~700 for
+// cubic (4 + 4 weights of ~14 FLOPs, 16 taps x 3 sums per channel), plus
+// ~130 per extra channel. At B = 1024, N = 2500, NCC + ESM: ~85 MB of
+// windows, 82 MB of j0, 31 MB of points, 10 + 10 MB of template and
+// values, ~0.21 GB in all, ~0.06 ms; ~0.7 GFLOP is ~0.01 ms. Memory bounds
+// every mode. The kernel's own limit is the exposed latency of the
+// dependent tap gathers: K1 at B = 1280, N = 2500 took 0.17 ms on an H100
+// 80GB HBM3 at 700 W. Neighbouring threads take neighbouring points, which
+// map to neighbouring pixels, so tap reads coalesce. The register
+// accumulators leave one 256-thread block per SM, which leaves little to
+// hide that latency; the NCC modes hold 21 more accumulators than SSD and
+// the cubic kinds 16 more tap weights. Fewer live registers, several
 // small-N trackers per block, taps read straight from the shared frame (no
 // crop) and a bf16 window are later work.
 
@@ -65,8 +83,47 @@ constexpr int kNH = kS * (kS + 1) / 2;      // upper triangle of J^T J
 constexpr int kNScal = 5;                   // NCC scalar moments
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// tap kinds, in the order of KINDS in ops/kernels/dense_sample.py
+constexpr int kLinear = 0;
+constexpr int kCubic = 1;                   // Catmull-Rom
+constexpr int kBspl = 2;                    // cubic B-spline
 
-template <bool kNcc, bool kEsm>
+// One cubic tap at offset t = k - x: its weight phi(t) and its derivative
+// with respect to x, -phi'(t) (dense_sample.py:_weights_dense).
+template <int kKind>
+__device__ __forceinline__ void cubic_tap(float t, float& w, float& d) {
+  const float a = fabsf(t);
+  const float s = t > 0.0f ? 1.0f : (t < 0.0f ? -1.0f : 0.0f);
+  const float a2 = a * a, a3 = a * a * a;
+  float w_in, w_out, d_in, d_out;
+  if constexpr (kKind == kCubic) {
+    w_in = 1.5f * a3 - 2.5f * a2 + 1.0f;
+    w_out = -0.5f * a3 + 2.5f * a2 - 4.0f * a + 2.0f;
+    d_in = 4.5f * a2 - 5.0f * a;
+    d_out = -1.5f * a2 + 5.0f * a - 4.0f;
+  } else {
+    const float u = a - 2.0f;
+    w_in = 0.5f * a3 - a2 + 2.0f / 3.0f;
+    w_out = -(u * u * u) / 6.0f;
+    d_in = 1.5f * a2 - 2.0f * a;
+    d_out = -0.5f * (u * u);
+  }
+  w = a < 1.0f ? w_in : (a < 2.0f ? w_out : 0.0f);
+  d = -((a < 1.0f ? d_in : (a < 2.0f ? d_out : 0.0f)) * s);
+}
+
+// The 4 cubic taps along one axis of a clamped coordinate x, starting at
+// floor(x) - 1; t = k - x is exact in float32, as in the dense form.
+template <int kKind>
+__device__ __forceinline__ void cubic_axis(float x, float (&w)[4],
+                                           float (&d)[4]) {
+  const float f = floorf(x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    cubic_tap<kKind>((f + (float)(j - 1)) - x, w[j], d[j]);
+}
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
 __global__ void __launch_bounds__(kThreads)
 lk_fused_chain_kernel(const float* __restrict__ win,
                       const float* __restrict__ m0,
@@ -79,18 +136,20 @@ lk_fused_chain_kernel(const float* __restrict__ win,
                       float* __restrict__ h_out,
                       float* __restrict__ mom_out,
                       float* __restrict__ scal_out,
-                      int hc, int wc, int n) {
+                      int hc, int wc, int n, int channels) {
   // accumulator layout: [g or a (8) | J^T J upper triangle (36)], and for
   // NCC [Jm v (8) | Jm (8) | the 5 scalars]
   constexpr int kMom = kS + kNH;
   constexpr int kScal = kMom + 2 * kS;
   constexpr int kNAcc = kNcc ? kScal + kNScal : kMom;
+  constexpr bool kLin = kKind == kLinear;
   // rows 0..2: M0; rows 3 + 3 s + r: row r of M0 G_s
   __shared__ float a_rows[3 + 3 * kS][3];
   __shared__ float red[kWarps][kNAcc];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int nch = kMc ? channels : 1;
   const float* m = m0 + (size_t)b * 9;
   if (tid < 9) a_rows[tid / 3][tid % 3] = m[tid];
   for (int e = tid; e < kS * 9; e += kThreads) {
@@ -106,21 +165,24 @@ lk_fused_chain_kernel(const float* __restrict__ win,
 #pragma unroll
   for (int i = 0; i < kNAcc; ++i) acc[i] = 0.0f;
 
+  const size_t plane = (size_t)hc * wc;
   const float* phb = ph + (size_t)b * 3 * n;
-  const float* tb = templ + (size_t)b * n;
-  const float* wb = win + (size_t)b * hc * wc;
+  const float* tb = templ + (size_t)b * nch * n;
+  const float* wb = win + (size_t)b * nch * plane;
   const float* j0b = kEsm ? j0 + (size_t)b * kS * n : nullptr;
-  float* vb = val + (size_t)b * n;
+  float* vb = val + (size_t)b * nch * n;
   // clamp bounds rounded from double, as the plain form's scalars are
-  const float hix = (float)((double)wc - 1.001);
-  const float hiy = (float)((double)hc - 1.001);
+  const float lo = kLin ? 0.001f : 1.001f;
+  const float hix = (float)((double)wc - (kLin ? 1.001 : 2.001));
+  const float hiy = (float)((double)hc - (kLin ? 1.001 : 2.001));
 
   for (int p = tid; p < n; p += kThreads) {
     const float px = phb[p], py = phb[n + p], pw = phb[2 * n + p];
-    // The derivative steps at integer coordinates, so the projection is
-    // rounded exactly as the plain form rounds it: separate products and
-    // sums in its order (no FMA contraction), an IEEE reciprocal, one
-    // product. Both forms then put the same points on integers.
+    // The linear derivative steps at integer coordinates, so the
+    // projection is rounded exactly as the plain form rounds it: separate
+    // products and sums in its order (no FMA contraction), an IEEE
+    // reciprocal, one product. Both forms then put the same points on
+    // integers.
     const float q0 = __fadd_rn(__fadd_rn(__fmul_rn(a_rows[0][0], px),
                                          __fmul_rn(a_rows[0][1], py)),
                                __fmul_rn(a_rows[0][2], pw));
@@ -134,22 +196,8 @@ lk_fused_chain_kernel(const float* __restrict__ win,
     const float xr = __fmul_rn(q0, winv);
     const float yr = __fmul_rn(q1, winv);
 
-    const float x = fminf(fmaxf(xr, 0.001f), hix);
-    const float y = fminf(fmaxf(yr, 0.001f), hiy);
-    const float xf = floorf(x), yf = floorf(y);
-    const float fx = x - xf, fy = y - yf;
-    const float* t0 = wb + (size_t)((int)yf) * wc + (int)xf;
-    const float v00 = t0[0], v01 = t0[1], v10 = t0[wc], v11 = t0[wc + 1];
-    const float top = v00 * (1.0f - fx) + v01 * fx;
-    const float bot = v10 * (1.0f - fx) + v11 * fx;
-    const float v = top * (1.0f - fy) + bot * fy;
-    const float dx = fx > 0.0f ? (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy
-                               : 0.0f;
-    const float dy = fy > 0.0f ? bot - top : 0.0f;
-    vb[p] = v;
-    const float t = tb[p];
-
-    float jm[kS];
+    // the warp Jacobian, shared by every channel
+    float jx[kS], jy[kS];
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
       const float* ax = a_rows[3 + 3 * s];
@@ -158,32 +206,86 @@ lk_fused_chain_kernel(const float* __restrict__ win,
       const float qx = ax[0] * px + ax[1] * py + ax[2] * pw;
       const float qy = ay[0] * px + ay[1] * py + ay[2] * pw;
       const float qw = aw[0] * px + aw[1] * py + aw[2] * pw;
-      const float jx = (qx - xr * qw) * winv;   // quotient rule
-      const float jy = (qy - yr * qw) * winv;
-      jm[s] = jx * dx + jy * dy;
-      if constexpr (kEsm) jm[s] = 0.5f * (jm[s] + j0b[(size_t)s * n + p]);
+      jx[s] = (qx - xr * qw) * winv;   // quotient rule
+      jy[s] = (qy - yr * qw) * winv;
     }
-    // SSD: the residual weights g; NCC: n0 weights a
-    const float w = kNcc ? t : t - v;
-#pragma unroll
-    for (int s = 0; s < kS; ++s) acc[s] += jm[s] * w;
-    int k = kS;
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-#pragma unroll
-      for (int j = i; j < kS; ++j) acc[k++] += jm[i] * jm[j];
+
+    // tap positions and weights, shared by every channel
+    const float x = fminf(fmaxf(xr, lo), hix);
+    const float y = fminf(fmaxf(yr, lo), hiy);
+    float fx = 0.0f, fy = 0.0f;
+    float wx[4], dwx[4], wy[4], dwy[4];
+    const float* t0;
+    if constexpr (kLin) {
+      const float xf = floorf(x), yf = floorf(y);
+      fx = x - xf;
+      fy = y - yf;
+      t0 = wb + (size_t)((int)yf) * wc + (int)xf;
+    } else {
+      cubic_axis<kKind>(x, wx, dwx);
+      cubic_axis<kKind>(y, wy, dwy);
+      t0 = wb + (size_t)((int)floorf(y) - 1) * wc + ((int)floorf(x) - 1);
     }
-    if constexpr (kNcc) {
+
+    for (int c = 0; c < nch; ++c) {
+      const float* tc = t0 + c * plane;
+      float v, dx, dy;
+      if constexpr (kLin) {
+        const float v00 = tc[0], v01 = tc[1], v10 = tc[wc], v11 = tc[wc + 1];
+        const float top = v00 * (1.0f - fx) + v01 * fx;
+        const float bot = v10 * (1.0f - fx) + v11 * fx;
+        v = top * (1.0f - fy) + bot * fy;
+        dx = fx > 0.0f ? (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy : 0.0f;
+        dy = fy > 0.0f ? bot - top : 0.0f;
+      } else {
+        // each row summed first, as the dense contractions do
+        v = dx = dy = 0.0f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* row = tc + r * wc;
+          float rs = 0.0f, rd = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float pix = row[j];
+            rs += wx[j] * pix;
+            rd += dwx[j] * pix;
+          }
+          v += wy[r] * rs;
+          dx += wy[r] * rd;
+          dy += dwy[r] * rs;
+        }
+      }
+      vb[(size_t)c * n + p] = v;
+      const float t = tb[(size_t)c * n + p];
+
+      float jm[kS];
 #pragma unroll
       for (int s = 0; s < kS; ++s) {
-        acc[kMom + s] += jm[s] * v;
-        acc[kMom + kS + s] += jm[s];
+        jm[s] = jx[s] * dx + jy[s] * dy;
+        if constexpr (kEsm) jm[s] = 0.5f * (jm[s] + j0b[(size_t)s * n + p]);
       }
-      acc[kScal + 0] += v;
-      acc[kScal + 1] += v * v;
-      acc[kScal + 2] += t * v;
-      acc[kScal + 3] += 1.0f;
-      acc[kScal + 4] += t;
+      // SSD: the residual weights g; NCC: n0 weights a
+      const float w = kNcc ? t : t - v;
+#pragma unroll
+      for (int s = 0; s < kS; ++s) acc[s] += jm[s] * w;
+      int k = kS;
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+#pragma unroll
+        for (int j = i; j < kS; ++j) acc[k++] += jm[i] * jm[j];
+      }
+      if constexpr (kNcc) {
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          acc[kMom + s] += jm[s] * v;
+          acc[kMom + kS + s] += jm[s];
+        }
+        acc[kScal + 0] += v;
+        acc[kScal + 1] += v * v;
+        acc[kScal + 2] += t * v;
+        acc[kScal + 3] += 1.0f;
+        acc[kScal + 4] += t;
+      }
     }
   }
 
@@ -222,42 +324,69 @@ lk_fused_chain_kernel(const float* __restrict__ win,
   }
 }
 
-template <bool kNcc, bool kEsm>
-void launch(const void* win, const void* m0, const void* gens,
-            const void* ph, const void* templ, const void* j0, void* val,
-            void* g, void* h, void* mom, void* scal, int batch, int hc,
-            int wc, int n, cudaStream_t stream) {
-  lk_fused_chain_kernel<kNcc, kEsm><<<batch, kThreads, 0, stream>>>(
-      (const float*)win, (const float*)m0, (const float*)gens,
-      (const float*)ph, (const float*)templ, (const float*)j0, (float*)val,
-      (float*)g, (float*)h, (float*)mom, (float*)scal, hc, wc, n);
+struct Args {
+  const float *win, *m0, *gens, *ph, *templ, *j0;
+  float *val, *g, *h, *mom, *scal;
+  int batch, hc, wc, n, channels;
+  cudaStream_t stream;
+};
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
+void launch(const Args& a) {
+  lk_fused_chain_kernel<kNcc, kEsm, kMc, kKind>
+      <<<a.batch, kThreads, 0, a.stream>>>(a.win, a.m0, a.gens, a.ph,
+                                           a.templ, a.j0, a.val, a.g, a.h,
+                                           a.mom, a.scal, a.hc, a.wc, a.n,
+                                           a.channels);
+}
+
+// the five modes of one tap kind; false where there is no instantiation
+template <int kKind>
+bool launch_mode(const Args& a, int ncc, int esm, int mc) {
+  if (mc) {
+    if (ncc || esm) return false;
+    launch<false, false, true, kKind>(a);
+  } else if (ncc && esm) {
+    launch<true, true, false, kKind>(a);
+  } else if (ncc) {
+    launch<true, false, false, kKind>(a);
+  } else if (esm) {
+    launch<false, true, false, kKind>(a);
+  } else {
+    launch<false, false, false, kKind>(a);
+  }
+  return true;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous float32 tensors; j0 is read only when esm != 0,
-// mom and scal are written only when ncc != 0 (null otherwise). `stream`
-// is the caller's CUDA stream. Returns cudaGetLastError() after the
-// launch.
+// mom and scal are written only when ncc != 0 (null otherwise). `channels`
+// is C (1-4) with mc != 0 and 1 otherwise; `kind` is 0 linear, 1 cubic,
+// 2 cubic_bspl. `stream` is the caller's CUDA stream. Returns
+// cudaErrorInvalidValue, launching nothing, for a combination without an
+// instantiation, else cudaGetLastError() after the launch.
 extern "C" int lk_fused_chain_launch(const void* win, const void* m0,
                                      const void* gens, const void* ph,
                                      const void* templ, const void* j0,
                                      void* val, void* g, void* h, void* mom,
                                      void* scal, int batch, int hc, int wc,
-                                     int n, int ncc, int esm, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ncc && esm)
-    launch<true, true>(win, m0, gens, ph, templ, j0, val, g, h, mom, scal,
-                       batch, hc, wc, n, st);
-  else if (ncc)
-    launch<true, false>(win, m0, gens, ph, templ, j0, val, g, h, mom, scal,
-                        batch, hc, wc, n, st);
-  else if (esm)
-    launch<false, true>(win, m0, gens, ph, templ, j0, val, g, h, mom, scal,
-                        batch, hc, wc, n, st);
-  else
-    launch<false, false>(win, m0, gens, ph, templ, j0, val, g, h, mom, scal,
-                         batch, hc, wc, n, st);
+                                     int n, int channels, int ncc, int esm,
+                                     int mc, int kind, void* stream) {
+  const Args a{(const float*)win, (const float*)m0, (const float*)gens,
+               (const float*)ph, (const float*)templ, (const float*)j0,
+               (float*)val, (float*)g, (float*)h, (float*)mom,
+               (float*)scal, batch, hc, wc, n, mc ? channels : 1,
+               (cudaStream_t)stream};
+  if (channels < 1 || channels > 4) return (int)cudaErrorInvalidValue;
+  bool ok = false;
+  if (kind == kLinear)
+    ok = launch_mode<kLinear>(a, ncc, esm, mc);
+  else if (kind == kCubic)
+    ok = launch_mode<kCubic>(a, ncc, esm, mc);
+  else if (kind == kBspl)
+    ok = launch_mode<kBspl>(a, ncc, esm, mc);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

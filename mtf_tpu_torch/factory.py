@@ -7,11 +7,15 @@
                    epsilon=0.0, interp="linear_mm", crop=160,
                    grid_sub_iters=(1, 8), grid_coarse_stride=2,
                    coarse_pt_iters=((4, 6), (2, 3)))
+    create_tracker("fclk", "mcssd", "8", ..., interp="linear_mm")
 
-The tracker lives on the card unless `device` says otherwise
-(`device="cpu"` for a CPU run); without a card and without `device` it
-raises. Keys and options outside the ported slices raise
-`NotImplementedError` naming the ROADMAP queue that brings them.
+The LK keys take `interp` "linear_mm", "cubic_mm" (Catmull-Rom) or
+"cubic_bspl_mm" (cubic B-spline); the AM keys "mcssd" and "ssd3" are SSD
+over (H, W, 3) frames (FCLK and its LM variant fclm only, as in the JAX
+package's fused path). The tracker lives on the card unless `device`
+says otherwise (`device="cpu"` for a CPU run); without a card and
+without `device` it raises. Keys and options outside the ported slices
+raise `NotImplementedError` naming the ROADMAP queue that brings them.
 """
 from __future__ import annotations
 

@@ -4,21 +4,29 @@ Images are (H, W) or (H, W, C) float tensors; points are (..., N, 2) in
 (x, y) order with any leading batch dims; patches are (..., N, C).
 Border handling is 'replicate' (the slice's only border mode).
 
-`sample_dense` keeps the JAX dense ("*_mm") conventions exactly, while
-reading the taps by gather instead of the TPU's tap-weight matmuls:
+`sample_dense` and `sample_windows` keep the JAX dense ("*_mm")
+conventions exactly, while reading the taps by gather instead of the
+TPU's tap-weight matmuls:
   * coordinates are clamped to [0.001, size - 1.001] of the (cropped)
-    window, which makes the replicate border and keeps all 4 taps inside;
-  * the derivative is the dense kernel's phi'(t) = -sign(t) for |t| < 1,
-    so at an exactly integer coordinate the derivative along that axis
-    is 0, not the one-sided difference a gather form would give.
+    window for linear taps and to [1.001, size - 2.001] for the 4x4 cubic
+    taps (`cubic`: Catmull-Rom, `cubic_bspl`: cubic B-spline), which
+    makes the replicate border and keeps every tap inside;
+  * the tap weights and derivatives are the dense kernel's
+    (`ops/kernels/dense_sample.py:_weights_dense`): for linear taps
+    phi'(t) = -sign(t) for |t| < 1, so at an exactly integer coordinate
+    the derivative along that axis is 0, not the one-sided difference a
+    gather form would give; the cubic phi' is continuous there.
 """
 from __future__ import annotations
 
 import torch
 
+from mtf_tpu_torch.ops.kernels.dense_sample import KINDS, _weights_dense
+
 LINEAR = "linear"
 CUBIC = "cubic"            # Catmull-Rom
 LINEAR_MM = "linear_mm"
+MM_SUFFIX = "_mm"          # dense kinds: linear_mm, cubic_mm, cubic_bspl_mm
 REPLICATE = "replicate"
 
 
@@ -49,8 +57,9 @@ def sample(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     if border != REPLICATE:
         raise NotImplementedError(
             f"border {border!r} is not ported yet: ROADMAP Queue 1, slice 8")
-    if kind == LINEAR_MM:
-        return sample_dense(img, pts, LINEAR, need_grad=False)[0]
+    if kind.endswith(MM_SUFFIX):
+        return sample_dense(img, pts, kind[:-len(MM_SUFFIX)],
+                            need_grad=False)[0]
     img = _as_hwc(img)
     h, w, c = img.shape
     img_flat = img.reshape(h * w, c)
@@ -85,47 +94,102 @@ def crop_origin(pts: torch.Tensor, size: int, full: int,
                        float(full - size))
 
 
-def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   need_grad: bool = False):
-    """Dense-convention linear values of per-tracker windows: win
-    (B, Hc, Wc) at window coordinates x, y (B, N) -> (B, N). Coordinates
-    are clamped to [0.001, size - 1.001] of each window, as
-    `sample(window, pts, "linear_mm")` does for one window. With
-    `need_grad`, returns (val, dx, dy), the derivatives by the dense
-    convention (0 along an axis at an exactly integer coordinate)."""
-    b, hc, wc = win.shape
-    cx = torch.clamp(x, 0.001, wc - 1.001)
-    cy = torch.clamp(y, 0.001, hc - 1.001)
-    fxs, fys = torch.floor(cx), torch.floor(cy)
-    fx, fy = cx - fxs, cy - fys
-    i00 = fys.long() * wc + fxs.long()
-    taps = win.reshape(b, hc * wc).gather(
-        1, torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1], dim=-1))
-    v00, v01, v10, v11 = taps.chunk(4, dim=-1)
-    top = v00 * (1.0 - fx) + v01 * fx
-    bot = v10 * (1.0 - fx) + v11 * fx
-    val = top * (1.0 - fy) + bot * fy
+def _clamp_margins(kind: str):
+    """(lo, hi) of the dense clamp [lo, size - hi] of `kind`'s taps."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown dense kind {kind!r}; known: {KINDS}")
+    return (0.001, 1.001) if kind == LINEAR else (1.001, 2.001)
+
+
+def _cubic_axis(c: torch.Tensor, kind: str):
+    """The 4 cubic taps along one axis at clamped coordinates c: the
+    first tap's index floor(c) - 1, and per tap j its weight phi(t_j) and
+    derivative d/dc phi(t_j) = -phi'(t_j), t_j = floor(c) - 1 + j - c
+    (exact in float32, as the dense form's k - c is)."""
+    f = torch.floor(c)
+    ws, ds = [], []
+    for j in range(4):
+        w, dphi = _weights_dense((f + float(j - 1)) - c, kind)
+        ws.append(w)
+        ds.append(-dphi)
+    return f - 1.0, ws, ds
+
+
+def _cubic_sum(tap, wx, dwx, wy, dwy, need_grad: bool):
+    """Value and derivatives from the 4x4 taps (`tap(r, j)`: row r,
+    column j), each row summed first, as the dense contractions do."""
+    rows = [sum(tap(r, j) * wx[j] for j in range(4)) for r in range(4)]
+    val = sum(rows[r] * wy[r] for r in range(4))
     if not need_grad:
-        return val
-    zero = torch.zeros_like(val)
-    dx = torch.where(fx > 0, (v01 - v00) * (1.0 - fy) + (v11 - v10) * fy,
-                     zero)
-    return val, dx, torch.where(fy > 0, bot - top, zero)
+        return val, None, None
+    rows_dx = [sum(tap(r, j) * dwx[j] for j in range(4)) for r in range(4)]
+    return (val, sum(rows_dx[r] * wy[r] for r in range(4)),
+            sum(rows[r] * dwy[r] for r in range(4)))
+
+
+def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   need_grad: bool = False, kind: str = LINEAR):
+    """Dense-convention values of per-tracker windows: win (B, Hc, Wc)
+    or, with C channels, (B, C, Hc, Wc) at window coordinates x, y
+    (B, N) -> (B, N) or (B, C, N). Coordinates are clamped to the dense
+    bounds of `kind` (linear, cubic, cubic_bspl) in each window, as
+    `sample(window, pts, kind + "_mm")` does for one window. With
+    `need_grad`, returns (val, dx, dy), the derivatives by the dense
+    convention (linear: 0 along an axis at an exactly integer
+    coordinate)."""
+    lo, hi = _clamp_margins(kind)
+    gray = win.dim() == 3
+    if gray:
+        win = win[:, None]
+    b, c, hc, wc = win.shape
+    cx = torch.clamp(x, lo, wc - hi)
+    cy = torch.clamp(y, lo, hc - hi)
+    flat = win.reshape(b, c, hc * wc)
+    if kind == LINEAR:
+        fxs, fys = torch.floor(cx), torch.floor(cy)
+        fx, fy = (cx - fxs)[:, None], (cy - fys)[:, None]
+        i00 = fys.long() * wc + fxs.long()
+        idx = torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1], dim=-1)
+        taps = flat.gather(2, idx[:, None].expand(b, c, idx.shape[-1]))
+        v00, v01, v10, v11 = taps.chunk(4, dim=-1)
+        top = v00 * (1.0 - fx) + v01 * fx
+        bot = v10 * (1.0 - fx) + v11 * fx
+        val = top * (1.0 - fy) + bot * fy
+        if need_grad:
+            zero = torch.zeros_like(val)
+            dx = torch.where(fx > 0, (v01 - v00) * (1.0 - fy)
+                             + (v11 - v10) * fy, zero)
+            dy = torch.where(fy > 0, bot - top, zero)
+    else:
+        x0, wx, dwx = _cubic_axis(cx, kind)
+        y0, wy, dwy = _cubic_axis(cy, kind)
+        base = y0.long() * wc + x0.long()                   # (B, N)
+        n = base.shape[-1]
+        idx = torch.cat([base + (r * wc + j) for r in range(4)
+                         for j in range(4)], dim=-1)        # (B, 16 N)
+        taps = flat.gather(2, idx[:, None].expand(b, c, 16 * n)).reshape(
+            b, c, 4, 4, n)
+        val, dx, dy = _cubic_sum(
+            lambda r, j: taps[:, :, r, j], *[
+                [t[:, None] for t in ts] for ts in (wx, dwx, wy, dwy)],
+            need_grad=need_grad)
+    if gray:
+        val = val[:, 0]
+        if need_grad:
+            dx, dy = dx[:, 0], dy[:, 0]
+    return (val, dx, dy) if need_grad else val
 
 
 def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
                  crop: int | None = None, need_grad: bool = True):
-    """Dense-convention linear sampling -> (patch (..., N, C),
-    grad (..., N, C, 2) | None).
+    """Dense-convention sampling with `kind` taps (linear, cubic,
+    cubic_bspl) -> (patch (..., N, C), grad (..., N, C, 2) | None).
 
     `crop`: window size; each batch element's window starts at
     floor(min(pts)) - 2 (clipped into the image), and coordinates are
     clamped to that window, as `jax.lax.dynamic_slice` plus the dense
     clamp do in the JAX package. The window is never materialised."""
-    if kind != LINEAR:
-        raise NotImplementedError(
-            f"dense interp {kind!r} is not ported yet: ROADMAP Queue 1, "
-            "slice 4")
+    lo, hi = _clamp_margins(kind)
     img = _as_hwc(img)
     h, w, c = img.shape
     x, y = pts[..., 0], pts[..., 1]
@@ -136,13 +200,22 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     else:
         hc, wc = h, w
         ox = oy = torch.zeros((), dtype=x.dtype, device=x.device)
-    cx = torch.clamp(x - ox, 0.001, wc - 1.001)
-    cy = torch.clamp(y - oy, 0.001, hc - 1.001)
+    cx = torch.clamp(x - ox, lo, wc - hi)
+    cy = torch.clamp(y - oy, lo, hc - hi)
+    img_flat = img.reshape(h * w, c)
+    if kind != LINEAR:
+        x0, wx, dwx = _cubic_axis(cx, kind)
+        y0, wy, dwy = _cubic_axis(cy, kind)
+        xi, yi = (x0 + ox).long(), (y0 + oy).long()
+        val, dx, dy = _cubic_sum(
+            lambda r, j: _gather(img_flat, h, w, xi + j, yi + r), *[
+                [t[..., None] for t in ts] for ts in (wx, dwx, wy, dwy)],
+            need_grad=need_grad)
+        return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
     fxs, fys = torch.floor(cx), torch.floor(cy)
     fx, fy = (cx - fxs)[..., None], (cy - fys)[..., None]
     xi = (fxs + ox).long()
     yi = (fys + oy).long()
-    img_flat = img.reshape(h * w, c)
     v00 = _gather(img_flat, h, w, xi, yi)
     v01 = _gather(img_flat, h, w, xi + 1, yi)
     v10 = _gather(img_flat, h, w, xi, yi + 1)

@@ -198,7 +198,7 @@ class GridTracker(SearchMethod):
     def _init_extra(self, state: TrackerState, frame: torch.Tensor):
         if frame.dim() != 2:
             raise NotImplementedError(
-                "multi-channel frames come with ROADMAP Queue 1, slice 4")
+                "multi-channel frames on the grid come with ROADMAP Queue 1c")
         g = self.grid
         region = state.region
         b = region.norm_mat.shape[0]

@@ -165,9 +165,10 @@ def test_update_runs_ten_ncc_esm_iterations(key, monkeypatch):
     st = fl.initialize(frame, CORNERS)
     calls = []
 
-    def spy(window, M0, gens, ph, templ, am="ssd", j0=None):
+    def spy(window, M0, gens, ph, templ, am="ssd", j0=None, **kw):
         calls.append((ph.shape[-1], am, tuple(j0.shape)))
-        return lk_fused_chain(window, M0, gens, ph, templ, am=am, j0=j0)
+        return lk_fused_chain(window, M0, gens, ph, templ, am=am, j0=j0,
+                              **kw)
 
     monkeypatch.setattr(lk_mod, "lk_fused_chain", spy)
     fl.update(st, np.roll(frame, (3, 2), (0, 1)))

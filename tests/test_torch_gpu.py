@@ -1,6 +1,7 @@
 """CUDA-kernel tests of `mtf_tpu_torch`, and the JAX-free input helpers
-the kernel tests share: the chain kernel's (all four modes: SSD and NCC,
-each with and without ESM's J0 operand) and the grid-flow kernel K5's.
+the kernel tests share: the chain kernel's (SSD and NCC, each with and
+without ESM's J0 operand, and multi-channel SSD; linear and cubic taps)
+and the grid-flow kernel K5's.
 
 The `gpu` tests skip where there is no CUDA device (the CUDA kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -21,6 +22,11 @@ HC = WC = 144
 N_POINTS = [169, 625, 2500]
 # (am, esm) of the kernel instantiations beyond K1
 NEW_MODES = [("ncc", False), ("ssd", True), ("ncc", True)]
+CUBIC_KINDS = ["cubic", "cubic_bspl"]
+# (am, esm, channels) of every chain-kernel mode: the four single-channel
+# modes and multi-channel SSD (3 channels)
+ALL_MODES = [("ssd", False, 1)] + [m + (1,) for m in NEW_MODES] \
+    + [("ssd", False, 3)]
 
 
 def _window(rng, size=HC):
@@ -29,22 +35,25 @@ def _window(rng, size=HC):
         np.float32)
 
 
-def chain_inputs(n, b=3, seed=0):
+def chain_inputs(n, b=3, seed=0, size=HC):
     """(window, M0, gens, ph, templ) numpy inputs of the chain kernel for
-    b trackers on (144, 144) windows. Tracker 0 is a pure translation of
-    integer base points (exactly integer x coordinates, where the dense x
-    derivative is 0); the others are random near-identity homographies
-    of a normalized grid. Every point stays well inside the window, and
-    so inside the TPU kernel's 128-row bands."""
+    b trackers on (size, size) windows (144 by default). Tracker 0 is a
+    pure translation of integer base points (exactly integer x
+    coordinates, where the dense linear x derivative is 0); the others
+    are random near-identity homographies of a normalized grid. Every
+    point stays well inside the window, and so inside the TPU kernel's
+    128-row bands."""
     rng = np.random.default_rng(seed)
     side = int(round(np.sqrt(n)))
     gens = Homography(device="cpu")._generators()
-    win = np.stack([_window(rng) for _ in range(b)])
+    win = np.stack([_window(rng, size) for _ in range(b)])
     lin = np.linspace(-0.5, 0.5, side)
     g = np.stack(np.meshgrid(lin, lin), -1).reshape(-1, 2)
     ph = np.tile(np.concatenate([g.T, np.ones((1, n))])[None], (b, 1, 1))
     M0 = np.zeros((b, 3, 3), np.float32)
-    norm = np.array([[70.0, 0, 72], [0, 70.0, 72], [0, 0, 1]])
+    sc = size / HC
+    norm = np.array([[70.0 * sc, 0, size / 2], [0, 70.0 * sc, size / 2],
+                     [0, 0, 1]])
     for i in range(1, b):
         state = rng.normal(0, 0.02, 8).astype(np.float32)
         M0[i] = norm @ (np.eye(3) + np.einsum("s,sij->ij", state, gens))
@@ -53,17 +62,18 @@ def chain_inputs(n, b=3, seed=0):
     ph[0] = np.concatenate([gi.T, np.ones((1, n))])
     # x exactly integer, y on quarter pixels (both exact in float32): dx
     # is 0 by the dense convention, dy is not, so J stays informative
-    M0[0] = [[1, 0, 40], [0, 1, 40.25], [0, 0, 1]]
+    t = round(40 * sc)
+    M0[0] = [[1, 0, t], [0, 1, t + 0.25], [0, 0, 1]]
     templ = rng.uniform(0, 255, (b, n)).astype(np.float32)
     return win, M0, gens, ph.astype(np.float32), templ
 
 
-def mode_inputs(n, am, esm, b=3, seed=0):
+def mode_inputs(n, am, esm, b=3, seed=0, size=HC):
     """`chain_inputs` plus the mode's operands: for NCC the template is
     centred and scaled to unit norm (the kernel's n0), and with ESM a
     random J0 (b, 8, n) on the scale of the pixel Jacobian rides along
     (None without ESM)."""
-    win, M0, gens, ph, templ = chain_inputs(n, b, seed)
+    win, M0, gens, ph, templ = chain_inputs(n, b, seed, size)
     if am == "ncc":
         c = templ - templ.mean(-1, keepdims=True)
         templ = (c / (np.linalg.norm(c, axis=-1, keepdims=True) + 1e-8)
@@ -73,6 +83,27 @@ def mode_inputs(n, am, esm, b=3, seed=0):
         rng = np.random.default_rng(seed + 100)
         j0 = rng.normal(0, 30.0, (b, 8, n)).astype(np.float32)
     return (win, M0, gens, ph, templ), j0
+
+
+def mc_inputs(n, c, b=3, seed=0, size=HC):
+    """`chain_inputs` for the multi-channel mode: c correlated channels
+    per window (the channel-0 window plus a smaller random surface each),
+    stacked (b, c, size, size), and a template (b, c, n)."""
+    win, M0, gens, ph, _ = chain_inputs(n, b, seed, size)
+    rng = np.random.default_rng(seed + 200)
+    chans = [win] + [win + 0.4 * np.stack([_window(rng, size)
+                                            for _ in range(b)])
+                     for _ in range(c - 1)]
+    templ = rng.uniform(0, 255, (b, c, n)).astype(np.float32)
+    return (np.stack(chans, 1).astype(np.float32), M0, gens, ph, templ)
+
+
+def all_mode_inputs(n, am, esm, c, b=3, seed=0, size=HC):
+    """Inputs of any chain-kernel mode: `mode_inputs`, or `mc_inputs`
+    for c > 1 (no J0)."""
+    if c > 1:
+        return mc_inputs(n, c, b, seed, size), None
+    return mode_inputs(n, am, esm, b, seed, size)
 
 
 def k5_inputs(n, b=2, seed=5, hw=64, p=8, scale=20.0, zncc=True):
@@ -186,6 +217,61 @@ def test_cuda_k3_rejects_bad_j0(cuda_device):
         tk.lk_fused_chain(*args, am="ncc", j0=j0.transpose(1, 2))
     with pytest.raises(ValueError):
         tk.lk_fused_chain(*args, am="zncc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", N_POINTS)
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_cuda_k4_matches_plain(cuda_device, c, n):
+    """The multi-channel SSD instantiation against the plain form on the
+    card, C = 1-4 channels: val (B, C, N) within 1e-3, g and JtJ within
+    1e-4 of their norms."""
+    args = _on(cuda_device, mc_inputs(n, c, b=16))
+    before = tk.lk_fused_chain_raw.launches["ssd_mc"]
+    val, g, h = tk.lk_fused_chain(*args)
+    torch.cuda.synchronize()
+    assert tk.lk_fused_chain_raw.launches["ssd_mc"] == before + 1
+    assert val.shape == (16, c, n)
+    v0, g0, h0 = tk.lk_fused_chain_ref(*args)
+    assert float((val - v0).abs().max()) <= 1e-3
+    for b in range(16):
+        assert_norm_close(g[b].cpu(), g0[b].cpu(), 1e-4)
+        assert_norm_close(h[b].cpu(), h0[b].cpu(), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", N_POINTS)
+@pytest.mark.parametrize("am,esm,c", ALL_MODES)
+@pytest.mark.parametrize("kind", CUBIC_KINDS)
+def test_cuda_k1c_matches_plain(cuda_device, kind, am, esm, c, n):
+    """Every mode with cubic taps against the plain form on the card:
+    val within 1e-3, every raw sum within 1e-4 of its norm."""
+    arrays, j0 = all_mode_inputs(n, am, esm, c, b=16)
+    args = _on(cuda_device, arrays)
+    j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+    mode = tk.mode_name(am, esm, c > 1, kind)
+    before = tk.lk_fused_chain_raw.launches[mode]
+    got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind)
+    torch.cuda.synchronize()
+    assert tk.lk_fused_chain_raw.launches[mode] == before + 1
+    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-3
+    for a, w in zip(got[1:], want[1:]):
+        for b in range(16):
+            assert_norm_close(a[b].cpu(), w[b].cpu(), 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_k4_rejects_bad_inputs(cuda_device):
+    win, M0, gens, ph, templ = _on(cuda_device, mc_inputs(169, 3, b=2))
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(win, M0, gens, ph, templ[:, :2])
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(torch.cat([win, win[:, :2]], 1), M0, gens, ph,
+                          torch.cat([templ, templ[:, :2]], 1))
+    with pytest.raises(ValueError):
+        tk.lk_fused_chain(win[:, :, :3, :3], M0, gens, ph, templ,
+                          kind="cubic")
 
 
 # per-level shapes of the grid's K5 calls: (points per patch, iterations,

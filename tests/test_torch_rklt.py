@@ -97,9 +97,10 @@ def test_rklt_update_runs_two_k5_and_ten_chain_calls(ref, monkeypatch):
         calls.append(("k5", n, n_iters))
         return gf.grid_flow(win, pts, templ, scale, n, n_iters, zncc)
 
-    def chain_spy(window, M0, gens, ph, templ, am="ssd", j0=None):
+    def chain_spy(window, M0, gens, ph, templ, am="ssd", j0=None, **kw):
         calls.append(("chain", ph.shape[-1], am, j0 is not None))
-        return lk_fused_chain(window, M0, gens, ph, templ, am=am, j0=j0)
+        return lk_fused_chain(window, M0, gens, ph, templ, am=am, j0=j0,
+                              **kw)
 
     monkeypatch.setattr(tgrid, "grid_flow", k5_spy)
     monkeypatch.setattr(lk_mod, "lk_fused_chain", chain_spy)
