@@ -9,17 +9,21 @@ and its Levenberg-Marquardt variant eslm), all with 50x50 templates,
 10 iterations as 6 + 3 + 1 coarse-to-fine and dense linear sampling from a
 144-px window on one 480x640 frame, of the rklt row (slice 3: the
 grid tracker with RANSAC, refined by ESM-LM + SSD from a 160-px window,
-B = 384), and of slice 4: the mcssd row (FCLK + 3-channel SSD, B = 512,
+B = 384), of slice 4: the mcssd row (FCLK + 3-channel SSD, B = 512,
 on a 480x640x3 frame, `bench_extra.py:399-472`) and the headline fleet
-with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`):
+with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`), and of slice
+5, the grid family: rklt with cubic taps (K5c), Median Flow, the rigid
+grid, and the composites grfc, prl and pyr:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernel libraries from `mtf_tpu_torch/csrc/`, one nvcc per
      source, side by side: the chain kernel (15 instantiations: K1 ssd,
      K2 ncc, K3 ssd_esm and ncc_esm, K4 ssd_mc, each with linear taps
      and, as K1c, with cubic and cubic_bspl taps) and the grid-flow
-     kernel K5; prints the build times and each instantiation's registers
-     and spills;
+     kernel (18: 6 points-per-lane counts, each as K5 with linear taps
+     and K5c with cubic and cubic_bspl taps); prints the build times and
+     each instantiation's registers and spills (none allowed in the grid
+     flow);
   3. kernel phase: at the fleets' shapes (ssd B = 1280, the other single-
      channel modes B = 1024, ssd_mc B = 512 with C = 3 and also C = 2 and
      4; N = 169, 625, 2500; every mode with each tap kind) compares each
@@ -44,15 +48,23 @@ with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`):
   7. fclk/ncc and esm/ssd fleets, B = 1024, 3 updates each: the two
      remaining kernel modes launched through the tracker entry points,
      10 times per update;
-  8. K5 phase: the grid-flow operands of real rklt trackers (B = 384,
-     P = 100 patches) on the scene at both pyramid levels (level 1: 16
-     points per patch, 8 iterations, 96-px windows; level 0: 64 points,
-     1 iteration, 160-px windows); the CUDA kernel against its plain
-     form on the card (disp within 1e-4 template units on all but 0.1%
-     of patches, every one within 1e-2: see K5_TOL), both timed by CUDA
-     events, and each level's bound (the window pixels the taps
-     cover, 12 B per point, the disp written, over 3.35 TB/s, against
-     ~60 FLOPs per point per iteration over 67 TFLOP/s);
+  8. K5 and K5c phase: the grid-flow operands of real rklt trackers
+     (B = 384, P = 100 patches) on the scene at both pyramid levels
+     (level 1: 16 points per patch, 8 iterations, 96-px windows; level
+     0: 64 points, 1 iteration, 160-px windows), once per tap kind
+     (linear K5; cubic and cubic_bspl K5c, from rklt at `cubic_mm` /
+     `cubic_bspl_mm`); the CUDA kernel against its plain form on the
+     card (disp within 1e-4 template units on all but 0.1% of patches,
+     every one within 1e-2: see K5_TOL), both timed by CUDA events, and
+     each level's bound (the window pixels the taps cover, 12 B per
+     point, the disp written, over 3.35 TB/s, against
+     K5_FLOPS_PER_PT_ITER per point per iteration over 67 TFLOP/s); then
+     K5 at Median Flow's shapes the same way: the six calls of one update
+     of the mf fleet (B = 384, P = 100, n = 64, 20 iterations on each of
+     3 levels with 56, 96 and 160-px windows, forward and back), where a
+     component beyond 1e-2 also passes if the kernel is no further from
+     the float64 plain form than the float32 one is, plus 1e-2 (see
+     K5_MAX), reported as the `mf` row of the K5 entry's `by_level`;
   9. rklt/ssd fleet, B = 384: 3 warm-ups and 3 windows of 20 updates,
      each update launching K5 exactly 2 times and the ssd_esm chain
      kernel exactly 10 times; the GT leg (limit 0.2 px: the JAX package
@@ -71,6 +83,20 @@ with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`):
      each with its GT leg and plain-path check; then every other mode
      with each cubic kind through the entry points (fclk/ncc, esm/ssd,
      esm/ncc at B = 1024, fclk/mcssd at B = 512), 3 updates each.
+ 12. slice 5, each fleet through the entry points with its exact launch
+     counts per update (`grid_family`), its GT leg and its plain-path
+     check (8 trackers, 2 frames, <= 0.05 px, the CPU grids given the
+     CUDA grids' RANSAC draws): rklt at `cubic_mm` (B = 384; 3 warm-ups
+     and 3 windows of 20 updates; K5c 2 and ssd_esm@cubic 10 per update)
+     and at `cubic_bspl_mm` (3 updates); Median Flow `mf`/ssd (B = 384,
+     resx = resy = 50, `linear_mm`, crop 160, f2f, fb 2.0 px, 20
+     iterations on 3 levels, the median similarity; timed as rklt; K5 6
+     per update: 3 levels, forward and back); then 3 updates each of the
+     rigid grid at `cubic_mm` (B = 384, K5c 2), grfc (grid then FCLK on
+     the rklt grid configuration, B = 384: K5 2, ssd 10), prl (FCLK and
+     ESM on the headline configuration, B = 1024: ssd 10, ssd_esm 10)
+     and pyr (FCLK on a 3-level pyramid, headline configuration,
+     B = 1280: ssd 30). GT limits: GRID_FAMILY_GT_READING_PX.
  GT limits of the slice-4 legs, from the JAX package on the CPU over the
  same legs, first 8 trackers: fclk/mcssd and fclm/mcssd both read
  0.0863 px (per frame 0.103, 0.0879, 0.0955, 0.073, 0.072;
@@ -80,10 +106,12 @@ with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`):
  `scripts/port_cubic_reference_leg.py`); all at or under 0.1 px, so
  every limit is 0.2 px.
 
-Launch counts (the chain kernel's per mode, K5's) are set to 0 just
-before each fleet path and read just after it. Every failed check raises, so the script exits non-zero and
-prints no ok line. The last line is {"ok": true, "device": {...}}; the
-line before it is the JSON summary of the kernels.
+Launch counts (the chain kernel's per mode, the grid flow's per tap kind)
+are set to 0 just before each fleet path and read just after it; every
+kernel not named for the path must have launched 0 times. Every failed
+check raises, so the script exits non-zero and prints no ok line. The
+last line is {"ok": true, "device": {...}}; the line before it is the JSON
+summary of the kernels.
 """
 import json
 import re
@@ -132,9 +160,23 @@ K5_PER_UPDATE = 2        # one grid-flow launch per pyramid level
 K5_TOL = 1e-4
 K5_OVER_SHARE = 1e-3
 K5_MAX = 1e-2
-K5_FLOPS_PER_PT_ITER = 60
+# Median Flow's calls run 20 iterations, on coarse levels too: there a few
+# ill-conditioned patches carry rounding into steps, and the two float32
+# forms part further than K5_MAX while the kernel stays nearer the float64
+# form than the float32 plain form does (on the card, mf's level-2 forward
+# call: one component at 1.7e-2 between the float32 forms, the kernel
+# 7.2e-3 from float64, the plain form 2.4e-2). For those calls a component
+# beyond K5_MAX passes when |cuda - f64| <= |plain - f64| + K5_MAX, i.e.
+# the kernel is as accurate as the plain form; the share rule is K5's
+# FLOPs per point per iteration: linear, the offset, clamp, 4 taps and 3
+# sums, ZNCC and 5 accumulations (~60); cubic, 8 tap weights of ~14, 16
+# taps x 2 sums x 2, 4 rows x 3 sums x 2, plus the rest (~230)
+K5_FLOPS_PER_PT_ITER = {"linear": 60, "cubic": 230, "cubic_bspl": 230}
 K5_REPLACES = "mtf_tpu/ops/pallas/grid_flow.py:243"
+K5C_REPLACES = "mtf_tpu/ops/pallas/grid_flow.py:243 (kind, :94-96, :145-148)"
 K5_SOURCE = "mtf_tpu_torch/csrc/grid_flow.cu"
+B_MF = 384               # slice 5 Median Flow fleet
+B_PYR = 1280             # slice 5 pyramidal fleet (the headline's B)
 B_MC = 512               # slice 4 MC fleet (bench_extra.py mcssd row)
 MC_CHANNELS = (3, 2, 4)  # the fleet's 3 first
 # GT limits of the slice-4 legs: the JAX package on the CPU over the same
@@ -145,6 +187,23 @@ MC_GT_LIMIT_PX = 0.2
 FCLM_MC_GT_LIMIT_PX = 0.2
 CUBIC_GT_LIMIT_PX = 0.2
 CUBIC_BSPL_GT_LIMIT_PX = 0.2
+# GT limits of the slice-5 legs: the JAX package on the CPU over the same
+# legs, first 8 trackers (scripts/port_grid_family_reference_leg.py); a
+# reading at or under 0.1 px gives 0.2 px, a higher one the reading plus
+# 0.1 px. Per frame: rklt_cubic 0.1126, 0.0959, 0.1073, 0.0742, 0.0992;
+# rklt_cubic_bspl 0.0445, 0.0431, 0.0442, 0.0328, 0.042; mf 0.3852,
+# 0.553, 0.531, 0.7036, 1.0719 (a similarity fitted to a projective leg);
+# rigid_cubic 1.6539, 1.5884, 1.0791, 1.2741, 1.908 (rigid windows
+# against init templates: no warp on the patches); grfc 0.1055, 0.0942,
+# 0.1024, 0.0743, 0.0795; prl 0.1127, 0.083, 0.1008, 0.0716, 0.0904; pyr
+# 0.1107, 0.0837, 0.0923, 0.0646, 0.0731
+GRID_FAMILY_GT_READING_PX = {
+    "rklt_cubic": 0.0978, "rklt_cubic_bspl": 0.0413, "mf": 0.6490,
+    "rigid_cubic": 1.5007, "grfc": 0.0912, "prl": 0.0917, "pyr": 0.0849}
+
+
+def gt_limit(reading_px: float) -> float:
+    return 0.2 if reading_px <= 0.1 else reading_px + 0.1
 
 
 def slice_cfg(interp="linear_mm"):
@@ -161,7 +220,40 @@ def rklt_cfg():
 
 
 def cfg_of(key, interp="linear_mm"):
-    return rklt_cfg() if key == "rklt" else slice_cfg(interp)
+    return (dict(rklt_cfg(), interp=interp) if key == "rklt"
+            else slice_cfg(interp))
+
+
+def grid_family():
+    """The slice-5 fleets: {name: (SM key, AM, B, configuration,
+    launches per update by kernel)}; kernels named as in the launch
+    counts (chain-kernel modes; `grid_flow@<kind>` for K5 / K5c)."""
+    rk_c = dict(rklt_cfg(), interp="cubic_mm")
+    return {
+        "rklt_cubic": ("rklt", "ssd", B_RKLT, rk_c,
+                       {"ssd_esm@cubic": MAX_ITERS, "grid_flow@cubic": 2}),
+        "rklt_cubic_bspl": ("rklt", "ssd", B_RKLT,
+                            dict(rk_c, interp="cubic_bspl_mm"),
+                            {"ssd_esm@cubic_bspl": MAX_ITERS,
+                             "grid_flow@cubic_bspl": 2}),
+        # Median Flow's own grid: f2f, fb 2.0 px, 20 iterations on each of
+        # 3 levels, the median similarity; forward and back per level
+        "mf": ("mf", "ssd", B_MF, dict(resx=RES, resy=RES,
+                                       interp="linear_mm", crop=CROP_RKLT),
+               {"grid_flow@linear": 6}),
+        "rigid_cubic": ("grid", "ssd", B_RKLT,
+                        dict(rk_c, grid_flow="rigid"),
+                        {"grid_flow@cubic": 2}),
+        "grfc": ("grfc", "ssd", B_RKLT, rklt_cfg(),
+                 {"grid_flow@linear": 2, "ssd": MAX_ITERS}),
+        "prl": ("prl", "ssd", B_SLICE2,
+                dict(slice_cfg(), members=[("fclk", "ssd", "8"),
+                                           ("esm", "ssd", "8")]),
+                {"ssd": MAX_ITERS, "ssd_esm": MAX_ITERS}),
+        "pyr": ("pyr", "ssd", B_PYR,
+                dict(slice_cfg(), pyr_sm="fclk", pyr_n_levels=3),
+                {"ssd": 3 * MAX_ITERS}),
+    }
 
 
 def _scene(seed=0, h=480, w=640):
@@ -407,20 +499,33 @@ def _kernel_phase(torch, tk, frames, card, dev):
     return rows
 
 
-def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, mode,
-           windows=WINDOWS, warmup=WARMUP, gf=None, interp="linear_mm"):
+def _counts(tk, gf):
+    """Every kernel's launch count: the chain kernel's per mode, the grid
+    flow's per tap kind as `grid_flow@<kind>`."""
+    return {**tk.lk_fused_chain_raw.launches,
+            **{f"grid_flow@{k}": v for k, v in gf.grid_flow.launches.items()}}
+
+
+def _zero_counts(tk, gf):
+    for counts in (tk.lk_fused_chain_raw.launches, gf.grid_flow.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
+           windows=WINDOWS, warmup=WARMUP, interp="linear_mm", cfg=None,
+           label=None):
     """The fleet's main path: `warmup` updates, then `windows` timed
     windows of STEPS updates; the launch counts are zeroed just before
-    and read just after, and `mode` must launch 10 times per update (and,
-    given the grid-flow module `gf`, K5 K5_PER_UPDATE times)."""
+    and read just after, and each kernel must have launched exactly
+    `expect[name]` times per update (0 for any name not in `expect`)."""
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.parallel import TrackerFleet
-    sm = create_tracker(key, am, "8", device=dev, **cfg_of(key, interp))
+    label = label or f"{key}/{am} {interp}"
+    sm = create_tracker(key, am, "8", device=dev,
+                        **(cfg if cfg is not None else cfg_of(key, interp)))
     fleet = TrackerFleet(sm, donate=True)
-    for k in tk.lk_fused_chain_raw.launches:
-        tk.lk_fused_chain_raw.launches[k] = 0
-    if gf is not None:
-        gf.grid_flow.launches = 0
+    _zero_counts(tk, gf)
     states = fleet.initialize(frame_d, corners)
     for _ in range(warmup):
         states = fleet.update(states, frame_d)
@@ -432,28 +537,22 @@ def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, mode,
             states = fleet.update(states, frame_d)
         torch.cuda.synchronize()
         rates.append(b * STEPS / (time.perf_counter() - t0))
-    launches = dict(tk.lk_fused_chain_raw.launches)
-    k5 = gf.grid_flow.launches if gf is not None else 0
+    counts = _counts(tk, gf)
     n_updates = warmup + windows * STEPS
-    _check(launches[mode] == MAX_ITERS * n_updates,
-           f"{key}/{am}: {mode} launched {launches[mode]} times in "
-           f"{n_updates} updates")
-    _check(sum(launches.values()) == launches[mode],
-           f"{key}/{am}: other kernel modes launched: {launches}")
-    if gf is not None:
-        _check(k5 == K5_PER_UPDATE * n_updates,
-               f"{key}/{am}: K5 launched {k5} times in {n_updates} updates")
+    for name, got in counts.items():
+        _check(got == expect.get(name, 0) * n_updates,
+               f"{label}: {name} launched {got} times in {n_updates} updates "
+               f"(expected {expect.get(name, 0)} per update)")
     _check(bool(torch.isfinite(fleet.corners(states)).all()),
-           f"{key}/{am}: fleet corners not finite")
+           f"{label}: fleet corners not finite")
     fps = sorted(rates)[len(rates) // 2] if rates else None
-    print(f"fleet {key}/{am} {interp} B={b}: "
+    print(f"fleet {label} B={b}: "
           + (f"{fps:.1f} frames/s median of {[round(r, 1) for r in rates]}"
              if rates else "untimed")
-          + f" ({card}); {mode} launches {launches[mode]} = {MAX_ITERS} x "
-          f"{n_updates} updates"
-          + (f"; K5 launches {k5} = {K5_PER_UPDATE} x {n_updates} updates"
-             if gf is not None else ""))
-    return sm, fps, launches[mode], k5
+          + f" ({card}); launches "
+          + ", ".join(f"{k} {counts[k]} = {v} x {n_updates} updates"
+                      for k, v in expect.items()))
+    return sm, fps, {k: counts[k] for k in expect}
 
 
 def _gt_leg(sm, frame0, corners, limit, label):
@@ -479,16 +578,20 @@ def _gt_leg(sm, frame0, corners, limit, label):
 
 
 def _plain_path_check(sm, key, am, frames, corners, label,
-                      interp="linear_mm"):
+                      interp="linear_mm", cfg=None):
     """The same trackers on the plain path (CPU tensors: the kernels'
     plain forms) agree with the CUDA path. The grid's RANSAC draw comes
-    from a generator on each path's device, so the CPU tracker is handed
-    the CUDA tracker's draws."""
+    from a generator on each path's device, so each CPU grid is handed
+    its CUDA twin's draws."""
     from mtf_tpu_torch import create_tracker
-    cpu_sm = create_tracker(key, am, "8", device="cpu", **cfg_of(key, interp))
-    if key == "rklt":
-        draw = sm.grid_sm._hyp_indices
-        cpu_sm.grid_sm._hyp_indices = lambda step, n: draw(step, n).cpu()
+    from mtf_tpu_torch.sm.grid import GridTracker
+    cfg = cfg if cfg is not None else cfg_of(key, interp)
+    cpu_sm = create_tracker(key, am, "8", device="cpu", **cfg)
+    cuda_grids = [m for m in sm.modules() if isinstance(m, GridTracker)]
+    cpu_grids = [m for m in cpu_sm.modules() if isinstance(m, GridTracker)]
+    for g_cuda, g_cpu in zip(cuda_grids, cpu_grids):
+        g_cpu._hyp_indices = (lambda draw: lambda step, n: draw(step, n).cpu()
+                              )(g_cuda._hyp_indices)
     sub = corners[:PLAIN_PATH_TRACKERS]
     st_g = sm.initialize(frames[0], sub)
     st_c = cpu_sm.initialize(frames[0].cpu(), sub)
@@ -506,8 +609,9 @@ def _plain_path_check(sm, key, am, frames, corners, label,
 
 
 def _ptxas_k5(log):
-    """{points per lane K: (registers, spill store bytes, spill load
-    bytes)} of the grid-flow kernel's instantiations (mangled ILi<K>E)."""
+    """{(points per lane K, tap kind): (registers, spill store bytes, spill
+    load bytes)} of the grid-flow kernel's instantiations (mangled
+    ILi<K>ELi<kind>E)."""
     usage, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -519,24 +623,27 @@ def _ptxas_k5(log):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name and "grid_flow_kernel" in name:
-            k = int(re.search(r"ILi(\d+)E", name).group(1))
-            usage[k] = (int(m.group(1)),) + spills
+            k, kind = re.search(r"ILi(\d+)ELi(\d)E", name).groups()
+            usage[(int(k), KINDS[int(kind)])] = (int(m.group(1)),) + spills
     return usage
 
 
-def _k5_operands(torch, corners, frame_d, dev):
-    """The grid-flow operands of real rklt trackers: one update of the
-    rklt fleet on the scene moved by (3, 2) px, each level's call
-    recorded (window, points, templates, scale, n, iterations)."""
+def _k5_operands(torch, corners, frame_d, dev, key="rklt", cfg=None):
+    """The grid-flow operands of real trackers (rklt in its row's
+    configuration by default): one update of the `key` fleet on the scene
+    moved by (3, 2) px, each grid-flow call recorded in order (window,
+    points, templates, scale, n, iterations, kind)."""
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.sm import grid as grid_mod
-    sm = create_tracker("rklt", "ssd", "8", device=dev, **rklt_cfg())
+    sm = create_tracker(key, "ssd", "8", device=dev,
+                        **(cfg if cfg is not None else cfg_of(key)))
     st = sm.initialize(frame_d, corners)
     calls, real = [], grid_mod.grid_flow
 
-    def record(win, pts, templ, scale, n, n_iters, zncc=True):
-        calls.append((win, pts, templ, scale, n, n_iters))
-        return real(win, pts, templ, scale, n, n_iters, zncc)
+    def record(win, pts, templ, scale, n, n_iters, zncc=True,
+               kind="linear"):
+        calls.append((win, pts, templ, scale, n, n_iters, kind))
+        return real(win, pts, templ, scale, n, n_iters, zncc, kind)
 
     grid_mod.grid_flow = record
     try:
@@ -547,76 +654,186 @@ def _k5_operands(torch, corners, frame_d, dev):
     return calls
 
 
-def _k5_bound(torch, win, pts, disp, scale, n, n_iters):
+def _k5_bound(torch, win, pts, disp, scale, n, n_iters, kind):
     """Least time of one launch: the bytes it must move (the window
-    pixels the 4 taps of every point cover, at the start and at the end
-    of the level, each counted once; points 8 B and template 4 B per
-    point; the scale; disp written) over the HBM rate, against ~60 FLOPs
-    per point per iteration over the float32 rate. Returns (ms, "bytes" |
-    "operations", bytes, flops)."""
+    pixels the taps of every point cover (2x2 linear, 4x4 cubic), at the
+    start and at the end of the level, each counted once; points 8 B and
+    template 4 B per point; the scale; disp written) over the HBM rate,
+    against K5_FLOPS_PER_PT_ITER per point per iteration over the float32
+    rate. Returns (ms, "bytes" | "operations", bytes, flops)."""
     b, hc, wc = win.shape
     pn = pts.shape[-1]
+    lo, hi, taps, first = ((0.001, 1.001, 2, 0) if kind == "linear"
+                           else (1.001, 2.001, 4, -1))
     cover = torch.zeros((b, hc * wc), dtype=torch.bool, device=win.device)
     for d in (torch.zeros_like(disp), disp):
         off = (d * scale[:, None, None]).repeat_interleave(n, dim=1)
-        x = torch.clamp(pts[:, 0] + off[..., 0], 0.001, wc - 1.001)
-        y = torch.clamp(pts[:, 1] + off[..., 1], 0.001, hc - 1.001)
-        i00 = y.floor().long() * wc + x.floor().long()
-        cover.scatter_(1, torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1],
-                                    dim=-1), True)
+        x = torch.clamp(pts[:, 0] + off[..., 0], lo, wc - hi)
+        y = torch.clamp(pts[:, 1] + off[..., 1], lo, hc - hi)
+        i0 = (y.floor().long() + first) * wc + x.floor().long() + first
+        cover.scatter_(1, torch.cat([i0 + (r * wc + j) for r in range(taps)
+                                     for j in range(taps)], dim=-1), True)
     nbytes = 4 * int(cover.sum()) + b * (12 * pn + 4 + 8 * (pn // n))
-    flops = K5_FLOPS_PER_PT_ITER * b * pn * n_iters
+    flops = K5_FLOPS_PER_PT_ITER[kind] * b * pn * n_iters
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
 
-def _k5_phase(torch, gf, corners, frame_d, card, dev):
-    """K5 at both levels of real rklt trackers: CUDA against the plain
-    form on the card, both timed, and the bound."""
+def _k5_check(torch, gf, call, name, card, f64_clause=False):
+    """One recorded grid-flow call: the CUDA kernel against its plain form
+    on the card under K5's rule (K5_TOL, K5_OVER_SHARE, K5_MAX), both timed
+    by CUDA events, and the launch's bound. With `f64_clause` (Median
+    Flow's 20-iteration calls) a disp component beyond K5_MAX of the
+    float32 plain form also passes when the kernel is no further from the
+    float64 plain form than the float32 one is, plus K5_MAX (see the note
+    at K5_MAX). Returns its row."""
+    win, pts, templ, scale, n, n_iters, kind = call
+    args = (win, pts, templ, scale, n, n_iters, True, kind)
+    got = gf.grid_flow(*args)
+    torch.cuda.synchronize()
+    want = gf.grid_flow_ref(*args)
+    want64 = gf.grid_flow_ref(*(a.double() for a in args[:4]), *args[4:])
+    d = (got - want).abs().flatten()
+    d64 = (got.double() - want64).abs().flatten()
+    p64 = (want.double() - want64).abs().flatten()
+    err = float(d.max())
+    _check(np.isfinite(err) and bool(torch.isfinite(got).all()),
+           f"{name}: non-finite output")
+    far = d > K5_MAX
+    by_f64 = far & (d64 <= p64 + K5_MAX) if f64_clause else \
+        torch.zeros_like(far)
+    worst = torch.argsort(d, descending=True)[:3]
+    row = dict(n=n, iters=n_iters, window=win.shape[-1], err=err,
+               kind=kind, max_disp=float(want.abs().max()),
+               q999=float(torch.quantile(d.double(), 0.999)),
+               n_over=int((d > K5_TOL).sum()), n_patches=d.numel() // 2,
+               n_by_f64=int(by_f64.sum()),
+               cuda_vs_f64=float(d64.max()), plain_vs_f64=float(p64.max()),
+               worst=[[float(d[i]), float(d64[i]), float(p64[i])]
+                      for i in worst.tolist()])
+    worst_s = [[float(f"{x:.3g}") for x in w] for w in row["worst"]]
+    print(f"{name}: |ddisp| max {err:.3g}, 99.9% {row['q999']:.3g}, "
+          f"{row['n_over']} of {row['n_patches']} patches over {K5_TOL}; "
+          f"against float64: cuda {row['cuda_vs_f64']:.3g}, plain "
+          f"{row['plain_vs_f64']:.3g}; worst components (cuda - plain, "
+          f"cuda - f64, plain - f64): {worst_s}"
+          + (f"; {row['n_by_f64']} beyond {K5_MAX} passed by the float64 "
+             f"clause" if f64_clause else ""))
+    _check(bool((~far | by_f64).all()) and row["n_over"] <= K5_OVER_SHARE
+           * row["n_patches"], f"{name}: cuda vs plain disp max {err} "
+           f"(limit {K5_MAX}" + (", or no further than the float32 plain "
+           "form from the float64 one, plus the limit" if f64_clause
+           else "") + f"), {row['n_over']} patches over {K5_TOL} "
+           f"(limit {K5_OVER_SHARE} of {row['n_patches']})")
+    row["ms"] = _time_ms(torch, lambda: gf.grid_flow(*args), 50)
+    row["plain_ms"] = _time_ms(torch, lambda: gf.grid_flow_ref(*args), 5)
+    (row["bound_ms"], row["bound_by"], row["bytes"],
+     row["flops"]) = _k5_bound(torch, win, pts, want, scale, n, n_iters,
+                               kind)
+    print(f"{name} B={win.shape[0]} P={pts.shape[-1] // n} n={n} "
+          f"iters={n_iters} window {win.shape[-1]}: max|ddisp| {err:.3g} "
+          f"(of max |disp| {row['max_disp']:.3g}) template units; cuda "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.3f} GFLOP) "
+          f"({card})")
+    return row
+
+
+def _k5_phase(torch, gf, corners, frame_d, card, dev, interp="linear_mm"):
+    """The grid-flow kernel (K5, or K5c with `interp`'s cubic taps) at
+    both levels of real rklt trackers (`_k5_check`). Returns {level:
+    row}."""
     rows = {}
-    for win, pts, templ, scale, n, n_iters in _k5_operands(
-            torch, corners, frame_d, dev):
-        args = (win, pts, templ, scale, n, n_iters)
-        got = gf.grid_flow(*args)
-        torch.cuda.synchronize()
-        want = gf.grid_flow_ref(*args)
-        want64 = gf.grid_flow_ref(*(a.double() for a in args[:4]), n,
-                                  n_iters)
-        d = (got - want).abs().flatten()
-        err = float(d.max())
-        _check(np.isfinite(err) and bool(torch.isfinite(got).all()),
-               f"K5 n={n}: non-finite output")
-        row = dict(n=n, iters=n_iters, window=win.shape[-1], err=err,
-                   max_disp=float(want.abs().max()),
-                   q999=float(torch.quantile(d.double(), 0.999)),
-                   n_over=int((d > K5_TOL).sum()), n_patches=d.numel() // 2,
-                   cuda_vs_f64=float((got.double() - want64).abs().max()),
-                   plain_vs_f64=float((want.double() - want64).abs().max()))
-        print(f"K5 n={n}: |ddisp| max {err:.3g}, 99.9% {row['q999']:.3g}, "
-              f"{row['n_over']} of {row['n_patches']} patches over {K5_TOL}; "
-              f"against float64: cuda {row['cuda_vs_f64']:.3g}, plain "
-              f"{row['plain_vs_f64']:.3g}")
-        _check(err <= K5_MAX and row["n_over"] <= K5_OVER_SHARE
-               * row["n_patches"], f"K5 n={n}: cuda vs plain disp max "
-               f"{err} (limit {K5_MAX}), {row['n_over']} patches over "
-               f"{K5_TOL} (limit {K5_OVER_SHARE} of {row['n_patches']})")
-        row["ms"] = _time_ms(torch, lambda: gf.grid_flow(*args), 50)
-        row["plain_ms"] = _time_ms(torch, lambda: gf.grid_flow_ref(*args), 5)
-        (row["bound_ms"], row["bound_by"], row["bytes"],
-         row["flops"]) = _k5_bound(torch, win, pts, want, scale, n, n_iters)
+    for call in _k5_operands(torch, corners, frame_d, dev,
+                             cfg=cfg_of("rklt", interp)):
+        kind, n_iters = call[6], call[5]
         level = "1" if n_iters > 1 else "0"
-        rows[level] = row
-        print(f"K5 level {level} B={win.shape[0]} P={pts.shape[-1] // n} "
-              f"n={n} iters={n_iters} window {win.shape[-1]}: max|ddisp| "
-              f"{err:.3g} (of max |disp| {row['max_disp']:.3g}) template "
-              f"units; cuda {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-              f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.3f} GFLOP)"
-              f" ({card})")
-    _check(sorted(rows) == ["0", "1"], f"K5: levels recorded {sorted(rows)}")
+        name = ("K5" if kind == "linear" else f"K5c {kind}") + \
+            f" rklt level {level}"
+        rows[level] = _k5_check(torch, gf, call, name, card)
+    _check(sorted(rows) == ["0", "1"], f"K5 {interp}: levels recorded "
+           f"{sorted(rows)}")
     return rows
+
+
+def _k5_mf_phase(torch, gf, corners, frame_d, card, dev):
+    """K5 at Median Flow's shapes: the six grid-flow calls of one update
+    of the mf fleet (3 levels, 20 iterations each, coarse to fine, forward
+    on the new frame, then back on the previous one), each through
+    `_k5_check`. Returns the row of the update: ms, plain_ms and the bound
+    summed over the six launches, the largest error, and each call's row
+    under `calls`."""
+    key, _, _, cfg, _ = grid_family()["mf"]
+    calls = _k5_operands(torch, corners, frame_d, dev, key=key, cfg=cfg)
+    levels = len(calls) // 2
+    _check(len(calls) == 6, f"mf: {len(calls)} grid-flow calls per update "
+           f"(expected 6)")
+    rows = {}
+    for i, call in enumerate(calls):
+        label = f"{'fwd' if i < levels else 'back'} {levels - 1 - i % levels}"
+        rows[label] = _k5_check(torch, gf, call, f"K5 mf {label}", card,
+                                f64_clause=True)
+    t_bytes = sum(r["bytes"] for r in rows.values()) / HBM_BYTES_PER_S
+    t_ops = sum(r["flops"] for r in rows.values()) / F32_FLOPS_PER_S
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err", "q999",
+            "n_over", "n_patches", "n_by_f64", "cuda_vs_f64",
+            "plain_vs_f64", "worst", "max_disp", "n", "iters", "window")
+    row = {"ms": sum(r["ms"] for r in rows.values()),
+           "plain_ms": sum(r["plain_ms"] for r in rows.values()),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "err": max(r["err"] for r in rows.values()),
+           "shape": f"B={len(corners)}, P=100, n=64, 20 iterations; windows "
+                    f"{[r['window'] for r in rows.values()][:levels]} "
+                    f"(levels {levels - 1}..0), forward and back",
+           "calls": {k: {kk: r[kk] for kk in keys} for k, r in rows.items()}}
+    print(f"K5 mf update (6 launches) B={len(corners)}: cuda {row['ms']:.4f}"
+          f" ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+          f" ms ({row['bound_by']}), max|ddisp| {row['err']:.3g} ({card})")
+    return row
+
+
+def _k5_entry(rows_k5, kind, launches, usage_k5, mf_row=None):
+    """The kernels-line entry of the grid flow with `kind` taps: one rklt
+    update's two launches (levels 1 and 0) summed; `launches` {fleet:
+    count} of every main-path fleet with these taps, summed; Median Flow's
+    update (`_k5_mf_phase`) beside the rklt levels in `by_level`."""
+    t_bytes = sum(r["bytes"] for r in rows_k5.values()) / HBM_BYTES_PER_S
+    t_ops = sum(r["flops"] for r in rows_k5.values()) / F32_FLOPS_PER_S
+    mine = {k: v for (k, kd), v in usage_k5.items() if kd == kind}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err", "max_disp",
+            "n", "iters", "window")
+    by_level = {lvl: {k: r[k] for k in keys}
+                for lvl, r in sorted(rows_k5.items())}
+    errs = [r["err"] for r in rows_k5.values()]
+    if mf_row is not None:
+        by_level["mf"] = mf_row
+        errs.append(mf_row["err"])
+    return {
+        "name": "grid_flow (K5)" if kind == "linear"
+                else f"grid_flow[{kind}] (K5c)",
+        "route": "cuda",
+        "source": K5_SOURCE,
+        "replaces": K5_REPLACES if kind == "linear" else K5C_REPLACES,
+        "launches": sum(launches.values()),
+        "launches_by_fleet": launches,
+        "max_abs_err": max(errs),
+        "ms": sum(r["ms"] for r in rows_k5.values()),
+        "plain_ms": sum(r["plain_ms"] for r in rows_k5.values()),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"B={B_RKLT}, P=100; level 1 n=16 x 8 iterations in "
+                 f"96x96, level 0 n=64 x 1 in {CROP_RKLT}x{CROP_RKLT}, "
+                 f"{kind} taps",
+        "registers": {str(k): v[0] for k, v in sorted(mine.items())},
+        "spill_stores": max(v[1] for v in mine.values()),
+        "spill_loads": max(v[2] for v in mine.values()),
+        "by_level": by_level,
+    }
 
 
 def main() -> int:
@@ -657,11 +874,14 @@ def main() -> int:
         print(f"ptxas: {label} {tk.mode_name(am, esm, mc, kind)}: {regs} "
               f"registers, spill stores {st} B, spill loads {ld} B")
     usage_k5 = _ptxas_k5(libs["grid_flow"].log)
-    _check(sorted(usage_k5) == [1, 2, 4, 8, 16, 32],
-           f"ptxas reported K5 instantiations {sorted(usage_k5)}")
-    for k, (regs, st, ld) in sorted(usage_k5.items()):
-        print(f"ptxas: K5 grid_flow<{k} points per lane>: {regs} registers, "
-              f"spill stores {st} B, spill loads {ld} B")
+    _check(sorted(usage_k5) == sorted(gf.INSTANTIATIONS),
+           f"ptxas reported grid-flow instantiations {sorted(usage_k5)}")
+    for (k, kind), (regs, st, ld) in sorted(usage_k5.items(),
+                                            key=lambda kv: kv[0][::-1]):
+        name = "K5" if kind == "linear" else "K5c"
+        print(f"ptxas: {name} grid_flow<{k} points per lane, {kind}>: {regs} "
+              f"registers, spill stores {st} B, spill loads {ld} B")
+        _check(st == 0 and ld == 0, f"{name} grid_flow<{k}, {kind}> spills")
 
     # -- kernel phase ---------------------------------------------------------
     frame0 = _scene(0)
@@ -675,13 +895,16 @@ def main() -> int:
     rows = _kernel_phase(torch, tk, frames, card, dev)
     del frames
     corners_rk = _corners(B_RKLT)
-    rows_k5 = _k5_phase(torch, gf, corners_rk, frame_d, card, dev)
+    rows_k5 = {kind: _k5_phase(torch, gf, corners_rk, frame_d, card, dev,
+                               f"{kind}_mm") for kind in KINDS}
+    row_k5_mf = _k5_mf_phase(torch, gf, corners_rk, frame_d, card, dev)
     torch.cuda.empty_cache()
 
     # -- slice 1: fclk/ssd fleet, GT leg, plain path -------------------------
     corners = _corners(B)
-    sm, fps1, launches_ssd, _ = _fleet(torch, "fclk", "ssd", B, card, corners,
-                                    frame_d, dev, tk, "ssd")
+    sm, fps1, got = _fleet(torch, "fclk", "ssd", B, card, corners, frame_d,
+                           dev, tk, gf, {"ssd": MAX_ITERS})
+    launches = dict(got)
     gt1, frames = _gt_leg(sm, frame0, corners, GT_LIMIT_PX, "fclk/ssd")
     _plain_path_check(sm, "fclk", "ssd", frames, corners, "fclk/ssd")
     del sm, frames
@@ -689,33 +912,35 @@ def main() -> int:
 
     # -- slice 2: esm/ncc fleet, GT leg, plain path --------------------------
     corners2 = _corners(B_SLICE2)
-    sm, fps2, launches_ncc_esm, _ = _fleet(torch, "esm", "ncc", B_SLICE2, card,
-                                        corners2, frame_d, dev, tk,
-                                        "ncc_esm")
+    sm, fps2, got = _fleet(torch, "esm", "ncc", B_SLICE2, card, corners2,
+                           frame_d, dev, tk, gf, {"ncc_esm": MAX_ITERS})
+    launches.update(got)
     gt2, frames = _gt_leg(sm, frame0, corners2, GT_LIMIT_PX, "esm/ncc")
     plain2 = _plain_path_check(sm, "esm", "ncc", frames, corners2, "esm/ncc")
     del sm, frames
 
     # -- eslm/ncc: LM on ----------------------------------------------------
-    sm, fps_lm, launches_lm, _ = _fleet(torch, "eslm", "ncc", B_SLICE2, card,
-                                     corners2, frame_d, dev, tk, "ncc_esm",
-                                     windows=1)
+    sm, fps_lm, got = _fleet(torch, "eslm", "ncc", B_SLICE2, card, corners2,
+                             frame_d, dev, tk, gf, {"ncc_esm": MAX_ITERS},
+                             windows=1)
+    launches_lm = got["ncc_esm"]
     gt_lm, _ = _gt_leg(sm, frame0, corners2, ESLM_GT_LIMIT_PX, "eslm/ncc")
     del sm
     torch.cuda.empty_cache()
 
     # -- the remaining modes through the entry points --------------------------
-    mode_launches = {"ssd": launches_ssd, "ncc_esm": launches_ncc_esm}
     for key, am, mode in (("fclk", "ncc", "ncc"), ("esm", "ssd", "ssd_esm")):
-        _, _, mode_launches[mode], _ = _fleet(torch, key, am, B_SLICE2,
-                                              card, corners2, frame_d, dev,
-                                              tk, mode, windows=0)
+        _, _, got = _fleet(torch, key, am, B_SLICE2, card, corners2, frame_d,
+                           dev, tk, gf, {mode: MAX_ITERS}, windows=0)
+        launches.update(got)
     torch.cuda.empty_cache()
 
     # -- slice 3: rklt/ssd fleet (K5 + ssd_esm), GT leg, plain path ----------
-    sm, fps_rk, launches_rk, launches_k5 = _fleet(
-        torch, "rklt", "ssd", B_RKLT, card, corners_rk, frame_d, dev, tk,
-        "ssd_esm", gf=gf)
+    sm, fps_rk, got = _fleet(torch, "rklt", "ssd", B_RKLT, card, corners_rk,
+                             frame_d, dev, tk, gf,
+                             {"ssd_esm": MAX_ITERS,
+                              "grid_flow@linear": K5_PER_UPDATE})
+    launches_rk, launches_k5 = got["ssd_esm"], got["grid_flow@linear"]
     gt_rk, frames = _gt_leg(sm, frame0, corners_rk, RKLT_GT_LIMIT_PX,
                             "rklt/ssd")
     plain_rk = _plain_path_check(sm, "rklt", "ssd", frames, corners_rk,
@@ -725,11 +950,12 @@ def main() -> int:
 
     # -- slice 4: mcssd fleet (K4) and its gray twin, GT legs, plain path ----
     corners_mc = _corners(B_MC)
-    sm, fps_mc, mode_launches["ssd_mc"], _ = _fleet(
-        torch, "fclk", "mcssd", B_MC, card, corners_mc, frame3_d, dev, tk,
-        "ssd_mc")
-    _, fps_twin, _, _ = _fleet(torch, "fclk", "ssd", B_MC, card, corners_mc,
-                               frame3_d[..., 0].contiguous(), dev, tk, "ssd")
+    sm, fps_mc, got = _fleet(torch, "fclk", "mcssd", B_MC, card, corners_mc,
+                             frame3_d, dev, tk, gf, {"ssd_mc": MAX_ITERS})
+    launches.update(got)
+    _, fps_twin, _ = _fleet(torch, "fclk", "ssd", B_MC, card, corners_mc,
+                            frame3_d[..., 0].contiguous(), dev, tk, gf,
+                            {"ssd": MAX_ITERS}, label="fclk/ssd gray twin")
     print(f"mcssd / gray twin at B={B_MC}: {fps_mc / fps_twin:.3f} "
           f"({fps_mc:.1f} / {fps_twin:.1f} frames/s) ({card})")
     gt_mc, frames = _gt_leg(sm, scene3, corners_mc, MC_GT_LIMIT_PX,
@@ -737,9 +963,10 @@ def main() -> int:
     plain_mc = _plain_path_check(sm, "fclk", "mcssd", frames, corners_mc,
                                  "fclk/mcssd")
     del sm, frames
-    sm, _, launches_fclm, _ = _fleet(torch, "fclm", "mcssd", B_MC, card,
-                                     corners_mc, frame3_d, dev, tk, "ssd_mc",
-                                     windows=0)
+    sm, _, got = _fleet(torch, "fclm", "mcssd", B_MC, card, corners_mc,
+                        frame3_d, dev, tk, gf, {"ssd_mc": MAX_ITERS},
+                        windows=0)
+    launches_fclm = got["ssd_mc"]
     gt_fclm, _ = _gt_leg(sm, scene3, corners_mc, FCLM_MC_GT_LIMIT_PX,
                          "fclm/mcssd")
     del sm
@@ -751,15 +978,16 @@ def main() -> int:
                                  ("cubic_bspl", CUBIC_BSPL_GT_LIMIT_PX, 0)):
         interp = kind + "_mm"
         mode = tk.mode_name("ssd", False, False, kind)
-        sm, fps_c, mode_launches[mode], _ = _fleet(
-            torch, "fclk", "ssd", B, card, corners, frame_d, dev, tk, mode,
-            windows=windows, interp=interp)
-        gt_c, frames = _gt_leg(sm, frame0, corners, limit, f"fclk/ssd {interp}")
+        sm, fps_c, got = _fleet(torch, "fclk", "ssd", B, card, corners,
+                                frame_d, dev, tk, gf, {mode: MAX_ITERS},
+                                windows=windows, interp=interp)
+        launches.update(got)
+        gt_c, frames = _gt_leg(sm, frame0, corners, limit,
+                               f"fclk/ssd {interp}")
         plain_c = _plain_path_check(sm, "fclk", "ssd", frames, corners,
                                     f"fclk/ssd {interp}", interp)
         cubic[kind] = {"B": B, "fps": fps_c, "gt_px": gt_c,
-                       "plain_path_px": plain_c,
-                       "launches": mode_launches[mode]}
+                       "plain_path_px": plain_c, "launches": launches[mode]}
         del sm, frames
         torch.cuda.empty_cache()
         # every other mode with this kind's taps, through the entry points
@@ -771,9 +999,35 @@ def main() -> int:
                                 kind)
             b, crn, frm = ((B_MC, corners_mc, frame3_d) if mc else
                            (B_SLICE2, corners2, frame_d))
-            _, _, mode_launches[mode], _ = _fleet(
-                torch, key, am, b, card, crn, frm, dev, tk, mode, windows=0,
-                interp=interp)
+            _, _, got = _fleet(torch, key, am, b, card, crn, frm, dev, tk, gf,
+                               {mode: MAX_ITERS}, windows=0, interp=interp)
+            launches.update(got)
+        torch.cuda.empty_cache()
+
+    # -- slice 5: the grid family (K5c, flows, Median Flow, composites) -------
+    family = {}
+    k5_launches = {kind: {} for kind in KINDS}
+    k5_launches["linear"]["rklt"] = launches_k5
+    for name, (key, am, b, cfg, expect) in grid_family().items():
+        # the two headline legs of slice 5 are timed; the rest run 3
+        # updates through the entry points
+        windows = WINDOWS if name in ("rklt_cubic", "mf") else 0
+        crn = corners_rk if b == B_RKLT else _corners(b)
+        label = f"{name} ({key}/{am})"
+        sm, fps, got = _fleet(torch, key, am, b, card, crn, frame_d, dev, tk,
+                              gf, expect, windows=windows, cfg=cfg,
+                              label=label)
+        for k, v in got.items():
+            if k.startswith("grid_flow@"):
+                k5_launches[k.split("@")[1]][name] = v
+        reading = GRID_FAMILY_GT_READING_PX[name]
+        gt, frames = _gt_leg(sm, frame0, crn, gt_limit(reading), label)
+        plain = _plain_path_check(sm, key, am, frames, crn, label, cfg=cfg)
+        family[name] = {"B": b, "fps": fps, "gt_px": gt,
+                        "gt_limit_px": gt_limit(reading),
+                        "jax_cpu_reading_px": reading,
+                        "plain_path_px": plain, "launches": got}
+        del sm, frames
         torch.cuda.empty_cache()
 
     kernels = []
@@ -790,7 +1044,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": mode_launches[mode],
+            "launches": launches[mode],
             "max_abs_err": max(r["err_v"] for (m, _, _), r in rows.items()
                                if m == mode),
             "ms": row["ms"],
@@ -813,31 +1067,10 @@ def main() -> int:
                 str(cc): {k: rows[(mode, n, cc)][k] for k in keys}
                 for cc in MC_CHANNELS for n in (N_POINTS[-1],)}
         kernels.append(entry)
-    k5_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err", "max_disp",
-               "n", "iters", "window")
-    t_bytes = sum(r["bytes"] for r in rows_k5.values()) / HBM_BYTES_PER_S
-    t_ops = sum(r["flops"] for r in rows_k5.values()) / F32_FLOPS_PER_S
-    kernels.append({
-        "name": "grid_flow (K5)",
-        "route": "cuda",
-        "source": K5_SOURCE,
-        "replaces": K5_REPLACES,
-        "launches": launches_k5,
-        "max_abs_err": max(r["err"] for r in rows_k5.values()),
-        # one update's two launches (levels 1 and 0)
-        "ms": sum(r["ms"] for r in rows_k5.values()),
-        "plain_ms": sum(r["plain_ms"] for r in rows_k5.values()),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "shape": f"B={B_RKLT}, P=100; level 1 n=16 x 8 iterations in "
-                 f"96x96, level 0 n=64 x 1 in {CROP_RKLT}x{CROP_RKLT}",
-        "registers": {str(k): v[0] for k, v in sorted(usage_k5.items())},
-        "spill_stores": max(v[1] for v in usage_k5.values()),
-        "spill_loads": max(v[2] for v in usage_k5.values()),
-        "by_level": {lvl: {k: r[k] for k in k5_keys}
-                     for lvl, r in sorted(rows_k5.items())},
-    })
+    for kind in KINDS:
+        kernels.append(_k5_entry(rows_k5[kind], kind, k5_launches[kind],
+                                 usage_k5,
+                                 row_k5_mf if kind == "linear" else None))
     print(json.dumps({
         "kernels": kernels,
         "fleets": {"fclk_ssd": {"B": B, "fps": fps1, "gt_px": gt1},
@@ -854,11 +1087,12 @@ def main() -> int:
                                   "plain_path_px": plain_mc,
                                   "gray_twin_fps": fps_twin,
                                   "vs_gray_twin": fps_mc / fps_twin,
-                                  "launches": mode_launches["ssd_mc"]},
+                                  "launches": launches["ssd_mc"]},
                    "fclm_mcssd": {"B": B_MC, "gt_px": gt_fclm,
                                   "launches": launches_fclm},
                    "fclk_ssd_cubic": cubic["cubic"],
-                   "fclk_ssd_cubic_bspl": cubic["cubic_bspl"]},
+                   "fclk_ssd_cubic_bspl": cubic["cubic_bspl"],
+                   **family},
         "build_s": {k: v.seconds for k, v in libs.items()},
         "wall_s": time.perf_counter() - t_start,
         "card": card}))

@@ -11,15 +11,18 @@ Idiom: plain functions on tensors with an explicit leading batch axis B
 state.
 
 Slices covered: FCLK and ESM, each optionally with Levenberg-Marquardt
-(`fclm`, `eslm`), with the SSD or NCC appearance model on the 8-DOF
-homography, dense linear sampling from a hoisted crop and coarse-to-fine
-point decimation, batched as a tracker fleet; and RKLT, the grid tracker
-(pyramidal patch flow fused by RANSAC, LMedS or least squares) refined
-by ESM-LM. Two TPU kernels are on those paths, each a CUDA kernel: the
-chain-fused LK iteration (`csrc/lk_fused_chain.cu`) in four
-instantiations, SSD and NCC moments, each with and without ESM's
-template-Jacobian operand; and the grid flow (`csrc/grid_flow.cu`), all
-iterations of a pyramid level for every patch in one launch.
+(`fclm`, `eslm`), with the SSD or NCC appearance model (and SSD on
+(H, W, C) frames) on the 8-DOF homography, dense sampling with linear or
+cubic taps from a hoisted crop and coarse-to-fine point decimation,
+batched as a tracker fleet; the grid tracker (pyramidal patch flow in
+the `warped`, `rigid` or `f2f` geometry, optionally forward-backward
+masked, fused by RANSAC, LMedS, least squares or the median-flow
+similarity: Median Flow), RKLT (the grid refined by ESM-LM), and the
+Cascade, Parallel and Pyramidal composites. Two TPU kernels are on those
+paths, each a CUDA kernel: the chain-fused LK iteration
+(`csrc/lk_fused_chain.cu`) in all its modes and tap kinds, and the grid
+flow (`csrc/grid_flow.cu`), all iterations of a pyramid level for every
+patch in one launch, with linear or cubic taps.
 """
 import torch
 

@@ -1,10 +1,11 @@
 """Carry tracker state between the JAX package and the port.
 
-`to_torch` takes the JAX package's FCLK, ESM, grid or RKLT tracker state
-(SSD or NCC) as a pytree of numpy arrays (for example
-`jax.tree.map(np.asarray, state)` or a loaded checkpoint) for one tracker
-or a vmapped batch, and returns the port's batched state on a device
-(None: the card). `to_numpy` goes back: it returns the port's
+`to_torch` takes the JAX package's FCLK, ESM, grid (any flow, Median
+Flow included), RKLT, cascade, parallel or pyramidal tracker state (SSD
+or NCC; composites nested in composites too) as a pytree of numpy arrays
+(for example `jax.tree.map(np.asarray, state)` or a loaded checkpoint)
+for one tracker or a vmapped batch, and returns the port's batched state
+on a device (None: the card). `to_numpy` goes back: it returns the port's
 NamedTuples holding numpy arrays laid out as the JAX package lays them
 out, so the JAX NamedTuples can be rebuilt field by field. Fields are
 read by name; nothing of JAX is imported.
@@ -19,15 +20,23 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   each coarse pack (templ_s (n_s,) for gray or (n_s, C), H0_s (S, S),
   J_s (n_s·C, S), interleaved alike) -> batched, the port keeping the JAX
   package's row order;
-  grid extra: templates (L, P, n, 1), offsets (n, 2), centers0 (P, 2),
+  grid extra: templates (L, P, n, C), offsets (n, 2), centers0 (P, 2),
   inlier_mask (P,) -> batched. The JAX `key` has no counterpart: the
   port's update counter `step` (a 0-d int64 CPU tensor) starts at 0, and
   `to_numpy` returns it as `step`, so a caller rebuilding the JAX state
-  supplies a key. `prev_frame` must be None (the port has no
-  forward-backward or frame-to-frame flow);
-  RKLT (`CompositeState`): members (grid state, refiner state), extra
-  (final corners (4, 2),) -> batched. A JAX state straight from
-  `initialize` has no final corners yet; the port takes the refiner's.
+  supplies a key. `prev_frame` (H, W[, C]), held by f2f and
+  forward-backward grids: a vmapped JAX state holds B copies of the one
+  shared frame; `to_torch` checks that they are equal and keeps one,
+  `to_numpy` gives the B copies back as a broadcast view;
+  composites (`CompositeState`): members in order (RKLT: grid, refiner;
+  a cascade or parallel composite: its members; a pyramidal one: its
+  levels, finest first), extra RKLT (final corners (4, 2),), ParallelSM
+  (fused corners (4, 2),), CascadeSM and PyramidalSM () -> batched. A
+  JAX RKLT or parallel state straight from `initialize` has no corners
+  in `extra` yet: the port fills them (RKLT: the refiner's; parallel:
+  the mean of the members'). Which composite a state belongs to is read
+  from `sm`, the port's tracker; without it a composite is taken for
+  RKLT.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import torch
 
 from mtf_tpu_torch import _device
 from mtf_tpu_torch.am.base import AMState
-from mtf_tpu_torch.sm.composite import CompositeState
+from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
+                                        ParallelSM, PyramidalSM)
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
 from mtf_tpu_torch.sm.grid import GridState
 from mtf_tpu_torch.sm.lk import LKCache
@@ -48,28 +58,56 @@ def _is_composite(jstate) -> bool:
 
 
 def _ssm_state(jstate):
-    return (jstate.members[0] if _is_composite(jstate) else jstate).ssm_state
+    while _is_composite(jstate):
+        jstate = jstate.members[0]
+    return jstate.ssm_state
 
 
-def to_torch(jstate, device=None):
-    """JAX-layout numpy state (single or batched) -> port state."""
+def _member_sms(sm, k: int) -> list:
+    """The port's trackers of a composite's k member states (None where
+    `sm` is not given)."""
+    if isinstance(sm, RKLT):
+        return [sm.grid_sm, sm.templ_sm]
+    if isinstance(sm, PyramidalSM):
+        return [sm.sm] * k
+    if isinstance(sm, (CascadeSM, ParallelSM)):
+        return list(sm.members)
+    return [None] * k
+
+
+def _one_frame(prev, single: bool):
+    """The shared previous frame of a JAX grid state (B copies when
+    batched)."""
+    a = np.asarray(prev, np.float32)
+    if single:
+        return a
+    if not all(np.array_equal(a[0], x) for x in a[1:]):
+        raise ValueError("grid state: the trackers' previous frames differ; "
+                         "the port keeps one frame shared by the fleet")
+    return a[0]
+
+
+def to_torch(jstate, device=None, sm=None):
+    """JAX-layout numpy state (single or batched) -> port state; `sm`,
+    the port's tracker, tells composites apart (see the module doc)."""
     single = np.ndim(_ssm_state(jstate)) == 1
     device = _device.resolve(device)
 
     def t(x):
+        # a copy: a donating fleet writes into the state's tensors
         a = np.asarray(x, np.float32)
-        return torch.as_tensor(a[None] if single else a, device=device)
+        return torch.tensor(a[None] if single else a, device=device)
 
     def extra_of(ex):
         if hasattr(ex, "templates"):
+            prev = None
             if ex.prev_frame is not None:
-                raise NotImplementedError(
-                    "grid states with a previous frame (forward-backward "
-                    "or frame-to-frame flow) come with ROADMAP Queue 1c")
+                prev = torch.tensor(_one_frame(ex.prev_frame, single),
+                                    device=device)
             return GridState(templates=t(ex.templates), offsets=t(ex.offsets),
                              centers0=t(ex.centers0),
                              step=torch.zeros((), dtype=torch.int64),
-                             inlier_mask=t(ex.inlier_mask))
+                             inlier_mask=t(ex.inlier_mask), prev_frame=prev)
         return LKCache(J0=t(ex.J0), H0=t(ex.H0),
                        coarse=tuple(tuple(t(x) for x in pack)
                                     for pack in ex.coarse))
@@ -85,14 +123,22 @@ def to_torch(jstate, device=None):
                                base_corners=t(rg.base_corners)),
             extra=extra_of(js.extra))
 
-    if not _is_composite(jstate):
-        return tracker(jstate)
-    members = tuple(tracker(m) for m in jstate.members)
-    if jstate.extra:
-        final = t(jstate.extra[0])
-    else:
-        final = image_corners(Homography(device=device), members[-1])
-    return CompositeState(members, extra=(final,))
+    def convert(js, m):
+        if not _is_composite(js):
+            return tracker(js)
+        members = tuple(convert(x, s) for x, s
+                        in zip(js.members, _member_sms(m, len(js.members))))
+        if js.extra:
+            return CompositeState(members, extra=tuple(t(x)
+                                                       for x in js.extra))
+        if isinstance(m, (CascadeSM, PyramidalSM)):
+            return CompositeState(members)
+        if isinstance(m, ParallelSM):
+            return CompositeState(members, extra=(m._fused(members),))
+        return CompositeState(members, extra=(image_corners(
+            Homography(device=device), members[-1]),))
+
+    return convert(jstate, sm)
 
 
 def to_numpy(state, squeeze: bool = False):
@@ -104,14 +150,23 @@ def to_numpy(state, squeeze: bool = False):
 
     def extra_of(ex):
         if isinstance(ex, GridState):
+            prev = None
+            if ex.prev_frame is not None:
+                prev = ex.prev_frame.detach().cpu().numpy()
+                if not squeeze:
+                    prev = np.broadcast_to(prev, (ex.templates.shape[0],)
+                                           + prev.shape)
             return GridState(templates=n(ex.templates), offsets=n(ex.offsets),
                              centers0=n(ex.centers0), step=ex.step.numpy(),
-                             inlier_mask=n(ex.inlier_mask))
+                             inlier_mask=n(ex.inlier_mask), prev_frame=prev)
         return LKCache(J0=n(ex.J0), H0=n(ex.H0),
                        coarse=tuple(tuple(n(x) for x in pack)
                                     for pack in ex.coarse))
 
     def tracker(st):
+        if isinstance(st, CompositeState):
+            return CompositeState(tuple(tracker(m) for m in st.members),
+                                  extra=tuple(n(x) for x in st.extra))
         am, rg = st.am_state, st.region
         return TrackerState(
             ssm_state=n(st.ssm_state),
@@ -122,7 +177,4 @@ def to_numpy(state, squeeze: bool = False):
                                base_corners=n(rg.base_corners)),
             extra=extra_of(st.extra))
 
-    if isinstance(state, CompositeState):
-        return CompositeState(tuple(tracker(m) for m in state.members),
-                              extra=tuple(n(x) for x in state.extra))
     return tracker(state)

@@ -1,17 +1,23 @@
-// Grid flow (K5): every joint 2-DOF LK iteration of one pyramid level, for
-// all patches of B grid trackers, in one launch.
+// Grid flow (K5, and K5c with cubic taps): every joint 2-DOF LK iteration
+// of one pyramid level, for all patches of B grid trackers, in one launch.
 //
 // Replaces the TPU kernel mtf_tpu/ops/pallas/grid_flow.py:_kernel
-// (pallas_call at grid_flow.py:243, in _batched :223). Contract, per
-// tracker b and patch p (its n points are columns [p*n, (p+1)*n) of pts):
+// (pallas_call at grid_flow.py:243, in _batched :223; kind linear, cubic or
+// cubic_bspl, :94-96 and :145-148). Contract, per tracker b and patch p (its
+// n points are columns [p*n, (p+1)*n) of pts):
 //   inputs   win (Hc, Wc) f32 window, pts (2, P*n) window px, templ (P*n)
 //            (standardised per patch when zncc), scale: template units ->
 //            window px
 //   per iteration, disp (2) in template units starting at 0
-//            x = clamp(px + disp.x * scale, 0.001, Wc - 1.001), y alike;
-//            (val, dx, dy) the dense-convention bilinear sample (the
+//            x = clamp(px + disp.x * scale, lo, Wc - hi), y alike, with
+//            [lo, hi] = [0.001, 1.001] for linear taps and [1.001, 2.001]
+//            for the 4x4 cubic taps (every tap inside the window);
+//            (val, dx, dy) the dense-convention sample: linear, where the
 //            derivative along an axis is 0 at an exactly integer
-//            coordinate); with zncc val := (val - mu) / (sqrt(var) + 1e-6)
+//            coordinate, or cubic with the weights phi(t), -phi'(t) at
+//            t = k - x of dense_taps.cuh, each tap row summed first (as
+//            the dense contractions and the plain form do); with zncc
+//            val := (val - mu) / (sqrt(var) + 1e-6)
 //            per patch, mean first, then var = sum (val - mu)^2 / n (two
 //            passes: one-pass E[v^2] - mu^2 cancels catastrophically on
 //            8-bit imagery); r = val - templ; (Jx, Jy) = (dx, dy) * scale;
@@ -20,37 +26,51 @@
 //            (|det| < 1e-12 -> sign(det) * 1e-12 + 1e-12); disp -= H^-1 g
 //   output   disp (2) per patch, in template units.
 //
-// The TPU kernel's bf16 window, iota block-indicator reductions, point
-// tiles and 80-row y-bands with their in-band mask are layout artifacts:
-// here the whole window is clamped and every point is live (the semantics
-// of the JAX package's XLA path, sm/grid.py:_track_patches_mm).
+// The TPU kernel's bf16 window and tap weights, iota block-indicator
+// reductions, point tiles and 80-row y-bands with their in-band mask are
+// layout artifacts: here the whole window is clamped and every point is
+// live (the semantics of the JAX package's XLA path,
+// sm/grid.py:_track_patches_mm).
 //
 // Layout: one segment of `lanes` threads per (tracker, patch), lanes the
 // power of two >= n up to 32, so a warp holds 32 / lanes whole patches
-// (two at the grid's coarse level, n = 16); each lane keeps K = n / lanes
-// (rounded up to a power of two) points, their template values and their
-// samples in registers for the whole launch, and the displacement stays in
-// registers across iterations (the TPU kernel kept it in VMEM). Sums are
+// (two at the grid's coarse level, n = 16); each lane takes K = n / lanes
+// (rounded up to a power of two) points, keeps their samples in registers
+// through an iteration and, up to K = 8 (n <= 256, every grid level),
+// their coordinates and template values for the whole launch; the
+// displacement stays in registers across iterations (the TPU kernel kept
+// it in VMEM). Sums are
 // xor-butterfly shuffles inside the segment: IEEE addition commutes, so
 // every lane gets the same bits, solves the same 2x2 and carries the same
-// displacement; the order is fixed (no atomics), so results repeat.
+// displacement; the order is fixed (no atomics), so results repeat. The tap
+// kind is a template parameter beside K: 6 x 3 instantiations.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32), each input read once and
 // each output written once: the window pixels the taps cover (at most the
 // window), 8 B of points and 4 B of template per point, the scale, and
-// 8 B of disp per patch; ~60 FLOPs per point per iteration. At B = 384,
-// P = 100: level 0 (n = 64, 1 iteration, 160 px window) moves ~33 KB of
-// covered window, 51 KB of points and 26 KB of template per tracker, ~42 MB
-// in all, ~0.013 ms; level 1 (n = 16, 8 iterations, 96 px window) moves
-// ~10 MB (~0.003 ms) against ~0.3 GFLOP (~0.0045 ms), compute-bound at
-// ~0.005 ms. The tap gathers are dependent loads; windows are read through
-// the read-only cache (__ldg), and a tracker's 100 patches run on
-// neighbouring warps, so its window stays in L1/L2 while they run.
+// 8 B of disp per patch; the FLOPs per point per iteration are counted
+// once, in chip_smoke.py (K5_FLOPS_PER_PT_ITER: 60 with linear taps, 230
+// with cubic ones), which computes the bound from them.
+// At B = 384, P = 100: level 0 (n = 64, 1 iteration, 160 px window) moves
+// ~33 KB of covered window, 51 KB of points and 26 KB of template per
+// tracker, ~42 MB in all, ~0.013 ms; level 1 (n = 16, 8 iterations, 96 px
+// window) moves ~10 MB (~0.003 ms) against ~0.3 GFLOP linear (~0.0045 ms)
+// or ~1.1 GFLOP cubic (~0.017 ms), so level 1 is compute-bound. The tap
+// gathers are dependent loads; windows are read through the read-only
+// cache (__ldg), and a tracker's 100 patches run on neighbouring warps, so
+// its window stays in L1/L2 while they run.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "dense_taps.cuh"
+
 namespace {
+
+using dense_taps::cubic_axis;
+using dense_taps::kBspl;
+using dense_taps::kCubic;
+using dense_taps::kLinear;
 
 constexpr int kThreads = 256;
 
@@ -60,13 +80,67 @@ __device__ __forceinline__ float seg_sum(float v, int lanes) {
   return v;
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-grid_flow_kernel(const float* __restrict__ win, const float* __restrict__ pts,
-                 const float* __restrict__ templ,
-                 const float* __restrict__ scale, float* __restrict__ disp,
-                 int batch, int hc, int wc, int n_patches, int n, int lanes,
-                 int n_iters, int zncc) {
+// seg_sum of the 5 per-patch sums in one butterfly: each value adds in
+// seg_sum's order, and the 5 shuffles of a step are independent
+__device__ __forceinline__ void seg_sum5(float (&a)[5], int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], off);
+  }
+}
+
+// Value and derivatives (the dense convention) of the window `wb` (row
+// stride wc) at a clamped position (x, y): bilinear, the derivative along
+// an axis 0 at an exactly integer coordinate; or 4x4 cubic taps, each tap
+// row summed first, as the dense contractions and the plain form do.
+template <int kKind>
+__device__ __forceinline__ void sample_taps(const float* __restrict__ wb,
+                                            int wc, float x, float y,
+                                            float& v, float& gx, float& gy) {
+  if constexpr (kKind == kLinear) {
+    const float xf = floorf(x), yf = floorf(y);
+    const float fx = x - xf, fy = y - yf;
+    const float* t0 = wb + (size_t)((int)yf) * wc + (int)xf;
+    const float v00 = __ldg(t0), v01 = __ldg(t0 + 1);
+    const float v10 = __ldg(t0 + wc), v11 = __ldg(t0 + wc + 1);
+    const float top = v00 * (1.0f - fx) + v01 * fx;
+    const float bot = v10 * (1.0f - fx) + v11 * fx;
+    v = top * (1.0f - fy) + bot * fy;
+    gx = fx > 0.0f ? (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy : 0.0f;
+    gy = fy > 0.0f ? bot - top : 0.0f;
+  } else {
+    float wx[4], dwx[4], wy[4], dwy[4];
+    cubic_axis<kKind>(x, wx, dwx);
+    cubic_axis<kKind>(y, wy, dwy);
+    const float* t0 = wb + (size_t)((int)floorf(y) - 1) * wc
+                      + ((int)floorf(x) - 1);
+    v = gx = gy = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* row = t0 + (size_t)r * wc;
+      float rs = 0.0f, rd = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pix = __ldg(row + i);
+        rs += wx[i] * pix;
+        rd += dwx[i] * pix;
+      }
+      v += wy[r] * rs;
+      gx += wy[r] * rd;
+      gy += dwy[r] * rs;
+    }
+  }
+}
+
+// The body of one launch; the kernels below differ only in their launch
+// bounds.
+template <int K, int kKind>
+__device__ __forceinline__ void grid_flow_body(
+    const float* __restrict__ win, const float* __restrict__ pts,
+    const float* __restrict__ templ, const float* __restrict__ scale,
+    float* __restrict__ disp, int batch, int hc, int wc, int n_patches,
+    int n, int lanes, int n_iters, int zncc) {
   const size_t gtid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t seg = gtid / lanes;                  // (tracker, patch)
   const int lane = (int)(gtid % lanes);
@@ -80,20 +154,33 @@ grid_flow_kernel(const float* __restrict__ win, const float* __restrict__ pts,
   const float* yb = xb + pn;
   const float* tb = templ + (size_t)b * pn + (size_t)p * n;
   const float s = scale[b];
+  constexpr bool kLin = kKind == kLinear;
   // clamp bounds rounded from double, as the plain form's scalars are
-  const float hix = (float)((double)wc - 1.001);
-  const float hiy = (float)((double)hc - 1.001);
+  const float lo = kLin ? 0.001f : 1.001f;
+  const float hix = (float)((double)wc - (kLin ? 1.001 : 2.001));
+  const float hiy = (float)((double)hc - (kLin ? 1.001 : 2.001));
   const float nf = (float)n;
 
-  float px[K], py[K], tv[K];
-  bool live[K];
+  // point j of this lane is lane + j * lanes; it is live while < n
+  const int n_mine = active ? n : 0;
+  // Up to 8 points per lane (n <= 256: every grid level) keep their
+  // coordinates, template values and samples in registers; wider lanes
+  // keep only the values between the passes of an iteration, re-read
+  // their points through the read-only cache and sample the taps again
+  // for the sums, which keeps them under the 255-register cap without
+  // spills.
+  constexpr bool kHold = K <= 8;
+  constexpr int kHeld = kHold ? K : 1;
+  float px[kHeld], py[kHeld], tv[kHeld];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int i = lane + j * lanes;
-    live[j] = active && i < n;
-    px[j] = live[j] ? xb[i] : 0.0f;
-    py[j] = live[j] ? yb[i] : 0.0f;
-    tv[j] = live[j] ? tb[i] : 0.0f;
+    for (int j = 0; j < K; ++j) {
+      const int i = lane + j * lanes;
+      const bool live = i < n_mine;
+      px[j] = live ? xb[i] : 0.0f;
+      py[j] = live ? yb[i] : 0.0f;
+      tv[j] = live ? tb[i] : 0.0f;
+    }
   }
 
   float dxp = 0.0f, dyp = 0.0f;           // displacement, template units
@@ -101,60 +188,81 @@ grid_flow_kernel(const float* __restrict__ win, const float* __restrict__ pts,
     // one rounding for the offset and one for the sum, as the plain form
     // (no FMA contraction): both forms put the same points on integers
     const float ox = __fmul_rn(dxp, s), oy = __fmul_rn(dyp, s);
-    float v[K], gx[K], gy[K];
+    // value and derivatives at live point j of this lane
+    auto sample_point = [&](int j, float& v, float& gx, float& gy) {
+      float bx, by;
+      if constexpr (kHold) {
+        bx = px[j];
+        by = py[j];
+      } else {
+        bx = __ldg(xb + lane + j * lanes);
+        by = __ldg(yb + lane + j * lanes);
+      }
+      const float x = fminf(fmaxf(__fadd_rn(bx, ox), lo), hix);
+      const float y = fminf(fmaxf(__fadd_rn(by, oy), lo), hiy);
+      sample_taps<kKind>(wb, wc, x, y, v, gx, gy);
+    };
+    float v[K], gx[kHeld], gy[kHeld];
     float s1 = 0.0f;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      v[j] = gx[j] = gy[j] = 0.0f;
-      if (!live[j]) continue;
-      const float x = fminf(fmaxf(__fadd_rn(px[j], ox), 0.001f), hix);
-      const float y = fminf(fmaxf(__fadd_rn(py[j], oy), 0.001f), hiy);
-      const float xf = floorf(x), yf = floorf(y);
-      const float fx = x - xf, fy = y - yf;
-      const float* t0 = wb + (size_t)((int)yf) * wc + (int)xf;
-      const float v00 = __ldg(t0), v01 = __ldg(t0 + 1);
-      const float v10 = __ldg(t0 + wc), v11 = __ldg(t0 + wc + 1);
-      const float top = v00 * (1.0f - fx) + v01 * fx;
-      const float bot = v10 * (1.0f - fx) + v11 * fx;
-      v[j] = top * (1.0f - fy) + bot * fy;
-      gx[j] = fx > 0.0f ? (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy : 0.0f;
-      gy[j] = fy > 0.0f ? bot - top : 0.0f;
-      s1 += v[j];
+      v[j] = 0.0f;
+      if constexpr (kHold) gx[j] = gy[j] = 0.0f;
+      if (lane + j * lanes >= n_mine) continue;
+      float vj, gxj, gyj;
+      sample_point(j, vj, gxj, gyj);
+      v[j] = vj;
+      if constexpr (kHold) {
+        gx[j] = gxj;
+        gy[j] = gyj;
+      }
+      s1 += vj;
     }
     if (zncc) {
       const float mu = seg_sum(s1, lanes) / nf;
       float s2 = 0.0f;
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        v[j] = live[j] ? v[j] - mu : 0.0f;
+        v[j] = lane + j * lanes < n_mine ? v[j] - mu : 0.0f;
         s2 += v[j] * v[j];
       }
       const float inv = 1.0f / (sqrtf(seg_sum(s2, lanes) / nf) + 1e-6f);
 #pragma unroll
       for (int j = 0; j < K; ++j) v[j] *= inv;
     }
+    // the 5 per-patch sums [JxJx, JxJy, JyJy, Jx r, Jy r]
     float a[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      if (!live[j]) continue;
-      const float r = v[j] - tv[j];
-      const float jx = gx[j] * s, jy = gy[j] * s;
+      if (lane + j * lanes >= n_mine) continue;
+      float dx, dy, t;
+      if constexpr (kHold) {
+        dx = gx[j];
+        dy = gy[j];
+        t = tv[j];
+      } else {
+        float vj;
+        sample_point(j, vj, dx, dy);
+        t = __ldg(tb + lane + j * lanes);
+      }
+      const float r = v[j] - t;
+      const float jx = dx * s, jy = dy * s;
       a[0] += jx * jx;
       a[1] += jx * jy;
       a[2] += jy * jy;
       a[3] += jx * r;
       a[4] += jy * r;
     }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) a[k] = seg_sum(a[k], lanes);
+    seg_sum5(a, lanes);
     const float hxx = a[0] + 1e-6f, hxy = a[1], hyy = a[2] + 1e-6f;
+    const float gxr = a[3], gyr = a[4];
     float det = hxx * hyy - hxy * hxy;
     if (fabsf(det) < 1e-12f) {
       const float sg = (float)((det > 0.0f) - (det < 0.0f));
       det = sg * 1e-12f + 1e-12f;
     }
-    dxp -= (hyy * a[3] - hxy * a[4]) / det;
-    dyp -= (hxx * a[4] - hxy * a[3]) / det;
+    dxp -= (hyy * gxr - hxy * gyr) / det;
+    dyp -= (hxx * gyr - hxy * gxr) / det;
   }
   if (active && lane == 0) {
     disp[seg * 2] = dxp;
@@ -162,40 +270,62 @@ grid_flow_kernel(const float* __restrict__ win, const float* __restrict__ pts,
   }
 }
 
-template <int K>
+#define GRID_FLOW_PARAMS                                                    \
+  const float* __restrict__ win, const float* __restrict__ pts,             \
+      const float* __restrict__ templ, const float* __restrict__ scale,     \
+      float* __restrict__ disp, int batch, int hc, int wc, int n_patches,   \
+      int n, int lanes, int n_iters, int zncc
+#define GRID_FLOW_ARGS                                                      \
+  win, pts, templ, scale, disp, batch, hc, wc, n_patches, n, lanes, n_iters, \
+      zncc
+
+// Up to 8 points per lane: ptxas's own register budget for 256 threads.
+template <int K, int kKind>
+__global__ void __launch_bounds__(kThreads)
+grid_flow_kernel(GRID_FLOW_PARAMS) {
+  grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
+}
+
+// 16 and 32 points per lane: one block per SM is enough, which lets ptxas
+// use up to 255 registers (with the default budget the cubic_bspl lane of
+// 16 points spills).
+template <int K, int kKind>
+__global__ void __launch_bounds__(kThreads, 1)
+grid_flow_kernel_wide(GRID_FLOW_PARAMS) {
+  grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
+}
+
+template <int K, int kKind>
 int launch(const void* win, const void* pts, const void* templ,
            const void* scale, void* disp, int batch, int hc, int wc,
            int n_patches, int n, int lanes, int n_iters, int zncc,
            cudaStream_t stream) {
   const size_t threads = (size_t)batch * n_patches * lanes;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  grid_flow_kernel<K><<<blocks, kThreads, 0, stream>>>(
-      (const float*)win, (const float*)pts, (const float*)templ,
-      (const float*)scale, (float*)disp, batch, hc, wc, n_patches, n, lanes,
-      n_iters, zncc);
+  const float *w = (const float*)win, *p = (const float*)pts,
+              *t = (const float*)templ, *s = (const float*)scale;
+  float* d = (float*)disp;
+  if constexpr (K >= 16)
+    grid_flow_kernel_wide<K, kKind><<<blocks, kThreads, 0, stream>>>(
+        w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
+  else
+    grid_flow_kernel<K, kKind><<<blocks, kThreads, 0, stream>>>(
+        w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+#undef GRID_FLOW_ARGS
+#undef GRID_FLOW_PARAMS
 
-// Plain C entry point (bound with ctypes). All pointers are device pointers
-// to contiguous float32 tensors: win (B, Hc, Wc), pts (B, 2, P*n),
-// templ (B, P*n), scale (B), disp (B, P, 2) written. 1 <= n <= 1024.
-// `stream` is the caller's CUDA stream. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for an n out of range).
-extern "C" int grid_flow_launch(const void* win, const void* pts,
-                                const void* templ, const void* scale,
-                                void* disp, int batch, int hc, int wc,
-                                int n_patches, int n, int n_iters, int zncc,
-                                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  int lanes = 1;
-  while (lanes < n && lanes < 32) lanes <<= 1;
-  const int per_lane = (n + lanes - 1) / lanes;
+template <int kKind>
+int launch_kind(const void* win, const void* pts, const void* templ,
+                const void* scale, void* disp, int batch, int hc, int wc,
+                int n_patches, int n, int lanes, int per_lane, int n_iters,
+                int zncc, cudaStream_t st) {
 #define GRID_FLOW_CASE(K)                                                   \
   if (per_lane <= K)                                                        \
-    return launch<K>(win, pts, templ, scale, disp, batch, hc, wc, n_patches, \
-                     n, lanes, n_iters, zncc, st);
+    return launch<K, kKind>(win, pts, templ, scale, disp, batch, hc, wc,    \
+                            n_patches, n, lanes, n_iters, zncc, st);
   GRID_FLOW_CASE(1)
   GRID_FLOW_CASE(2)
   GRID_FLOW_CASE(4)
@@ -203,5 +333,37 @@ extern "C" int grid_flow_launch(const void* win, const void* pts,
   GRID_FLOW_CASE(16)
   GRID_FLOW_CASE(32)
 #undef GRID_FLOW_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). All pointers are device pointers
+// to contiguous float32 tensors: win (B, Hc, Wc), pts (B, 2, P*n),
+// templ (B, P*n), scale (B), disp (B, P, 2) written. 1 <= n <= 1024;
+// `kind` is 0 linear, 1 cubic, 2 cubic_bspl. `stream` is the caller's CUDA
+// stream. Returns cudaErrorInvalidValue, launching nothing, for an n or a
+// kind out of range, else cudaGetLastError() after the launch.
+extern "C" int grid_flow_launch(const void* win, const void* pts,
+                                const void* templ, const void* scale,
+                                void* disp, int batch, int hc, int wc,
+                                int n_patches, int n, int n_iters, int zncc,
+                                int kind, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int lanes = 1;
+  while (lanes < n && lanes < 32) lanes <<= 1;
+  const int per_lane = (n + lanes - 1) / lanes;
+  if (kind == kLinear)
+    return launch_kind<kLinear>(win, pts, templ, scale, disp, batch, hc, wc,
+                                n_patches, n, lanes, per_lane, n_iters, zncc,
+                                st);
+  if (kind == kCubic)
+    return launch_kind<kCubic>(win, pts, templ, scale, disp, batch, hc, wc,
+                               n_patches, n, lanes, per_lane, n_iters, zncc,
+                               st);
+  if (kind == kBspl)
+    return launch_kind<kBspl>(win, pts, templ, scale, disp, batch, hc, wc,
+                              n_patches, n, lanes, per_lane, n_iters, zncc,
+                              st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,14 +8,23 @@
                    grid_sub_iters=(1, 8), grid_coarse_stride=2,
                    coarse_pt_iters=((4, 6), (2, 3)))
     create_tracker("fclk", "mcssd", "8", ..., interp="linear_mm")
+    create_tracker("mf", "ssd", "8", resx=50, resy=50, interp="linear_mm",
+                   crop=160)
+    create_tracker("casc", "ssd", "8", members=[("grid", "ssd", "8"),
+                                               ("fclk", "ssd", "8")], ...)
+    create_tracker("pyr", "ssd", "8", pyr_sm="fclk", pyr_n_levels=3, ...)
 
 The LK keys take `interp` "linear_mm", "cubic_mm" (Catmull-Rom) or
-"cubic_bspl_mm" (cubic B-spline); the AM keys "mcssd" and "ssd3" are SSD
-over (H, W, 3) frames (FCLK and its LM variant fclm only, as in the JAX
-package's fused path). The tracker lives on the card unless `device`
-says otherwise (`device="cpu"` for a CPU run); without a card and
-without `device` it raises. Keys and options outside the ported slices
-raise `NotImplementedError` naming the ROADMAP queue that brings them.
+"cubic_bspl_mm" (cubic B-spline); the grid keys take those and the
+gather kinds "linear", "cubic" and "cubic_bspl", on (H, W) or (H, W, C)
+frames. The AM keys "mcssd" and "ssd3" are SSD over (H, W, 3) frames
+(FCLK and its LM variant fclm only, as in the JAX package's fused path).
+The composites (`casc`, `prl`, `pyr` and their aliases, the shorthands
+`grfc` and `gres`) build their members with this function, from the same
+options. The tracker lives on the card unless `device` says otherwise
+(`device="cpu"` for a CPU run); without a card and without `device` it
+raises. Keys and options outside the ported slices raise
+`NotImplementedError` naming the ROADMAP queue that brings them.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from dataclasses import replace
 from typing import Any
 
 from mtf_tpu_torch.am import AMParams, get_am
-from mtf_tpu_torch.sm.composite import RKLT, RKLTParams
+from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
+                                        PyramidalSM, RKLTParams)
 from mtf_tpu_torch.sm.core import SMParams
 from mtf_tpu_torch.sm.grid import GridParams, GridTracker
 from mtf_tpu_torch.sm.lk import LM_KEYS, SM_LK_REGISTRY
@@ -37,21 +47,35 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "grid_coarse_stride", "grid_estimator", "grid_n_hyps",
               "grid_inlier_thresh", "grid_fb_err", "grid_patch_scale",
               "grid_zncc", "grid_pyramid_levels", "grid_flow", "grid_sm",
-              "seed", "rklt_failure_thresh", "rklt_feedback", "enable_spi"}
+              "seed", "rklt_failure_thresh", "rklt_feedback", "enable_spi",
+              # composites
+              "members", "casc_reinit_thresh", "pyr_sm", "pyr_n_levels",
+              "multi_cfg"}
 
 GRID_KEYS = {"grid": None, "lms": "lmeds", "ransac": "ransac",
              "rnsc": "ransac"}
 RKLT_KEYS = {"rklt", "rkl", "lmes"}
+MF_KEYS = {"mf", "mflow", "medianflow"}
+CASC_KEYS = {"casc", "casm", "cascade"}
+PRL_KEYS = {"prl", "prlt", "prls", "prsm", "parallel"}
+PYR_KEYS = {"pyr", "pyrt", "pysm", "pyrs"}
+# the cascade shorthands whose members are all ported: <first><second>
+CASCADE_SHORTHAND = {"grfc": ("grid", "fclk"), "gres": ("grid", "esm")}
+_PORTED_SM = (set(SM_LK_REGISTRY) | set(GRID_KEYS) | RKLT_KEYS | MF_KEYS
+              | CASC_KEYS | PRL_KEYS | PYR_KEYS | set(CASCADE_SHORTHAND))
 
 # where each unported SM key is queued: "1b" is the rest of slice 2, "1c"
 # the rest of slice 3
 _SLICE_OF_SM = {
     "iclk": "1b", "ic": "1b", "iclm": "1b", "aesm": "1, slice 4",
-    "casc": "1c", "prl": "1c", "pyr": "1c", "hrch": "1c", "hesm": "1c",
-    "mf": "1c", "mflow": "1c", "medianflow": "1c", "tld": "1c",
-    "gric": "1c", "grfc": "1c", "gres": "1c", "pfrk": "1c", "nnrk": "1c",
-    "pfic": "1c", "pffc": "1c", "pfes": "1c", "nnic": "1c", "nnfc": "1c",
-    "nnes": "1c", "falk": "1, slice 4",
+    "hrch": "1c (low-DOF SSMs: Queue 1, slice 4)",
+    "hesm": "1c (low-DOF SSMs: Queue 1, slice 4)",
+    "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
+    "gric": "1c (ICLK: Queue 1b)", "pfrk": "1c (PF: Queue 1, slice 5)",
+    "nnrk": "1c (NN: Queue 1, slice 5)", "pfic": "1c (PF: Queue 1, slice 5)",
+    "pffc": "1c (PF: Queue 1, slice 5)", "pfes": "1c (PF: Queue 1, slice 5)",
+    "nnic": "1c (NN: Queue 1, slice 5)", "nnfc": "1c (NN: Queue 1, slice 5)",
+    "nnes": "1c (NN: Queue 1, slice 5)", "falk": "1, slice 4",
     "fa": "1, slice 4", "ialk": "1, slice 4", "ia": "1, slice 4",
     "fcsd": "1, slice 4", "falm": "1, slice 4", "ialm": "1, slice 4",
     "aelm": "1, slice 4", "pf": "1, slice 5", "nn": "1, slice 5",
@@ -94,14 +118,31 @@ def _grid_params(cfg: dict, estimator: str | None = None) -> GridParams:
     )
 
 
+def _casc_thresh(cfg: dict):
+    """Cascade auto-reinit divergence threshold (px); None disables."""
+    v = cfg.get("casc_reinit_thresh")
+    return float(v) if v is not None else None
+
+
+def _members(sm_key: str, cfg: dict) -> list:
+    members = cfg.get("members")
+    if "multi_cfg" in cfg:
+        raise NotImplementedError(
+            "multi_cfg (members from a multi.cfg file) is not ported yet: "
+            "it needs utils/config, which comes with ROADMAP Queue 1, "
+            "slice 8")
+    if not members:
+        raise ValueError(f"{sm_key} requires members=[(sm, am, ssm), ...]")
+    return list(members)
+
+
 def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
                    ilm: str | None = None, device=None, **cfg: Any):
     """Reference `mtf::getTracker(sm, am, ssm, ilm)` analog for the
     ported slices; the tracker's tensors live on `device` (None: the
     card)."""
     sm_key = sm.lower()
-    if (sm_key not in SM_LK_REGISTRY and sm_key not in GRID_KEYS
-            and sm_key not in RKLT_KEYS):
+    if sm_key not in _PORTED_SM:
         where = _SLICE_OF_SM.get(sm_key, "1, slice 7")
         raise NotImplementedError(
             f"SM {sm!r} is not ported yet: it comes with ROADMAP Queue "
@@ -112,6 +153,28 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
             f"options {unknown} are not ported yet: the LK options beyond "
             "slices 1 and 2 come with ROADMAP Queue 1b and Queue 1, "
             "slice 4")
+
+    # a composite's members take its options, but not its own member
+    # list or pyramid SM (a member of the same kind would recurse)
+    sub_cfg = {k: v for k, v in cfg.items() if k not in ("members",
+                                                         "pyr_sm")}
+
+    def sub(key, m_am=am, m_ssm=ssm):
+        return create_tracker(key, m_am, m_ssm, ilm, device=device,
+                              **sub_cfg)
+
+    if sm_key in CASCADE_SHORTHAND:
+        first, second = CASCADE_SHORTHAND[sm_key]
+        return CascadeSM([sub(first), sub(second)], _casc_thresh(cfg))
+    if sm_key in CASC_KEYS:
+        return CascadeSM([sub(*m) for m in _members(sm_key, cfg)],
+                         _casc_thresh(cfg))
+    if sm_key in PRL_KEYS:
+        return ParallelSM([sub(*m) for m in _members(sm_key, cfg)])
+    if sm_key in PYR_KEYS:
+        return PyramidalSM(sub(str(cfg.get("pyr_sm", "fclk"))),
+                           int(cfg.get("pyr_n_levels", 3)))
+
     prm = SMParams(
         max_iters=int(cfg.get("max_iters", 30)),
         epsilon=float(cfg.get("epsilon", 0.01)),
@@ -134,6 +197,16 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     def make_ssm():
         return get_ssm(ssm, device=device)
 
+    if sm_key in MF_KEYS:
+        # Median Flow (the reference's bundled TLD tracker core):
+        # frame-to-frame pyramidal grid flow with forward-backward masking
+        # fused by the pairwise-median similarity; 20 LK iterations per
+        # level, as OpenTLD's pyrLK
+        gp = replace(_grid_params(cfg, "median"), flow="f2f",
+                     fb_err_px=float(cfg.get("grid_fb_err", 2.0)),
+                     sub_iters=_sub_iters(cfg.get("grid_sub_iters", 20)),
+                     pyramid_levels=int(cfg.get("grid_pyramid_levels", 3)))
+        return GridTracker(make_am(), make_ssm(), prm, gp)
     if sm_key in GRID_KEYS:
         # grid_sm selects the per-patch tracker: "flow" / "cv" are the
         # batched flow grid ("cv" pyramidal over 3 levels by default)
@@ -141,7 +214,8 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         if grid_sm not in ("flow", "cv"):
             raise NotImplementedError(
                 f"grid_sm {grid_sm!r} (a grid of sub-trackers) is not "
-                "ported yet: it comes with ROADMAP Queue 1c")
+                "ported yet: it comes with ROADMAP Queue 1c (its default "
+                "grid_ssm '2' needs the low-DOF SSMs of Queue 1, slice 4)")
         gp = _grid_params(cfg, GRID_KEYS[sm_key])
         if grid_sm == "cv":
             gp = replace(gp, pyramid_levels=int(

@@ -4,6 +4,13 @@ Images are (H, W) or (H, W, C) float tensors; points are (..., N, 2) in
 (x, y) order with any leading batch dims; patches are (..., N, C).
 Border handling is 'replicate' (the slice's only border mode).
 
+`sample_val_grad` (and `sample`, `sample_grad`) is the gather form of
+the JAX package's `sample`: linear, Catmull-Rom (`cubic`) and cubic
+B-spline taps at floor(x) + {-1..2}, indices clamped into the image,
+the derivative of the interpolant itself (linear: one-sided at an
+integer coordinate); a dense kind ("*_mm") goes to `sample_dense` on the
+whole image.
+
 `sample_dense` and `sample_windows` keep the JAX dense ("*_mm")
 conventions exactly, while reading the taps by gather instead of the
 TPU's tap-weight matmuls:
@@ -43,23 +50,44 @@ def _gather(img_flat: torch.Tensor, h: int, w: int, xi: torch.Tensor,
     return img_flat[yc * w + xc]
 
 
-def _cubic_weights(f: torch.Tensor):
-    """Catmull-Rom 4-tap weights for offsets f in [0, 1)."""
+def _cubic_weights(f: torch.Tensor, kind: str):
+    """4-tap weights and their derivatives for offsets f in [0, 1)
+    (`mtf_tpu/ops/interp.py:_cubic_weights`): Catmull-Rom (`cubic`) or
+    cubic B-spline (`cubic_bspl`). Returns (w, dw), 4 tensors each."""
     f2 = f * f
     f3 = f2 * f
-    return (0.5 * (-f + 2.0 * f2 - f3), 0.5 * (2.0 - 5.0 * f2 + 3.0 * f3),
-            0.5 * (f + 4.0 * f2 - 3.0 * f3), 0.5 * (-f2 + f3))
+    if kind == CUBIC:
+        return ((0.5 * (-f + 2.0 * f2 - f3),
+                 0.5 * (2.0 - 5.0 * f2 + 3.0 * f3),
+                 0.5 * (f + 4.0 * f2 - 3.0 * f3), 0.5 * (-f2 + f3)),
+                (0.5 * (-1.0 + 4.0 * f - 3.0 * f2),
+                 0.5 * (-10.0 * f + 9.0 * f2),
+                 0.5 * (1.0 + 8.0 * f - 9.0 * f2),
+                 0.5 * (-2.0 * f + 3.0 * f2)))
+    onemf = 1.0 - f
+    return ((onemf * onemf * onemf / 6.0, (4.0 - 6.0 * f2 + 3.0 * f3) / 6.0,
+             (1.0 + 3.0 * f + 3.0 * f2 - 3.0 * f3) / 6.0, f3 / 6.0),
+            (-0.5 * onemf * onemf, (-12.0 * f + 9.0 * f2) / 6.0,
+             (3.0 + 6.0 * f - 9.0 * f2) / 6.0, 0.5 * f2))
 
 
-def sample(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
-           border: str = REPLICATE) -> torch.Tensor:
-    """Sample img at subpixel points -> patch (..., N, C)."""
+def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
+                    border: str = REPLICATE, need_grad: bool = True):
+    """Values (..., N, C) and, with `need_grad`, the interpolant's
+    derivative d/d(x, y) (..., N, C, 2) at subpixel points, by gather
+    (`mtf_tpu/ops/interp.py:_sample_val_grad`): `linear` (the one-sided
+    difference v01 - v00, also at an exactly integer coordinate, unlike
+    the dense convention), `cubic` and `cubic_bspl` 4x4 taps, and the
+    dense kinds ("*_mm") through `sample_dense` on the whole image."""
     if border != REPLICATE:
         raise NotImplementedError(
             f"border {border!r} is not ported yet: ROADMAP Queue 1, slice 8")
     if kind.endswith(MM_SUFFIX):
         return sample_dense(img, pts, kind[:-len(MM_SUFFIX)],
-                            need_grad=False)[0]
+                            need_grad=need_grad)
+    if kind not in KINDS:
+        raise NotImplementedError(
+            f"interp {kind!r} is not ported yet: ROADMAP Queue 1, slice 4")
     img = _as_hwc(img)
     h, w, c = img.shape
     img_flat = img.reshape(h * w, c)
@@ -75,15 +103,36 @@ def sample(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         v11 = _gather(img_flat, h, w, x0 + 1, y0 + 1)
         top = v00 * (1.0 - fx) + v01 * fx
         bot = v10 * (1.0 - fx) + v11 * fx
-        return top * (1.0 - fy) + bot * fy
-    if kind == CUBIC:
-        wx = _cubic_weights(fx)
-        wy = _cubic_weights(fy)
-        rows = [sum(_gather(img_flat, h, w, x0 + i - 1, y0 + j - 1) * wx[i]
-                    for i in range(4)) for j in range(4)]
-        return sum(rows[j] * wy[j] for j in range(4))
-    raise NotImplementedError(
-        f"interp {kind!r} is not ported yet: ROADMAP Queue 1, slice 4")
+        val = top * (1.0 - fy) + bot * fy
+        if not need_grad:
+            return val, None
+        dx = (v01 - v00) * (1.0 - fy) + (v11 - v10) * fy
+        return val, torch.stack([dx, bot - top], dim=-1)
+    wx, dwx = _cubic_weights(fx, kind)
+    wy, dwy = _cubic_weights(fy, kind)
+    rows = [[_gather(img_flat, h, w, x0 + i - 1, y0 + j - 1)
+             for i in range(4)] for j in range(4)]
+    row_v = [sum(rows[j][i] * wx[i] for i in range(4)) for j in range(4)]
+    val = sum(row_v[j] * wy[j] for j in range(4))
+    if not need_grad:
+        return val, None
+    row_dx = [sum(rows[j][i] * dwx[i] for i in range(4)) for j in range(4)]
+    dx = sum(row_dx[j] * wy[j] for j in range(4))
+    dy = sum(row_v[j] * dwy[j] for j in range(4))
+    return val, torch.stack([dx, dy], dim=-1)
+
+
+def sample(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
+           border: str = REPLICATE) -> torch.Tensor:
+    """Sample img at subpixel points -> patch (..., N, C)."""
+    return sample_val_grad(img, pts, kind, border, need_grad=False)[0]
+
+
+def sample_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
+                border: str = REPLICATE) -> torch.Tensor:
+    """The interpolant's derivative at subpixel points -> (..., N, C, 2)
+    (`mtf_tpu/ops/interp.py:sample_grad`)."""
+    return sample_val_grad(img, pts, kind, border, need_grad=True)[1]
 
 
 def crop_origin(pts: torch.Tensor, size: int, full: int,

@@ -2,14 +2,17 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for `sm_90a` into `mtf_tpu_torch/_build/lib<name>-<hash>.so` at
-first use, then loaded with `ctypes`. The hash covers the source and the
-flags, so an edited source rebuilds. Nothing is built at import time.
+first use, then loaded with `ctypes`. The hash covers the source, every
+header it includes from `csrc/` (`#include "..."`, followed into nested
+includes) and the flags, so an edited source or header rebuilds. Nothing
+is built at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,6 +36,30 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list[Path]:
+    """`src` and the local headers it includes, in first-include order."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Build key of `<csrc>/<name>.cu`: its bytes, its local headers'
+    (name and bytes) and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in _sources(csrc / f"{name}.cu"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -58,9 +85,7 @@ def load(name: str) -> Built:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD / f"lib{name}-{digest}.so"
+    out = BUILD / f"lib{name}-{digest(name)}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.exists():

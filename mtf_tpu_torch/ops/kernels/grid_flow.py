@@ -1,13 +1,17 @@
 """Grid flow: every joint 2-DOF LK iteration of one pyramid level, for all
 patches of B grid trackers in one call (port of
-`mtf_tpu/ops/pallas/grid_flow.py:grid_flow_fused`, the K5 kernel).
+`mtf_tpu/ops/pallas/grid_flow.py:grid_flow_fused`: the K5 kernel with
+linear taps, K5c with the cubic kinds).
 
 Per tracker b, patch p and iteration, with disp (2,) in template units
 starting at 0:
   * window-px offset = disp * scale; each of the patch's n points is
-    moved by it and clamped to [0.001, size - 1.001] of the window;
-  * val, dx, dy: the dense-convention linear sample (derivative 0 along
-    an axis at an exactly integer coordinate);
+    moved by it and clamped to [0.001, size - 1.001] of the window for
+    `kind="linear"`, to [1.001, size - 2.001] for the 4x4 taps of
+    "cubic" (Catmull-Rom) and "cubic_bspl" (cubic B-spline);
+  * val, dx, dy: the dense-convention sample of `kind`
+    (`interp.sample_windows`; linear: derivative 0 along an axis at an
+    exactly integer coordinate; cubic: each tap row summed first);
   * with `zncc`, val is standardised per patch in two passes: the mean,
     then Σ(v - μ)²/n, inv = 1/(√var + 1e-6), val := (val - μ) * inv;
   * r = val - templ, (Jx, Jy) = (dx, dy) * scale;
@@ -20,11 +24,12 @@ Two levels, one contract:
   * `grid_flow`: CPU tensors take the plain form, CUDA tensors launch the
     CUDA kernel `csrc/grid_flow.cu` (one launch runs all `n_iters`
     iterations); no fallback between them. `grid_flow.launches` counts
-    kernel launches.
+    kernel launches per tap kind.
 
 Not carried over from the TPU kernel, being layout artifacts: the bf16
-window cast, the iota block-indicator (E-matrix) reductions, the point
-tiling (`_grid_tiles`) and the 80-row y-bands with their in-band mask.
+window and tap-weight casts, the iota block-indicator (E-matrix)
+reductions, the point tiling (`_grid_tiles`) and the 80-row y-bands with
+their in-band mask.
 Without bands every point is live, which is the semantics of the JAX
 package's XLA path (`sm/grid.py:_track_patches_mm`) that the TPU kernel's
 docstring states it shares.
@@ -38,18 +43,29 @@ import torch
 
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops.kernels import _build
+from mtf_tpu_torch.ops.kernels.dense_sample import KINDS
 from mtf_tpu_torch.ops.linalg import solve2x2
 
 N_MAX = 1024        # points per patch the CUDA kernel takes (32 per lane)
+# points per lane of the kernel's instantiations, each with every tap kind
+POINTS_PER_LANE = (1, 2, 4, 8, 16, 32)
+INSTANTIATIONS = tuple((k, kind) for kind in KINDS for k in POINTS_PER_LANE)
+
+
+def _kind_check(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"grid_flow: unknown tap kind {kind!r}; known: "
+                         f"{KINDS}")
 
 
 def grid_flow_ref(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
                   scale: torch.Tensor, n: int, n_iters: int,
-                  zncc: bool = True) -> torch.Tensor:
+                  zncc: bool = True, kind: str = "linear") -> torch.Tensor:
     """Plain form. win (B, Hc, Wc), pts (B, 2, P*n) window px,
     patch-major (patch p owns columns [p*n, (p+1)*n)), templ (B, P*n),
     scale (B,) template units -> window px -> disp (B, P, 2) in template
-    units."""
+    units; `kind` the taps (linear, cubic, cubic_bspl)."""
+    _kind_check(kind)
     b, pn = templ.shape
     p = pn // n
     px = pts[:, 0].reshape(b, p, n)
@@ -61,7 +77,8 @@ def grid_flow_ref(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
         off = disp * s                                      # window px
         x = (px + off[..., 0:1]).reshape(b, pn)
         y = (py + off[..., 1:2]).reshape(b, pn)
-        val, dx, dy = interp.sample_windows(win, x, y, need_grad=True)
+        val, dx, dy = interp.sample_windows(win, x, y, need_grad=True,
+                                            kind=kind)
         v = val.reshape(b, p, n)
         if zncc:
             c = v - v.sum(-1, keepdim=True) / n
@@ -80,7 +97,7 @@ def grid_flow_ref(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
     return disp
 
 
-def _check(win, pts, templ, scale, n, n_iters):
+def _check(win, pts, templ, scale, n, n_iters, kind):
     dev = win.device
     for name, t in (("win", win), ("pts", pts), ("templ", templ),
                     ("scale", scale)):
@@ -91,9 +108,11 @@ def _check(win, pts, templ, scale, n, n_iters):
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"grid_flow: {name} must be contiguous")
-    if win.dim() != 3 or win.shape[1] < 2 or win.shape[2] < 2:
+    side = 2 if kind == "linear" else 4      # one tap span
+    if win.dim() != 3 or win.shape[1] < side or win.shape[2] < side:
         raise ValueError(f"grid_flow: win must be (B, Hc, Wc) with Hc, Wc "
-                         f">= 2, got {tuple(win.shape)}")
+                         f">= {side} for {kind} taps, got "
+                         f"{tuple(win.shape)}")
     b, pn = win.shape[0], templ.shape[-1]
     if not 1 <= n <= N_MAX or pn % n or pn == 0 or b < 1:
         raise ValueError(f"grid_flow: need 1 <= n <= {N_MAX} dividing the "
@@ -112,7 +131,7 @@ def _check(win, pts, templ, scale, n, n_iters):
 def _kernel_fn():
     """The kernel's C entry point, built and bound on first use."""
     fn = _build.load("grid_flow").lib.grid_flow_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -120,15 +139,17 @@ def _kernel_fn():
 
 def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
               scale: torch.Tensor, n: int, n_iters: int,
-              zncc: bool = True) -> torch.Tensor:
+              zncc: bool = True, kind: str = "linear") -> torch.Tensor:
     """`n_iters` joint grid-flow iterations (contract of `grid_flow_ref`)
     -> disp (B, P, 2) in template units. CPU tensors run the plain form;
-    CUDA tensors launch the CUDA kernel on the current stream."""
+    CUDA tensors launch the CUDA kernel on the current stream (K5 for
+    linear taps, K5c for the cubic kinds)."""
+    _kind_check(kind)
     if win.device.type == "cpu":
-        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc)
+        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc, kind)
     if win.device.type != "cuda":
         raise ValueError(f"grid_flow: unsupported device {win.device}")
-    _check(win, pts, templ, scale, n, n_iters)
+    _check(win, pts, templ, scale, n, n_iters, kind)
     b, hc, wc = win.shape
     p = templ.shape[-1] // n
     disp = torch.empty((b, p, 2), dtype=torch.float32, device=win.device)
@@ -136,12 +157,13 @@ def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn()(win.data_ptr(), pts.data_ptr(), templ.data_ptr(),
                            scale.data_ptr(), disp.data_ptr(), b, hc, wc, p,
-                           n, int(n_iters), int(zncc), stream)
+                           n, int(n_iters), int(zncc), KINDS.index(kind),
+                           stream)
     if err != 0:
         raise RuntimeError(f"grid_flow: kernel launch failed with CUDA error "
                            f"{err}")
-    grid_flow.launches += 1
+    grid_flow.launches[kind] += 1
     return disp
 
 
-grid_flow.launches = 0
+grid_flow.launches = dict.fromkeys(KINDS, 0)

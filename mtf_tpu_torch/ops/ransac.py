@@ -1,5 +1,6 @@
-"""Robust warp estimation: RANSAC, LMedS and least squares (port of
-`mtf_tpu/ops/ransac.py`), over a leading batch of B trackers.
+"""Robust warp estimation: RANSAC, LMedS, least squares and the
+median-flow similarity (port of `mtf_tpu/ops/ransac.py`), over a leading
+batch of B trackers.
 
 A fixed batch of minimal-sample hypotheses is fitted and scored at once
 (every tracker's hypotheses in one batched DLT), then a weighted
@@ -13,6 +14,9 @@ an argument, so a test can hand them the JAX package's threefry draw.
 from __future__ import annotations
 
 import torch
+
+# the estimators that draw minimal samples
+SAMPLED = ("ransac", "lmeds", "least_median")
 
 
 def min_sample_size(ssm) -> int:
@@ -83,19 +87,55 @@ def lmeds_fit(ssm, src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
     return _refit(ssm, src, dst, w, min_sample_size(ssm))
 
 
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis ignoring NaNs, as `jnp.nanmedian`: the
+    mean of the two middle values of an even count (`torch.nanmedian`
+    takes the lower one); NaN where every entry is NaN."""
+    k = (~torch.isnan(x)).sum(-1, keepdim=True)
+    srt = torch.sort(torch.nan_to_num(x, nan=float("inf")), dim=-1).values
+    lo = srt.gather(-1, ((k - 1) // 2).clamp(min=0))
+    hi = srt.gather(-1, (k // 2).clamp(max=x.shape[-1] - 1))
+    med = 0.5 * (lo + hi)
+    return torch.where(k > 0, med, torch.full_like(med, float("nan")))[..., 0]
+
+
+def median_flow_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
+                    weights: torch.Tensor | None = None):
+    """Median-Flow similarity per tracker (Kalal et al., ICPR'10; the
+    reference's TLD core): scale = the median over point pairs of
+    ||dst_i - dst_j|| / ||src_i - src_j||, translation = the median of
+    dst - scale * src per axis, both over the points with weight > 0.5
+    (the forward-backward mask). Returns (the state fitted to the
+    similarity's image of src (B, S), the weights (B, N))."""
+    b, n, _ = src.shape
+    w = weights if weights is not None else torch.ones(
+        (b, n), dtype=src.dtype, device=src.device)
+    ok = w > 0.5
+    eye = torch.eye(n, dtype=torch.bool, device=src.device)
+    pair_ok = ok[:, :, None] & ok[:, None, :] & ~eye
+    d_src = torch.linalg.vector_norm(src[:, :, None] - src[:, None], dim=-1)
+    d_dst = torch.linalg.vector_norm(dst[:, :, None] - dst[:, None], dim=-1)
+    ratio = torch.where(pair_ok, d_dst / torch.clamp(d_src, min=1e-8),
+                        float("nan"))
+    s = torch.nan_to_num(nanmedian(ratio.reshape(b, n * n)), nan=1.0)
+    t = torch.where(ok[..., None], dst - s[:, None, None] * src, float("nan"))
+    trans = torch.nan_to_num(nanmedian(t.transpose(1, 2)), nan=0.0)
+    fit = s[:, None, None] * src + trans[:, None]
+    return ssm.fit_pts(src, fit), w
+
+
 def robust_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
                idx: torch.Tensor | None, method: str = "ransac",
                inlier_thresh=0.05, weights: torch.Tensor | None = None):
     """Dispatch over the estimators (SSMEstimatorParams.h:11): "ransac",
-    "lmeds" / "least_median", and least squares for any other name."""
+    "lmeds" / "least_median", "median" / "medianflow" (the median-flow
+    similarity, no draw), and least squares for any other name."""
     if method == "ransac":
         return ransac_fit(ssm, src, dst, idx, inlier_thresh, weights)
     if method in ("lmeds", "least_median"):
         return lmeds_fit(ssm, src, dst, idx, weights)
     if method in ("median", "medianflow"):
-        raise NotImplementedError(
-            "the median-flow fit is not ported yet: it comes with ROADMAP "
-            "Queue 1c (median flow, mf and tld)")
+        return median_flow_fit(ssm, src, dst, weights)
     w = weights if weights is not None else torch.ones(
         src.shape[:2], dtype=src.dtype, device=src.device)
     return ssm.fit_pts(src, dst, weights=w), w

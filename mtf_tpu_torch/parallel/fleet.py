@@ -39,8 +39,10 @@ class TrackerFleet:
     def __init__(self, sm, donate: bool = False):
         """`donate`: write each update's results into the state tensors
         passed in (steady-state serving, no new state allocations) and
-        return that same state. The pre-update values are then gone, so
-        leave it False for protocols that reuse old states."""
+        return that same state; a grid's shared previous frame is copied
+        into the state's own buffer, never aliased to the caller's frame.
+        The pre-update values are then gone, so leave it False for
+        protocols that reuse old states."""
         self.sm = sm
         self.donate = donate
 

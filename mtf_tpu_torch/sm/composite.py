@@ -1,13 +1,25 @@
-"""Composite search methods (port of `mtf_tpu/sm/composite.py`): RKLT,
-the grid localizer with a template refiner and failure fallback
-(reference NT/RKLT.cc:90-116), over a leading batch of B trackers.
+"""Composite search methods (port of `mtf_tpu/sm/composite.py`), over a
+leading batch of B trackers: `CascadeSM`, `ParallelSM`, `PyramidalSM`
+and RKLT.
 
-Per update: the grid tracker steps; the refiner is re-seated on the
-grid's corners and steps; where a tracker's refined corners leave the
-grid's by more than `failure_thresh_px` (the largest corner distance),
-it keeps the grid's corners and its refiner is re-seated there. With
-feedback the grid then follows the final corners. The JAX package's
-`lax.cond` on divergence is a per-tracker (B,) `torch.where`.
+  * CascadeSM: member k starts from member k-1's corners; with
+    `auto_reinit_thresh`, a member whose corners leave its starting
+    corners by more than that many pixels is reset to them.
+  * ParallelSM: the members step side by side; the estimate is the mean
+    of their corners, to which every member is reset (`reset_to_mean`).
+  * PyramidalSM: one SM with a state per level of a Gaussian pyramid
+    (`utils/pyramid.py`), stepped coarse to fine, corners scaled by
+    2^level between levels.
+  * RKLT: the grid localizer with a template refiner and failure fallback
+    (reference NT/RKLT.cc:90-116). Per update the grid tracker steps; the
+    refiner is re-seated on the grid's corners and steps; where a
+    tracker's refined corners leave the grid's by more than
+    `failure_thresh_px` (the largest corner distance), it keeps the grid's
+    corners and its refiner is re-seated there. With feedback the grid
+    then follows the final corners.
+
+The JAX package vmaps each composite per tracker, so its `lax.cond`s
+decide per tracker; here each is a (B,) mask applied by `where_state`.
 """
 from __future__ import annotations
 
@@ -18,13 +30,192 @@ import torch
 from torch import nn
 
 from mtf_tpu_torch.sm.core import image_corners
+from mtf_tpu_torch.utils.pyramid import build_pyramid
 
 
 class CompositeState(NamedTuple):
     """Member states and composite bookkeeping (RKLT: (final corners
-    (B, 4, 2),))."""
+    (B, 4, 2),); ParallelSM: (fused corners (B, 4, 2),); CascadeSM and
+    PyramidalSM: ())."""
     members: tuple
     extra: tuple = ()
+
+
+def where_state(mask: torch.Tensor, a, b):
+    """Per-tracker choice between two states of one structure: `a` where
+    mask (B,) is set, else `b`, leaf by leaf. A leaf that is the same
+    object in both (the grid's host step counter, its shared previous
+    frame, anything the choice leaves alone) is kept as it is."""
+    if a is b:
+        return a
+    if isinstance(a, torch.Tensor):
+        if a.dim() == 0 or a.shape[0] != mask.shape[0]:
+            raise ValueError(f"where_state: leaf of shape {tuple(a.shape)} "
+                             f"is not batched over {mask.shape[0]} trackers")
+        return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+    if isinstance(a, tuple):
+        vals = [where_state(mask, x, y) for x, y in zip(a, b)]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    raise ValueError(f"where_state: cannot choose between "
+                     f"{type(a).__name__} and {type(b).__name__}")
+
+
+def member_corners(sm, state) -> torch.Tensor:
+    """Image corners (B, 4, 2) of any tracker's state."""
+    return sm.corners(state).transpose(-1, -2)
+
+
+class _Composite(nn.Module):
+    """Shared plumbing: `members` (an `nn.ModuleList`), the device, the
+    frame conversion."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.members[-1].device
+
+    def _frame(self, frame) -> torch.Tensor:
+        return torch.as_tensor(frame, dtype=torch.float32,
+                               device=self.device)
+
+
+class CascadeSM(_Composite):
+    """Sequential composition (reference CascadeSM.cc; the shorthands
+    `grfc`, `gres`): member k starts from member k-1's corners, and the
+    last member's corners are the estimate. `auto_reinit_thresh` (px):
+    a member whose result leaves its starting corners by more than this
+    (largest corner distance) is reset to them, per tracker
+    (CascadeTracker.cc:25-40)."""
+
+    name = "casc"
+
+    def __init__(self, members: list, auto_reinit_thresh=None):
+        super().__init__()
+        self.members = nn.ModuleList(members)
+        self.auto_reinit_thresh = auto_reinit_thresh
+        self.ssm = members[-1].ssm
+
+    def initialize(self, frame, corners) -> CompositeState:
+        frame = self._frame(frame)
+        return CompositeState(tuple(m.initialize(frame, corners)
+                                    for m in self.members))
+
+    def update(self, state: CompositeState, frame) -> CompositeState:
+        frame = self._frame(frame)
+        out, corners = [], None
+        for m, st in zip(self.members, state.members):
+            if corners is not None:
+                st = m.set_region(st, corners)
+            st = m.update(st, frame)
+            c_new = member_corners(m, st)
+            if self.auto_reinit_thresh is not None and corners is not None:
+                div = torch.linalg.vector_norm(
+                    c_new - corners, dim=-1).amax(-1) \
+                    > self.auto_reinit_thresh
+                st = where_state(div, m.set_region(st, corners), st)
+                c_new = torch.where(div[:, None, None], corners, c_new)
+            corners = c_new
+            out.append(st)
+        return CompositeState(tuple(out))
+
+    def corners(self, state: CompositeState) -> torch.Tensor:
+        """(B, 2, 4) corner matrices of the last member."""
+        return self.members[-1].corners(state.members[-1])
+
+    def set_region(self, state: CompositeState, corners) -> CompositeState:
+        return CompositeState(tuple(
+            m.set_region(st, corners)
+            for m, st in zip(self.members, state.members)))
+
+
+class ParallelSM(_Composite):
+    """Concurrent members, fused by the mean of their corners (reference
+    ParallelSM.cc); with `reset_to_mean` every member is reset to the
+    fused region after each update. The fused corners are the state's
+    `extra` from `initialize` on (the JAX package fills it at the first
+    update), so the state keeps one structure."""
+
+    name = "prl"
+
+    def __init__(self, members: list, reset_to_mean: bool = True):
+        super().__init__()
+        self.members = nn.ModuleList(members)
+        self.reset_to_mean = reset_to_mean
+        self.ssm = members[0].ssm
+
+    def _fused(self, states) -> torch.Tensor:
+        return torch.stack([member_corners(m, st) for m, st
+                            in zip(self.members, states)]).mean(dim=0)
+
+    def initialize(self, frame, corners) -> CompositeState:
+        frame = self._frame(frame)
+        states = tuple(m.initialize(frame, corners) for m in self.members)
+        return CompositeState(states, extra=(self._fused(states),))
+
+    def update(self, state: CompositeState, frame) -> CompositeState:
+        frame = self._frame(frame)
+        states = [m.update(st, frame)
+                  for m, st in zip(self.members, state.members)]
+        fused = self._fused(states)
+        if self.reset_to_mean:
+            states = [m.set_region(st, fused)
+                      for m, st in zip(self.members, states)]
+        return CompositeState(tuple(states), extra=(fused,))
+
+    def corners(self, state: CompositeState) -> torch.Tensor:
+        return state.extra[0].transpose(-1, -2)
+
+    def set_region(self, state: CompositeState, corners) -> CompositeState:
+        """Move every member to corners (B, 4, 2); `corners` then reports
+        them (the JAX package keeps the previous fused corners)."""
+        corners = torch.as_tensor(corners, dtype=torch.float32,
+                                  device=self.device)
+        return CompositeState(tuple(
+            m.set_region(st, corners)
+            for m, st in zip(self.members, state.members)), extra=(corners,))
+
+
+class PyramidalSM(_Composite):
+    """Coarse to fine over a Gaussian pyramid, one state of one SM per
+    level (reference PyramidalSM.cc): the level-l tracker lives on the
+    level-l image with corners / 2^l; per update the levels step from the
+    coarsest, each re-seated on the coarser level's corners."""
+
+    name = "pyr"
+
+    def __init__(self, sm, n_levels: int = 3):
+        super().__init__()
+        self.members = nn.ModuleList([sm])
+        self.sm = sm
+        self.n_levels = n_levels
+        self.ssm = sm.ssm
+
+    def initialize(self, frame, corners) -> CompositeState:
+        pyr = build_pyramid(self._frame(frame), self.n_levels)
+        corners = torch.as_tensor(corners, dtype=torch.float32,
+                                  device=self.device)
+        return CompositeState(tuple(
+            self.sm.initialize(pyr[lvl], corners / (2.0 ** lvl))
+            for lvl in range(self.n_levels)))
+
+    def update(self, state: CompositeState, frame) -> CompositeState:
+        pyr = build_pyramid(self._frame(frame), self.n_levels)
+        out, corners = list(state.members), None
+        for lvl in reversed(range(self.n_levels)):
+            st = out[lvl]
+            if corners is not None:
+                st = self.sm.set_region(st, corners / (2.0 ** lvl))
+            st = self.sm.update(st, pyr[lvl])
+            corners = member_corners(self.sm, st) * (2.0 ** lvl)
+            out[lvl] = st
+        return CompositeState(tuple(out))
+
+    def corners(self, state: CompositeState) -> torch.Tensor:
+        return self.sm.corners(state.members[0])
+
+    def set_region(self, state: CompositeState, corners) -> CompositeState:
+        return CompositeState(tuple(
+            self.sm.set_region(st, corners / (2.0 ** lvl))
+            for lvl, st in enumerate(state.members)))
 
 
 @dataclass(frozen=True)

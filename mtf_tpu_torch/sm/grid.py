@@ -1,24 +1,42 @@
-"""Grid tracker (port of `mtf_tpu/sm/grid.py:GridTracker`, the "warped"
-flow): a lattice of P small patches, each tracked by a 2-DOF LK flow
-through the current global warp, fused by a robust homography fit.
+"""Grid tracker (port of `mtf_tpu/sm/grid.py:GridTracker`): a lattice of
+P small patches, each tracked by a 2-DOF LK flow, fused by a robust warp
+fit.
 
-Per update and for B trackers at once: every patch's points ride the
-current warp; a coarse-to-fine flow over a 2-level image pyramid moves
-each patch (one call of the grid-flow kernel K5 per level, which runs all
-of that level's iterations), and RANSAC (or LMedS, or least squares) over
-the patch centres fits the new warp (`ops/ransac.py`).
+Per update and for B trackers at once: the patches are placed by the
+flow geometry (`warped`: every point rides the current warp against the
+init templates; `rigid`: rigid windows around the predicted centres
+against the init templates; `f2f`: rigid windows against templates
+resampled from the previous frame); a coarse-to-fine flow over an image
+pyramid moves each patch, and RANSAC, LMedS, least squares or the
+median-flow similarity (`ops/ransac.py`) over the patch centres fits
+the new warp. With `fb_err_px > 0` each patch is tracked back on the
+previous frame, and patches whose round trip misses by `fb_err_px`
+image pixels or more are left out of the fit (a tracker with fewer
+than the minimal sample left keeps them all).
 
-The window of each level call is anchored by the grid's own rule,
-clip(floor(min(points)) - 4, 0, size - crop) per axis, computed once per
-call from the points at the start of the level, as the JAX package's
-fused path (`_track_patches_fused`) does.
+Each pyramid level is one call for all trackers and patches:
+  * a dense kind (`interp` "linear_mm", "cubic_mm", "cubic_bspl_mm") on an
+    (H, W) frame runs the grid-flow kernel (K5, or K5c with cubic taps)
+    on a window per tracker, which runs all of the level's iterations.
+    The window is anchored by the grid's own rule,
+    clip(floor(min(points)) - 4, 0, size - crop) per axis, once per call
+    from the points at the start of the level, as the JAX package's fused
+    path (`_track_patches_fused`) does;
+  * any other case (`interp` "linear" / "cubic" / "cubic_bspl", or an
+    (H, W, C) frame) samples values and gradients by gather on the whole
+    level frame each iteration (`interp.sample_val_grad`; a dense kind on
+    (H, W, C) goes to `sample_dense` on the whole frame), as the JAX
+    package's per-patch path (`_track_patches`) does; no TPU kernel
+    stands behind it.
 
-The hypothesis draw is a `torch.Generator` on the tracker's device,
-seeded from `GridParams.seed` and the update counter `GridState.step`;
-all B trackers share one draw per update, as all trackers of a JAX fleet
-share one key. The counter lives on the host (a 0-d CPU tensor), so
-seeding costs no device sync; the draw's bits differ from the JAX
-package's threefry bits.
+The previous frame (f2f, forward-backward) is one (H, W[, C]) copy shared
+by the B trackers, owned by the state (a JAX fleet holds B copies). The
+hypothesis draw is a `torch.Generator` on the tracker's device, seeded
+from `GridParams.seed` and the update counter `GridState.step`; all B
+trackers share one draw per update, as all trackers of a JAX fleet share
+one key. The counter lives on the host (a 0-d CPU tensor), so seeding
+costs no device sync; the draw's bits differ from the JAX package's
+threefry bits.
 """
 from __future__ import annotations
 
@@ -33,11 +51,13 @@ from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import ransac
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.kernels.grid_flow import grid_flow
+from mtf_tpu_torch.ops.linalg import solve2x2
 from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
 from mtf_tpu_torch.ssm.projective import Homography
 
 # the grid window's margin around the point cloud at the start of a level
 _GRID_MARGIN = 4.0
+FLOWS = ("warped", "rigid", "f2f")
 
 
 @dataclass(frozen=True)
@@ -50,23 +70,25 @@ class GridParams:
                                  # per-level schedule (0 = full resolution,
                                  # the last entry reused for deeper levels)
     coarse_point_stride: int = 1  # point-grid stride at levels >= 1
-    estimator: str = "ransac"    # ransac | lmeds | lsq
+    estimator: str = "ransac"    # ransac | lmeds | median | lsq
     n_hyps: int = 64
     inlier_thresh_px: float = 2.0
     fb_err_px: float = -1.0      # forward-backward mask (<= 0: off)
     zncc: bool = True            # standardise patches
     pyramid_levels: int = 2
-    flow: str = "warped"         # only "warped" is ported
+    flow: str = "warped"         # warped | rigid | f2f
     seed: int = 0
 
 
 class GridState(NamedTuple):
     """Grid-specific state of B trackers."""
-    templates: torch.Tensor    # (B, L, P, n, 1) per-level patch templates
+    templates: torch.Tensor    # (B, L, P, n, C) per-level patch templates
     offsets: torch.Tensor      # (B, n, 2) template-frame offsets in a patch
     centers0: torch.Tensor     # (B, P, 2) template-frame patch centres
     step: torch.Tensor         # () int64 on the CPU: updates so far
     inlier_mask: torch.Tensor  # (B, P) last fit's inlier weights
+    prev_frame: torch.Tensor | None = None  # (H, W[, C]) the last frame,
+                                            # shared (f2f or fb only)
 
 
 def _standardize(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -93,10 +115,10 @@ class GridTracker(SearchMethod):
     def __init__(self, am, ssm, prm, grid: GridParams | None = None):
         super().__init__(am, ssm, prm)
         self.grid = g = grid or GridParams()
+        if g.flow not in FLOWS:
+            raise ValueError(f"GridParams.flow must be one of {FLOWS}, got "
+                             f"{g.flow!r}")
         queue = {
-            "flow 'warped'": (g.flow == "warped", "Queue 1c"),
-            "fb_err_px <= 0": (g.fb_err_px <= 0, "Queue 1c"),
-            "interp 'linear_mm'": (prm.interp == "linear_mm", "Queue 1c"),
             "border 'replicate'": (prm.border == "replicate",
                                    "Queue 1, slice 8"),
             "ssm '8'": (isinstance(ssm, Homography), "Queue 1, slice 4"),
@@ -114,17 +136,23 @@ class GridTracker(SearchMethod):
                                    + r[None, :]).ravel(), device=self.device)
         self.register_buffer("coarse_sel", sel)
 
+    @property
+    def keeps_prev_frame(self) -> bool:
+        return self.grid.flow == "f2f" or self.grid.fb_err_px > 0
+
     # -- pyramid and patches ---------------------------------------------
     def _pyr_frames(self, frame: torch.Tensor) -> list:
         """Level 0 = the frame; level l halves it l times with the
         antialiased bilinear resize (what `jax.image.resize(..., "linear")`
-        computes)."""
+        computes), channels resized alike."""
         frames = [frame]
+        x = frame[None, None] if frame.dim() == 2 else \
+            frame.permute(2, 0, 1)[None]
         for lvl in range(1, self.grid.pyramid_levels):
             size = (frame.shape[0] >> lvl, frame.shape[1] >> lvl)
-            frames.append(F.interpolate(
-                frame[None, None], size=size, mode="bilinear",
-                align_corners=False, antialias=True)[0, 0])
+            y = F.interpolate(x, size=size, mode="bilinear",
+                              align_corners=False, antialias=True)[0]
+            frames.append(y[0] if frame.dim() == 2 else y.permute(1, 2, 0))
         return frames
 
     def _level_iters(self, lvl: int) -> int:
@@ -136,8 +164,12 @@ class GridTracker(SearchMethod):
     def _track_patches(self, frame, norm_l, pts_base, templates, n_iters,
                        crop):
         """One level: pts_base (B, P, n, 2) template-frame points,
-        templates (B, P, n, 1) -> the (B, P, 2) corrections (template
-        units), by one grid-flow call on a window per tracker."""
+        templates (B, P, n, C) -> the (B, P, 2) corrections (template
+        units)."""
+        kind = self.prm.interp
+        if not (kind.endswith(interp.MM_SUFFIX) and frame.dim() == 2):
+            return self._track_patches_gather(frame, norm_l, pts_base,
+                                              templates, n_iters)
         b, P, n, _ = pts_base.shape
         h, w = frame.shape
         hc, wc = (h, w) if crop is None else (min(crop, h), min(crop, w))
@@ -152,15 +184,40 @@ class GridTracker(SearchMethod):
         return grid_flow(win, pts.transpose(1, 2).contiguous(),
                          templates.reshape(b, P * n).contiguous(),
                          norm_l[:, 0, 0].contiguous(), n, n_iters,
-                         zncc=self.grid.zncc)
+                         zncc=self.grid.zncc,
+                         kind=kind[:-len(interp.MM_SUFFIX)])
 
-    def _track_patches_pyr(self, frame, norm_mat, pts_base, templates):
-        """Coarse-to-fine flow; returns the accumulated (B, P, 2)
-        corrections in the template frame."""
+    def _track_patches_gather(self, frame, norm_l, pts_base, templates,
+                              n_iters):
+        """The per-patch path (`mtf_tpu/sm/grid.py:_track_patches` off the
+        dense path): per iteration, every patch's values and gradients by
+        gather on the whole level frame, ZNCC, and the damped 2x2 solve
+        over its n·C residuals, for all (B, P) patches at once."""
+        b, P, n, _ = pts_base.shape
+        c = templates.shape[-1]
+        scale = norm_l[:, 0, 0][:, None, None, None]
+        eye = 1e-6 * torch.eye(2, dtype=frame.dtype, device=frame.device)
+        disp = torch.zeros((b, P, 2), dtype=frame.dtype, device=frame.device)
+        for _ in range(n_iters):
+            pts = W.apply_warp(norm_l, (pts_base + disp[:, :, None]).reshape(
+                b, P * n, 2))
+            val, grad = interp.sample_val_grad(frame, pts, self.prm.interp,
+                                               self.prm.border)
+            patch = val.reshape(b, P, n, c)
+            if self.grid.zncc:
+                patch = _standardize(patch)
+            r = (patch - templates).reshape(b, P, n * c, 1)
+            J = grad.reshape(b, P, n * c, 2) * scale
+            H = J.transpose(-1, -2) @ J + eye
+            disp = disp - solve2x2(H, (J.transpose(-1, -2) @ r)[..., 0])
+        return disp
+
+    def _track_patches_pyr(self, frames, norm_mat, pts_base, templates):
+        """Coarse-to-fine flow over the level frames `frames`; returns the
+        accumulated (B, P, 2) corrections in the template frame."""
         g = self.grid
-        frames = self._pyr_frames(frame)
-        disp = torch.zeros(pts_base.shape[:2] + (2,), dtype=frame.dtype,
-                           device=frame.device)
+        disp = torch.zeros(pts_base.shape[:2] + (2,), dtype=frames[0].dtype,
+                           device=frames[0].device)
         c0 = self.prm.crop
         for lvl in reversed(range(g.pyramid_levels)):
             crop = None if c0 is None else (
@@ -180,25 +237,23 @@ class GridTracker(SearchMethod):
                 pb + disp[:, :, None, :], tm, self._level_iters(lvl), crop)
         return disp
 
-    def _templates_at(self, frame, norm_mat, centers, offsets):
-        """(B, L, P, n, 1) per-level patch templates around `centers`."""
+    def _templates_at(self, frames, norm_mat, centers, offsets):
+        """(B, L, P, n, C) per-level patch templates around `centers`,
+        sampled from the level frames `frames`."""
         g = self.grid
         pts_t = centers[:, :, None, :] + offsets[:, None]      # (B, P, n, 2)
         b, P, n, _ = pts_t.shape
         out = []
-        for lvl, frm in enumerate(self._pyr_frames(frame)):
+        for lvl, frm in enumerate(frames):
             pts = W.apply_warp(_level_norm(norm_mat, lvl),
                                pts_t.reshape(b, P * n, 2))
             p = interp.sample(frm, pts, self.prm.interp,
-                              self.prm.border).reshape(b, P, n, 1)
+                              self.prm.border).reshape(b, P, n, -1)
             out.append(_standardize(p) if g.zncc else p)
         return torch.stack(out, dim=1)
 
     # -- SearchMethod hooks ----------------------------------------------
     def _init_extra(self, state: TrackerState, frame: torch.Tensor):
-        if frame.dim() != 2:
-            raise NotImplementedError(
-                "multi-channel frames on the grid come with ROADMAP Queue 1c")
         g = self.grid
         region = state.region
         b = region.norm_mat.shape[0]
@@ -217,11 +272,12 @@ class GridTracker(SearchMethod):
         offsets = torch.stack([ox.reshape(-1), oy.reshape(-1)],
                               dim=-1).expand(b, -1, -1).contiguous()
         return GridState(
-            templates=self._templates_at(frame, region.norm_mat, centers0,
-                                         offsets),
+            templates=self._templates_at(self._pyr_frames(frame),
+                                         region.norm_mat, centers0, offsets),
             offsets=offsets, centers0=centers0,
             step=torch.zeros((), dtype=torch.int64),
-            inlier_mask=torch.ones(centers0.shape[:2], dtype=dt, device=dev))
+            inlier_mask=torch.ones(centers0.shape[:2], dtype=dt, device=dev),
+            prev_frame=frame.clone() if self.keeps_prev_frame else None)
 
     def _hyp_indices(self, step: int, n_pts: int) -> torch.Tensor:
         """This update's (n_hyps, sample) index draw, shared by the
@@ -233,31 +289,66 @@ class GridTracker(SearchMethod):
 
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
+        g = self.grid
         gs: GridState = state.extra
-        region, ssm = state.region, self.ssm
-        M = ssm.to_matrix(state.ssm_state)
+        region = state.region
+        M = self.ssm.to_matrix(state.ssm_state)
         centers_pred = W.apply_warp(M, gs.centers0)
-        # chained-warp patches: every point rides the global warp, so the
-        # init templates stay geometrically valid
         b, P, _ = gs.centers0.shape
         n = gs.offsets.shape[1]
-        pts_base = W.apply_warp(
-            M, (gs.centers0[:, :, None, :] + gs.offsets[:, None]).reshape(
-                b, P * n, 2)).reshape(b, P, n, 2)
-        disp = self._track_patches_pyr(frame, region.norm_mat, pts_base,
-                                       gs.templates)
-        new_ssm, inl = self._fit_warp(region, gs.centers0,
-                                      centers_pred + disp, int(gs.step))
+        prev = gs.prev_frame
+        frames = self._pyr_frames(frame)
+        prev_frames = None if prev is None else self._pyr_frames(prev)
+        templates = gs.templates
+        if g.flow == "warped":
+            # chained-warp patches: every point rides the global warp, so
+            # the init templates stay geometrically valid
+            pts_base = W.apply_warp(
+                M, (gs.centers0[:, :, None, :] + gs.offsets[:, None]).reshape(
+                    b, P * n, 2)).reshape(b, P, n, 2)
+        else:
+            pts_base = centers_pred[:, :, None, :] + gs.offsets[:, None]
+            if g.flow == "f2f" and prev is not None:
+                # templates from the previous frame at the predicted
+                # centres (GridTrackerCV's pyramidal LK, prev -> cur)
+                templates = self._templates_at(prev_frames, region.norm_mat,
+                                               centers_pred, gs.offsets)
+        disp = self._track_patches_pyr(frames, region.norm_mat, pts_base,
+                                       templates)
+        centers_new = centers_pred + disp
+        weights = None
+        if g.fb_err_px > 0 and prev is not None:
+            # track back on the previous frame; a large round trip marks
+            # an unreliable patch
+            back = (self._templates_at(frames, region.norm_mat, centers_new,
+                                       gs.offsets)
+                    if g.flow == "f2f" else gs.templates)
+            disp_back = self._track_patches_pyr(
+                prev_frames, region.norm_mat, pts_base + disp[:, :, None],
+                back)
+            fb = torch.linalg.vector_norm(disp + disp_back, dim=-1) \
+                * region.norm_mat[:, 0, 0, None]
+            weights = (fb < g.fb_err_px).to(frame.dtype)
+            # per tracker: too few reliable patches keep them all
+            enough = weights.sum(-1, keepdim=True) \
+                >= ransac.min_sample_size(self.ssm)
+            weights = torch.where(enough, weights, torch.ones_like(weights))
+        new_ssm, inl = self._fit_warp(region, gs.centers0, centers_new,
+                                      int(gs.step), weights)
         return state._replace(ssm_state=new_ssm, extra=gs._replace(
-            step=gs.step + 1, inlier_mask=inl))
+            step=gs.step + 1, inlier_mask=inl,
+            prev_frame=frame.clone() if self.keeps_prev_frame else None))
 
-    def _fit_warp(self, region, centers0, centers_new, step: int):
+    def _fit_warp(self, region, centers0, centers_new, step: int,
+                  weights=None):
         """Robust warp fit from the patch correspondences; the inlier
-        threshold is `inlier_thresh_px` in each tracker's template units."""
+        threshold is `inlier_thresh_px` in each tracker's template units;
+        `weights` (B, P) the forward-backward mask."""
         g = self.grid
         idx = None
-        if g.estimator in ("ransac", "lmeds", "least_median"):
+        if g.estimator in ransac.SAMPLED:
             idx = self._hyp_indices(step, centers0.shape[1])
         return ransac.robust_fit(
             self.ssm, centers0, centers_new, idx, method=g.estimator,
-            inlier_thresh=g.inlier_thresh_px / region.norm_mat[:, 0, 0])
+            inlier_thresh=g.inlier_thresh_px / region.norm_mat[:, 0, 0],
+            weights=weights)

@@ -4,10 +4,13 @@ the card.
     python scripts/port_profile_fleet.py [sm am B] ...
 
 Each argument triple (default: "fclk ssd 1280", "esm ncc 1024",
-"eslm ncc 1024", "rklt ssd 384", "fclk mcssd 512" and
-"fclk@cubic_mm ssd 1280") is one fleet in `chip_smoke.py`'s
-configuration for its key (`sm@interp` picks the taps), on its scene (the
-3-channel one for the multi-channel AM keys) and corners. Per fleet: 3 warm-up updates, the wall time of 20
+"eslm ncc 1024", "rklt ssd 384", "fclk mcssd 512",
+"fclk@cubic_mm ssd 1280" and slice 5's "rklt_cubic ssd 384",
+"mf ssd 384", "grfc ssd 384", "prl ssd 1024" and "pyr ssd 1280") is one
+fleet in `chip_smoke.py`'s configuration for its key (`sm@interp` picks
+the taps; a name of `chip_smoke.grid_family` takes that fleet's key and
+configuration), on its scene (the 3-channel one for the multi-channel AM
+keys) and corners. Per fleet: 3 warm-up updates, the wall time of 20
 updates by the host clock (ending in a synchronize), then 5 updates under
 `torch.profiler` (CPU and CUDA): the device time of all kernels per
 update, the busy share (that time over the unprofiled update's wall
@@ -35,12 +38,16 @@ TIMED = 20
 
 def profile(key: str, am: str, b: int, card: str) -> dict:
     dev = torch.device("cuda", 0)
+    name = key
     key, _, interp = key.partition("@")
+    cfg = cs.cfg_of(key, interp or "linear_mm")
+    family = cs.grid_family()
+    if key in family:
+        key, _, _, cfg, _ = family[key]
     mc = am.startswith("mc") or am.endswith("3")
     frame = torch.as_tensor(cs._scene3(0) if mc else cs._scene(0), device=dev)
-    fleet = TrackerFleet(create_tracker(
-        key, am, "8", device=dev, **cs.cfg_of(key, interp or "linear_mm")),
-        donate=True)
+    fleet = TrackerFleet(create_tracker(key, am, "8", device=dev, **cfg),
+                         donate=True)
     st = fleet.initialize(frame, cs._corners(b))
     for _ in range(3):
         st = fleet.update(st, frame)
@@ -65,7 +72,7 @@ def profile(key: str, am: str, b: int, card: str) -> dict:
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=25), file=sys.stderr)
     return {
-        "fleet": f"{key}/{am}" + (f" {interp}" if interp else ""), "B": b,
+        "fleet": f"{name}/{am}", "B": b,
         "card": card,
         "update_ms": update_ms, "frames_per_s": b / update_ms * 1e3,
         "profiled_update_ms": wall_ms / PROFILED,
@@ -93,7 +100,10 @@ def main(argv) -> int:
                else [["fclk", "ssd", "1280"], ["esm", "ncc", "1024"],
                      ["eslm", "ncc", "1024"], ["rklt", "ssd", "384"],
                      ["fclk", "mcssd", "512"],
-                     ["fclk@cubic_mm", "ssd", "1280"]])
+                     ["fclk@cubic_mm", "ssd", "1280"],
+                     ["rklt_cubic", "ssd", "384"], ["mf", "ssd", "384"],
+                     ["grfc", "ssd", "384"], ["prl", "ssd", "1024"],
+                     ["pyr", "ssd", "1280"]])
     for key, am, b in triples:
         print(json.dumps(profile(key, am, int(b), card)), flush=True)
     return 0

@@ -31,6 +31,7 @@ from mtf_tpu_torch.utils import synth as tsynth
 from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene
 from test_torch_gpu import CUBIC_KINDS, all_mode_inputs
 from test_torch_gpu import assert_norm_close
+from test_torch_grid_family import pyr_flow_pair
 from test_torch_mc import _t, pallas_f32
 
 CUBIC_CFG = dict(CFG, interp="cubic_mm")
@@ -251,5 +252,12 @@ def test_every_fused_mode_runs_with_cubic_taps(key, am, kind):
 
 @pytest.mark.parametrize("key", ["rklt", "grid"])
 def test_grid_rejects_cubic_taps(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1c"):
-        tcreate(key, "ssd", "8", device="cpu", **CUBIC_CFG)
+    """The grid, alone or as RKLT's localizer, takes the cubic dense
+    kinds (K5c's plain form on each pyramid level): one coarse-to-fine
+    patch flow matches the JAX package's XLA joint loop on the same
+    patches within 1e-4 template units."""
+    frame = _scene()
+    got, want = pyr_flow_pair(key, CUBIC_CFG, frame,
+                              np.roll(frame, (2, 1), (0, 1)), CORNERS)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert np.abs(want).max() > 1e-3

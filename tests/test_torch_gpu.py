@@ -1,7 +1,7 @@
 """CUDA-kernel tests of `mtf_tpu_torch`, and the JAX-free input helpers
 the kernel tests share: the chain kernel's (SSD and NCC, each with and
 without ESM's J0 operand, and multi-channel SSD; linear and cubic taps)
-and the grid-flow kernel K5's.
+and the grid-flow kernel's (K5, and K5c with cubic taps).
 
 The `gpu` tests skip where there is no CUDA device (the CUDA kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -280,18 +280,32 @@ K5_CASES = [(16, 8, 96), (64, 1, 160), (100, 3, 64)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", gf.KINDS)
 @pytest.mark.parametrize("n,iters,hw", K5_CASES)
-def test_cuda_k5_matches_plain(cuda_device, n, iters, hw):
-    """The CUDA grid-flow kernel against the plain form on the card:
-    disp within 1e-4 template units (summation order differs), one
-    launch per call."""
+def test_cuda_k5_matches_plain(cuda_device, n, iters, hw, kind):
+    """The CUDA grid-flow kernel (K5 with linear taps, K5c with the cubic
+    kinds) against the plain form on the card: disp within 1e-4 template
+    units (summation order differs), one launch of `kind` per call."""
     args = _on(cuda_device, k5_inputs(n, b=8, hw=hw, p=30)[:4])
-    before = gf.grid_flow.launches
-    got = gf.grid_flow(*args, n, iters)
+    before = dict(gf.grid_flow.launches)
+    got = gf.grid_flow(*args, n, iters, kind=kind)
     torch.cuda.synchronize()
-    assert gf.grid_flow.launches == before + 1
-    want = gf.grid_flow_ref(*args, n, iters)
+    assert gf.grid_flow.launches == {**before, kind: before[kind] + 1}
+    want = gf.grid_flow_ref(*args, n, iters, kind=kind)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 196, 400, 1024])
+def test_cuda_k5c_every_points_per_lane(cuda_device, n):
+    """K5c's instantiations at 1, 8, 16 and 32 points per lane (n = 1,
+    196, 400, 1024; the grid's levels cover 1, 2 and 4) against the plain
+    form, both cubic kinds."""
+    args = _on(cuda_device, k5_inputs(n, b=2, hw=96, p=4, scale=40.0)[:4])
+    for kind in ("cubic", "cubic_bspl"):
+        got = gf.grid_flow(*args, n, 2, kind=kind)
+        want = gf.grid_flow_ref(*args, n, 2, kind=kind)
+        assert float((got - want).abs().max()) <= 1e-4, kind
 
 
 @pytest.mark.gpu
@@ -305,3 +319,8 @@ def test_cuda_k5_rejects_bad_inputs(cuda_device):
         gf.grid_flow(win, pts, templ, scale, 24, 2)
     with pytest.raises(ValueError):
         gf.grid_flow(win, pts, templ, scale.cpu(), 16, 2)
+    with pytest.raises(ValueError, match="unknown tap kind"):
+        gf.grid_flow(win, pts, templ, scale, 16, 2, kind="cubic_mm")
+    with pytest.raises(ValueError):
+        gf.grid_flow(win[:, :3, :3].contiguous(), pts, templ, scale, 16, 2,
+                     kind="cubic")

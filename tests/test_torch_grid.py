@@ -1,7 +1,7 @@
 """Port parity, slice 3's grid layer: `solve2x2`, the weighted homography
-DLT, RANSAC and LMedS, the grid pyramid, the grid-flow kernel K5 (plain
-form) and one `GridTracker` update, each held against the JAX package on
-the same inputs (made with numpy).
+DLT, RANSAC and LMedS (and the median-flow dispatch), the grid pyramid,
+the grid-flow kernel K5 (plain form) and one `GridTracker` update, each
+held against the JAX package on the same inputs (made with numpy).
 
 The random minimal samples cannot match (threefry against a
 `torch.Generator`), so the port's fits are handed the JAX package's
@@ -144,9 +144,9 @@ def test_robust_fit_with_jax_indices_matches_jax(fits, method, weighted):
 
 
 def test_ransac_per_tracker_threshold_and_lsq():
-    """A (B,) threshold equals per-tracker scalar calls; any other
-    estimator name is the weighted least-squares fit; median flow is not
-    ported."""
+    """A (B,) threshold equals per-tracker scalar calls; "median" is the
+    median-flow similarity (no draw); any other estimator name is the
+    weighted least-squares fit."""
     rng = np.random.default_rng(3)
     src, dst = _correspondences(rng)
     ssm = get_ssm("8", device="cpu")
@@ -164,8 +164,11 @@ def test_ransac_per_tracker_threshold_and_lsq():
     np.testing.assert_allclose(st_l.numpy(),
                                ssm.fit_pts(_t(src), _t(dst)).numpy(),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1c"):
-        ransac.robust_fit(ssm, _t(src), _t(dst), idx, method="median")
+    st_m, w_m = ransac.robust_fit(ssm, _t(src), _t(dst), None,
+                                  method="median")
+    assert torch.equal(w_m, torch.ones(3, 100))
+    np.testing.assert_array_equal(
+        st_m.numpy(), ransac.median_flow_fit(ssm, _t(src), _t(dst))[0].numpy())
 
 
 def test_fit_pts_and_set_region_match_jax():
@@ -319,14 +322,15 @@ def test_grid_update_runs_two_k5_levels(grid_ref, monkeypatch):
     assert st.extra.templates.shape == (2, 2, 100, 64, 1)
     calls = []
 
-    def spy(win, pts, templ, scale, n, n_iters, zncc=True):
-        calls.append((tuple(win.shape), tuple(pts.shape), n, n_iters, zncc))
-        return gf.grid_flow(win, pts, templ, scale, n, n_iters, zncc)
+    def spy(win, pts, templ, scale, n, n_iters, zncc=True, kind="linear"):
+        calls.append((tuple(win.shape), tuple(pts.shape), n, n_iters, zncc,
+                      kind))
+        return gf.grid_flow(win, pts, templ, scale, n, n_iters, zncc, kind)
 
     monkeypatch.setattr(tgrid, "grid_flow", spy)
     st = sm.update(st, grid_ref["f2"])
-    assert calls == [((2, 96, 96), (2, 2, 1600), 16, 8, True),
-                     ((2, 160, 160), (2, 2, 6400), 64, 1, True)]
+    assert calls == [((2, 96, 96), (2, 2, 1600), 16, 8, True, "linear"),
+                     ((2, 160, 160), (2, 2, 6400), 64, 1, True, "linear")]
     assert int(st.extra.step) == 1
 
 
@@ -351,9 +355,15 @@ def test_grid_factory_keys(key, est, levels):
     assert t.grid.sub_iters == j.grid.sub_iters == (1, 8)
 
 
-@pytest.mark.parametrize("kw", [
-    {"grid_flow": "rigid"}, {"grid_flow": "f2f"}, {"grid_fb_err": 2.0},
-    {"grid_sm": "esm"}, {"interp": "linear"}])
-def test_grid_rejects_unported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1c"):
-        tcreate("grid", "ssd", "8", device="cpu", **{**GRID_CFG, **kw})
+@pytest.mark.parametrize("key,kw,queue", [
+    ("grid", {"grid_sm": "esm"}, "Queue 1c"),
+    ("gric", {}, "Queue 1c"), ("pfrk", {}, "Queue 1c"),
+    ("casc", {"multi_cfg": "multi.cfg"}, "Queue 1, slice 8")])
+def test_grid_rejects_unported(key, kw, queue):
+    """What stays unported raises naming its queue: a grid of
+    sub-trackers, the shorthands with ICLK or PF members, composites from
+    a multi.cfg file. (The rigid and f2f flows, forward-backward masking
+    and the gather kinds are held against the JAX package in
+    `test_torch_grid_family.py`.)"""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
+        tcreate(key, "ssd", "8", device="cpu", **{**GRID_CFG, **kw})

@@ -352,7 +352,8 @@ def test_factory_rejects_mc_outside_the_fused_path(args):
 def test_frames_outside_the_fused_path_raise():
     """Five channels, or ESM on a multi-channel frame, raise as the JAX
     package's generic path would take them; a gray frame still runs on
-    an mcssd tracker, and an (H, W, 1) frame is a gray frame."""
+    an mcssd tracker, and an (H, W, 1) frame is a gray frame; the grid
+    runs on (H, W, C) frames, its patch flow as the JAX package's."""
     frame = np.random.default_rng(0).uniform(0, 255, (120, 160, 5)).astype(
         np.float32)
     corners = CORNERS[:1] * 0.5
@@ -365,6 +366,10 @@ def test_frames_outside_the_fused_path_raise():
     one = fl.update(fl.initialize(frame[..., :1], corners), frame[..., :1])
     gray = fl.update(fl.initialize(frame[..., 0], corners), frame[..., 0])
     assert torch.equal(one.ssm_state, gray.ssm_state)
-    with pytest.raises(NotImplementedError, match="Queue 1c"):
-        TrackerFleet(tcreate("grid", "ssd", "8", device="cpu", **CFG)
-                     ).initialize(frame[..., :3], corners)
+    # the grid samples (H, W, C) patches by gather (dense kinds on the
+    # whole frame), as the JAX package's per-patch path
+    from test_torch_grid_family import pyr_flow_pair
+    f3 = _scene3(0)
+    got, want = pyr_flow_pair("grid", CFG, f3, np.roll(f3, (2, 1), (0, 1)),
+                              CORNERS)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -93,9 +93,10 @@ def test_rklt_update_runs_two_k5_and_ten_chain_calls(ref, monkeypatch):
     st = sm.initialize(ref["frames"][0], GRID_CORNERS)
     calls = []
 
-    def k5_spy(win, pts, templ, scale, n, n_iters, zncc=True):
+    def k5_spy(win, pts, templ, scale, n, n_iters, zncc=True,
+               kind="linear"):
         calls.append(("k5", n, n_iters))
-        return gf.grid_flow(win, pts, templ, scale, n, n_iters, zncc)
+        return gf.grid_flow(win, pts, templ, scale, n, n_iters, zncc, kind)
 
     def chain_spy(window, M0, gens, ph, templ, am="ssd", j0=None, **kw):
         calls.append(("chain", ph.shape[-1], am, j0 is not None))
