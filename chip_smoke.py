@@ -13,17 +13,22 @@ B = 384), of slice 4: the mcssd row (FCLK + 3-channel SSD, B = 512,
 on a 480x640x3 frame, `bench_extra.py:399-472`) and the headline fleet
 with cubic taps (`interp="cubic_mm"` / `"cubic_bspl_mm"`), and of slice
 5, the grid family: rklt with cubic taps (K5c), Median Flow, the rigid
-grid, and the composites grfc, prl and pyr:
+grid, and the composites grfc, prl and pyr, and of slice 6: the matrix
+SSMs other than the homography on the chain kernel at S = 2-6, the
+sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
+(`lk_fused_gn_t`):
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernel libraries from `mtf_tpu_torch/csrc/`, one nvcc per
-     source, side by side: the chain kernel (15 instantiations: K1 ssd,
-     K2 ncc, K3 ssd_esm and ncc_esm, K4 ssd_mc, each with linear taps
-     and, as K1c, with cubic and cubic_bspl taps) and the grid-flow
-     kernel (18: 6 points-per-lane counts, each as K5 with linear taps
-     and K5c with cubic and cubic_bspl taps); prints the build times and
-     each instantiation's registers and spills (none allowed in the grid
-     flow);
+     library, side by side: the chain kernel once per state size S in
+     STATE_DIMS (30 instantiations each: K1 ssd, K2 ncc, K3 ssd_esm and
+     ncc_esm, K4 ssd_mc, each with linear taps and, as K1c, with cubic
+     and cubic_bspl taps, each with plain and, as K4b, blurred taps), K6
+     (18: 6 state sizes x 3 tap kinds) and the grid-flow kernel (18: 6
+     points-per-lane counts, each as K5 with linear taps and K5c with
+     cubic and cubic_bspl taps); prints the build times and each
+     instantiation's registers and spills (none allowed anywhere; the
+     S = 8 plain-tap instantiations must keep REGS_S8);
   3. kernel phase: at the fleets' shapes (ssd B = 1280, the other single-
      channel modes B = 1024, ssd_mc B = 512 with C = 3 and also C = 2 and
      4; N = 169, 625, 2500; every mode with each tap kind) compares each
@@ -83,7 +88,20 @@ grid, and the composites grfc, prl and pyr:
      each with its GT leg and plain-path check; then every other mode
      with each cubic kind through the entry points (fclk/ncc, esm/ssd,
      esm/ncc at B = 1024, fclk/mcssd at B = 512), 3 updates each.
- 12. slice 5, each fleet through the entry points with its exact launch
+ 12. slice 6 kernel phase (run right after 3): every chain instantiation
+     at S = 2, 3, 4, 5 and 6 (the mode's fleet's B, N = 2500, SSD-MC at
+     C = 3) against its plain form under 3's rules (at S != 8 only, a
+     tracker's raw sum beyond RAW_REL of its norm passes within ROUND_K
+     float32 epsilons of its rounding scale more; each row that needs
+     that is rerun with PLANTED_FAULTS, which the rule must reject: see
+     RAW_REL); K4b at blur 2, 3 and 4 (K4B_CASES) in every mode and kind
+     at S = 8 and 6; K6 at every S and kind (the same rule), with and
+     without the 144-px crop (B = 1280, N = 2500, 176-px windows); the
+     K1-vs-K6 oracle (`_oracle_phase`) at S = 2, 6 and 8; ssd:s2 at the
+     sub-tracker grid's own shapes (`_subgrid_phase`: B = 38,400
+     sub-trackers, N = 16 and 64, 32-px windows); each timed by CUDA
+     events against its plain form, with its bound;
+ 13. slice 5, each fleet through the entry points with its exact launch
      counts per update (`grid_family`), its GT leg and its plain-path
      check (8 trackers, 2 frames, <= 0.05 px, the CPU grids given the
      CUDA grids' RANSAC draws): rklt at `cubic_mm` (B = 384; 3 warm-ups
@@ -97,6 +115,19 @@ grid, and the composites grfc, prl and pyr:
      ESM on the headline configuration, B = 1024: ssd 10, ssd_esm 10)
      and pyr (FCLK on a 3-level pyramid, headline configuration,
      B = 1280: ssd 30). GT limits: GRID_FAMILY_GT_READING_PX.
+ 14. slice 6 fleets (`ssm_family`), each with its exact launch counts per
+     update, its GT leg and its plain-path check (rklt/ssd/6's tracker 1,
+     on a pixel boundary, to PLAIN_PATH_BOUNDARY_TOL_PX): fclk/ssd on the
+     affine SSM ("6", B = 1280; 3 warm-ups and 3 windows of 20 updates; ssd:s6
+     10 per update), esm/ncc on the similitude ("4", B = 1024;
+     ncc_esm:s4 10), rklt/ssd on the affine (B = 384, crop 160; the
+     affine DLT in RANSAC; ssd_esm:s6 10 and K5 2), and the sub-tracker
+     grid (`grid_sm="fclk"`, the factory's sub-grid defaults: translation
+     sub-trackers on 8x8 SSD templates, B = 384 trackers of 100, so
+     38,400 sub-trackers, crop 32, one stride-2 coarse phase, see
+     SUBGRID_COARSE; ssd:s2 10); then 3 updates of fclk/ssd (B = 1280)
+     on every other SSM key (OTHER_SSM_KEYS). GT limits:
+     SSM_FAMILY_GT_READING_PX.
  GT limits of the slice-4 legs, from the JAX package on the CPU over the
  same legs, first 8 trackers: fclk/mcssd and fclm/mcssd both read
  0.0863 px (per frame 0.103, 0.0879, 0.0955, 0.073, 0.072;
@@ -106,8 +137,9 @@ grid, and the composites grfc, prl and pyr:
  `scripts/port_cubic_reference_leg.py`); all at or under 0.1 px, so
  every limit is 0.2 px.
 
-Launch counts (the chain kernel's per mode, the grid flow's per tap kind)
-are set to 0 just before each fleet path and read just after it; every
+Launch counts (the chain kernel's per mode and state size, K6's per state
+size and kind, the grid flow's per tap kind) are set to 0 just before
+each fleet path and read just after it; every
 kernel not named for the path must have launched 0 times. Every failed
 check raises, so the script exits non-zero and prints no ok line. The
 last line is {"ok": true, "device": {...}}; the line before it is the JSON
@@ -133,6 +165,16 @@ GT_LIMIT_PX = 0.2
 ESLM_GT_LIMIT_PX = 0.2
 PLAIN_PATH_TRACKERS = 8
 PLAIN_PATH_TOL_PX = 0.05
+# trackers of a fleet's plain-path check known to sit on a pixel boundary
+# of a float32 form, held to PLAIN_PATH_BOUNDARY_TOL_PX: {fleet: {index:
+# why}}. rklt_ssd_6's tracker 1: 0.0479 px at frame 1 in every run on the
+# NVIDIA H100 80GB HBM3 (700.00 W), its J0 and H0 equal on both devices;
+# a grid point on a pixel boundary flips K5's dense derivative and meets
+# a RANSAC inlier at the threshold (PERF.md, PR 6); the other 7 read at
+# most 3.1e-5 px
+PLAIN_PATH_BOUNDARY = {"rklt_ssd_6": {1: "K5 pixel-boundary flip at a "
+                                         "RANSAC threshold"}}
+PLAIN_PATH_BOUNDARY_TOL_PX = 0.5
 # NCC's combined g and H subtract nv m mᵀ and u uᵀ from R and divide by
 # the variance; summation-order differences of the raw sums (within 1e-4
 # of their norms) come out of that cancellation amplified
@@ -197,6 +239,68 @@ CUBIC_BSPL_GT_LIMIT_PX = 0.2
 # against init templates: no warp on the patches); grfc 0.1055, 0.0942,
 # 0.1024, 0.0743, 0.0795; prl 0.1127, 0.083, 0.1008, 0.0716, 0.0904; pyr
 # 0.1107, 0.0837, 0.0923, 0.0646, 0.0731
+# state sizes of the matrix SSMs, each its own build of the chain kernel,
+# and an SSM key of each (chain_inputs' warps, the K6 operands)
+STATE_DIMS = (2, 3, 4, 5, 6, 8)
+SSM_OF_S = {2: "2", 3: "3s", 4: "4", 5: "5", 6: "6", 8: "8"}
+NEW_S = (2, 3, 4, 5, 6)
+# the registers ptxas gives the S = 8 plain-tap instantiations, (linear,
+# cubic, cubic_bspl) per mode: the blurred taps and the other state sizes
+# leave them as they were (NVIDIA H100 80GB HBM3, CUDA 12.8)
+REGS_S8 = {("ssd", False, False): (180, 209, 195),
+           ("ncc", False, False): (202, 227, 215),
+           ("ssd", True, False): (182, 212, 209),
+           ("ncc", True, False): (207, 236, 228),
+           ("ssd", False, True): (182, 198, 195)}
+# raw chain sums: within RAW_REL of their norm of the float32 plain form,
+# per tracker. At S = 8 that is the whole rule. At the other state sizes a
+# tracker's g (or NCC's [Σ Jm v]) can cancel to a norm near the float32
+# rounding of its terms, and then the two float32 forms part by more (on
+# the card, ssd:s2@cubic at B = 1280: 6.1e-4 of the norm; on the sub-
+# grid's 38,400 trackers at N = 16: 2.7e-4). There a sum also passes
+# within RAW_REL of its norm plus ROUND_K float32 epsilons of its rounding
+# scale, its terms in absolute value summed (`chain_sum_scales`): an a
+# priori bound on two float32 forms whose sums of N terms each round by
+# ~(N / 256 + log2 256 ≈ 18 serial and tree adds in the kernel, log2 N ≈
+# 12 pairwise in PyTorch) plus ~8 roundings per term, each form within
+# ~26 epsilons of the scale, the two within 52. Every row that needs the
+# floor is also run with two planted faults (PLANTED_FAULTS), which the
+# rule must reject
+RAW_REL = 1e-4
+EPS32 = 2.0 ** -24
+ROUND_K = 64
+# the planted faults: the window rounded to bfloat16 (the TPU kernel's
+# layout) and the first generator (K6: the first state dim's Jacobian rows)
+# scaled by 1 + 1e-3, which leaves val as it is and moves only the sums
+PLANTED_FAULTS = ("bf16 window", "generator 0 x 1.001")
+# K4b: each blur at the point count of the coarse phase whose stride it
+# blurs (blur 4 at N = 169, blur 2 at N = 625) and blur 3 between, at
+# S = 8 and 6, in every mode and kind
+K4B_CASES = ((2, 625), (3, 625), (4, 169))
+K4B_S = (8, 6)
+K4B_REPLACES = ("mtf_tpu/ops/pallas/lk_fused.py:442 (blur > 1, :258-262; "
+                "taps mtf_tpu/ops/pallas/dense_sample.py:27-48)")
+GN_REPLACES = ("mtf_tpu/ops/pallas/lk_fused.py:129 (lk_fused_gn_t :167, "
+               "body _kernel :71)")
+GN_SOURCE = "mtf_tpu_torch/csrc/lk_fused_gn.cu"
+ORACLE_KEYS = ("2", "6", "8")
+SUBGRID_CROP = 32        # the sub-trackers' window (8x8 templates)
+# the sub-trackers' coarse phase: stride 2 only. A stride-4 phase leaves
+# 2x2 points of an 8x8 template, whose translation Hessian can be near
+# singular: a sub-tracker's step then leaves the frame, and the grid's DLT
+# refit, which normalises all points unweighted, turns NaN (in the JAX
+# package too: its CPU leg reads NaN with the headline's 4-and-2 schedule)
+SUBGRID_COARSE = ((2, 3),)
+# fclk/ssd on every SSM key not among the slice-6 fleets: 3 updates each
+OTHER_SSM_KEYS = ("2", "3s", "3", "l3", "4s", "5", "l6", "l8", "sl3", "c8")
+# GT readings of the slice-6 legs: the JAX package on the CPU over the
+# same legs, first 8 trackers (scripts/port_ssm_reference_leg.py)
+# Per frame: fclk_ssd_6 0.0948, 0.1069, 0.095, 0.0782, 0.0754; esm_ncc_4
+# 0.0785, 0.0859, 0.0776, 0.058, 0.0575; rklt_ssd_6 0.0934, 0.1033,
+# 0.0915, 0.0675, 0.0737; subgrid 0.3009, 0.2298, 0.1761, 0.2012, 0.2715
+# (translation sub-trackers on 8x8 templates under a projective leg)
+SSM_FAMILY_GT_READING_PX = {"fclk_ssd_6": 0.0901, "esm_ncc_4": 0.0715,
+                            "rklt_ssd_6": 0.0859, "subgrid": 0.2359}
 GRID_FAMILY_GT_READING_PX = {
     "rklt_cubic": 0.0978, "rklt_cubic_bspl": 0.0413, "mf": 0.6490,
     "rigid_cubic": 1.5007, "grfc": 0.0912, "prl": 0.0917, "pyr": 0.0849}
@@ -256,6 +360,27 @@ def grid_family():
     }
 
 
+def ssm_family():
+    """The slice-6 fleets: {name: (SM key, AM, SSM key, B, configuration,
+    launches per update by kernel, timed)}."""
+    return {
+        "fclk_ssd_6": ("fclk", "ssd", "6", B, slice_cfg(),
+                       {"ssd:s6": MAX_ITERS}, True),
+        "esm_ncc_4": ("esm", "ncc", "4", B_SLICE2, slice_cfg(),
+                      {"ncc_esm:s4": MAX_ITERS}, False),
+        "rklt_ssd_6": ("rklt", "ssd", "6", B_RKLT, rklt_cfg(),
+                       {"ssd_esm:s6": MAX_ITERS, "grid_flow@linear": 2},
+                       False),
+        # the factory's sub-grid defaults: grid_ssm "2", grid_am "ssd",
+        # grid_patch_res 8; B x 100 sub-trackers, on the parent homography;
+        # the sub-trackers take SUBGRID_COARSE (see there)
+        "subgrid": ("grid", "ssd", "8", B_RKLT,
+                    dict(slice_cfg(), crop=SUBGRID_CROP, grid_sm="fclk",
+                         coarse_pt_iters=SUBGRID_COARSE),
+                    {"ssd:s2": MAX_ITERS}, False),
+    }
+
+
 def _scene(seed=0, h=480, w=640):
     rng = np.random.default_rng(seed)
     img = np.cumsum(np.cumsum(rng.normal(0, 1, (h, w)), 0), 1)
@@ -308,12 +433,11 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
-def _ptxas_usage(log):
-    """{(am, esm, mc, kind): (registers, spill store bytes, spill load
-    bytes)} of each kernel instantiation, from `nvcc -Xptxas -v` output
-    (the template's bool arguments mangle as Lb0E / Lb1E, the tap kind as
-    Li<k>E)."""
-    usage, name, spills = {}, None, (0, 0)
+def _ptxas(log, kernel):
+    """[(mangled name, registers, spill store bytes, spill load bytes)] of
+    every function whose name matches the regex `kernel`, from
+    `nvcc -Xptxas -v` output."""
+    out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -323,29 +447,52 @@ def _ptxas_usage(log):
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "lk_fused_chain_kernel" in name:
-            flags = re.findall(r"Lb([01])E", name)
-            kind = KINDS[int(re.search(r"Li(\d)E", name).group(1))]
-            key = ("ncc" if flags[0] == "1" else "ssd", flags[1] == "1",
-                   flags[2] == "1", kind)
-            usage[key] = (int(m.group(1)),) + spills
+        if m and name and re.search(kernel, name):
+            out.append((name, int(m.group(1))) + spills)
+    return out
+
+
+def _ptxas_usage(log):
+    """{(am, esm, mc, kind, blurred): (registers, spill store bytes, spill
+    load bytes)} of each chain-kernel instantiation of one library (one
+    S): the template's bool arguments mangle as Lb0E / Lb1E, the tap kind
+    as Li<k>E; the blurred taps are `lk_fused_chain_blur_kernel`."""
+    usage = {}
+    for name, *use in _ptxas(log, r"lk_fused_chain_(blur_)?kernel"):
+        flags = re.findall(r"Lb([01])E", name)
+        kind = KINDS[int(re.search(r"Li(\d)E", name).group(1))]
+        usage[("ncc" if flags[0] == "1" else "ssd", flags[1] == "1",
+               flags[2] == "1", kind, "blur_kernel" in name)] = tuple(use)
     return usage
 
 
-def _chain_inputs(torch, frame, n, b, am, esm, dev, seed=2):
+def _ptxas_gn(log):
+    """{(S, kind): (registers, spill store bytes, spill load bytes)} of
+    K6's instantiations (mangled ILi<S>ELi<kind>E)."""
+    usage = {}
+    for name, *use in _ptxas(log, "lk_fused_gn_kernel"):
+        st, kind = re.search(r"ILi(\d)ELi(\d)E", name).groups()
+        usage[(int(st), KINDS[int(kind)])] = tuple(use)
+    return usage
+
+
+def _chain_inputs(torch, frame, n, b, am, esm, dev, seed=2, ssm_key="8",
+                  size=CROP, span=CROP):
     """Chain-kernel operands at the fleets' shapes: windows cropped from
     the scene at random places ((B, C, 144, 144) channel-stacked for an
-    (H, W, C) frame), random near-identity homographies of the
-    stride-decimated 50x50 template grid, random templates ((B, C, N)
-    for C channels; for NCC centred and of unit norm), and for ESM a J0
-    on the pixel Jacobian's scale."""
+    (H, W, C) frame; `size` px square), random near-identity warps of SSM
+    `ssm_key` (the homography by default) of the stride-decimated 50x50
+    template grid (laid out for a `span`-px window: 80/144 of it wide, in
+    its middle), random templates ((B, C, N) for C channels; for NCC
+    centred and of unit norm), and for ESM a J0 (B, S, N) on the pixel
+    Jacobian's scale."""
     from mtf_tpu_torch.ops import warp as W
     from mtf_tpu_torch.ssm import get_ssm
     rng = np.random.default_rng(seed)
     h, w = frame.shape[:2]
-    ys = torch.as_tensor(rng.integers(0, h - CROP, b), device=dev)
-    xs = torch.as_tensor(rng.integers(0, w - CROP, b), device=dev)
-    ar = torch.arange(CROP, device=dev)
+    ys = torch.as_tensor(rng.integers(0, h - size, b), device=dev)
+    xs = torch.as_tensor(rng.integers(0, w - size, b), device=dev)
+    ar = torch.arange(size, device=dev)
     win = frame[(ys[:, None] + ar)[:, :, None],
                 (xs[:, None] + ar)[:, None, :]]
     c = 1 if frame.dim() == 2 else frame.shape[2]
@@ -356,11 +503,13 @@ def _chain_inputs(torch, frame, n, b, am, esm, dev, seed=2):
     g = W.unit_square_grid(side, side, device=dev)
     ph = torch.cat([g.T, torch.ones(1, n, device=dev)])
     ph = ph.expand(b, 3, n).contiguous()
-    ssm = get_ssm("8", device=dev)
-    state = torch.as_tensor(rng.normal(0, 0.02, (b, 8)), dtype=torch.float32,
+    ssm = get_ssm(ssm_key, device=dev)
+    s = ssm.dof
+    state = torch.as_tensor(rng.normal(0, 0.02, (b, s)), dtype=torch.float32,
                             device=dev)
-    norm = torch.tensor([[80.0, 0, 72], [0, 80.0, 72], [0, 0, 1]],
-                        device=dev)
+    sc = span / CROP
+    norm = torch.tensor([[80.0 * sc, 0, 72 * sc], [0, 80.0 * sc, 72 * sc],
+                         [0, 0, 1]], device=dev)
     M0 = (norm @ ssm.to_matrix(state)).contiguous()
     templ = torch.as_tensor(rng.uniform(0, 255, (b, c, n) if c > 1 else
                                         (b, n)), dtype=torch.float32,
@@ -371,44 +520,53 @@ def _chain_inputs(torch, frame, n, b, am, esm, dev, seed=2):
                       + 1e-8)).contiguous()
     j0 = None
     if esm:
-        j0 = torch.as_tensor(rng.normal(0, 30.0, (b, 8, n)),
+        j0 = torch.as_tensor(rng.normal(0, 30.0, (b, s, n)),
                              dtype=torch.float32, device=dev)
     return (win, M0, ssm.generators, ph, templ), j0
 
 
-def _bound_ms(torch, args, am, esm, kind="linear"):
+def _bound_ms(torch, args, am, esm, kind="linear", blur=0):
     """Least time of one launch on the card: the bytes it must move (each
     input read once: the window pixels its points' taps cover (2x2
-    linear, 4x4 cubic) in each of its C channels, the warps, points,
-    template and J0; each output written once) over the HBM rate,
-    against its FLOPs over the float32 rate. Returns (ms, "bytes" |
-    "operations", bytes, flops)."""
+    linear, 4x4 cubic, 2r more per axis with blur r + 1) in each of its C
+    channels, the warps, points, template and J0; each output written
+    once) over the HBM rate, against its FLOPs over the float32 rate.
+    Returns (ms, "bytes" | "operations", bytes, flops)."""
     win, M0, gens, ph, templ = args
     b, hc, wc = win.shape[0], win.shape[-2], win.shape[-1]
     c = win.shape[1] if win.dim() == 4 else 1
     n = ph.shape[-1]
+    s = gens.shape[0]
+    r = blur - 1 if blur > 1 else 0
     q = M0 @ ph
     lo, hi, taps, first = ((0.001, 1.001, 2, 0) if kind == "linear"
                            else (1.001, 2.001, 4, -1))
-    x = torch.clamp(q[:, 0] / q[:, 2], lo, wc - hi).floor().long() + first
-    y = torch.clamp(q[:, 1] / q[:, 2], lo, hc - hi).floor().long() + first
+    taps, first = taps + 2 * r, first - r
+    x = torch.clamp(q[:, 0] / q[:, 2], lo + r, wc - hi - r).floor().long() \
+        + first
+    y = torch.clamp(q[:, 1] / q[:, 2], lo + r, hc - hi - r).floor().long() \
+        + first
     i0 = y * wc + x
-    idx = torch.cat([i0 + (r * wc + j) for r in range(taps)
+    idx = torch.cat([i0 + (rr * wc + j) for rr in range(taps)
                      for j in range(taps)], dim=-1)
     cover = torch.zeros((b, hc * wc), dtype=torch.bool, device=win.device)
     cover.scatter_(1, idx, True)
-    s = 8
     n_out = s + s * s + ((2 * s + 5) if am == "ncc" else 0)
     nbytes = 4 * (c * int(cover.sum()) + b * (9 + 3 * n + c * n)
                   + gens.numel() + (b * s * n if esm else 0) + b * c * n
                   + b * n_out)
     # per point: projection and reciprocal ~20, warp Jacobian 24 per state
-    # dim, tap weights (linear ~8, cubic 8 taps of ~14), ESM mean 2 per
-    # dim; per channel: the value and derivatives from the taps (linear
-    # ~20, cubic 16 taps x 2 sums x 2 + 24), Jm 3 per dim, the residual,
-    # 2 per accumulator
+    # dim, tap weights (linear ~8, cubic 8 taps of ~14; blurred: each of
+    # the 2 x taps weights summed over 2r + 1 taps of ~6 / ~14), ESM mean
+    # 2 per dim; per channel: the value and derivatives from the taps
+    # (linear ~20, cubic 16 taps x 2 sums x 2 + 24; blurred taps^2 x 4 +
+    # 6 taps), Jm 3 per dim, the residual, 2 per accumulator
     n_acc = s + s * (s + 1) // 2 + ((2 * s + 5) if am == "ncc" else 0)
-    weights, sample = (8, 20) if kind == "linear" else (112, 88)
+    if r:
+        weights = 2 * taps * (2 * r + 1) * (6 if kind == "linear" else 14)
+        sample = 4 * taps * taps + 6 * taps
+    else:
+        weights, sample = (8, 20) if kind == "linear" else (112, 88)
     per_pt = (20 + 24 * s + weights + (2 * s if esm else 0)
               + c * (sample + 3 * s + 1 + 2 * n_acc))
     flops = b * n * per_pt
@@ -425,10 +583,12 @@ def _rel_err(torch, got, want):
                   / torch.linalg.vector_norm(want, dim=dims)).max())
 
 
-def _label(am, esm, mc, kind):
+def _label(am, esm, mc, kind, blur=0):
     """The kernel's name in PERF.md's table: K1-K4 by mode, K1c for the
-    cubic taps (a mode of every one of them)."""
+    cubic taps (a mode of every one of them), K4b for the blurred taps."""
     base = MODES[(am, esm, mc)]
+    if blur > 1:
+        return f"{base}+K4b"
     if kind == "linear":
         return base
     return "K1c" if base == "K1" else f"{base}+K1c"
@@ -447,74 +607,436 @@ def _kernel_specs():
     return specs
 
 
-def _kernel_phase(torch, tk, frames, card, dev):
-    """Every instantiation against its plain form and timed, at each N;
-    `frames` maps a channel count to the scene with that many channels."""
+def chain_sum_scales(torch, tk, args, am="ssd", j0=None, kind="linear",
+                     blur=0):
+    """The rounding scale of each raw chain sum, per tracker: its terms in
+    absolute value, summed over points, as `lk_fused_chain_ref` forms them
+    (|Jm| through |dx| + |val| and |dy| + |val|: a derivative is a
+    difference of pixels and rounds on their scale; |templ| + |val| for
+    SSD's residual). Returns the list of (B, ...) tensors in the order of
+    the raw sums."""
+    window, M0, gens, ph, templ = args
+    mc = window.dim() == 4
+    win = window if mc else window[:, None]
+    xr, yr, jx, jy = tk.project_points(M0, gens, ph)
+    val, dx, dy = tk._sample_dense(win, xr, yr, kind, blur)
+    v = val.abs()
+    jm = (jx.abs()[:, None] * (dx.abs() + v)[:, :, None]
+          + jy.abs()[:, None] * (dy.abs() + v)[:, :, None])  # (B, C, S, N)
+    t = templ.abs()
+    if mc:
+        return [(jm * (t + v)[:, :, None]).sum((1, 3)),
+                (jm @ jm.transpose(-1, -2)).sum(1)]
+    v, jm = v[:, 0], jm[:, 0]
+    if j0 is not None:
+        jm = 0.5 * (jm + j0.abs())
+    if am == "ncc":
+        return list(tk.ncc_moments(v, t, jm))
+    return [(jm * (t + v)[:, None]).sum(-1), jm @ jm.transpose(1, 2)]
+
+
+def gn_sum_scales(torch, tk, args, kind="linear", crop=None):
+    """`chain_sum_scales` of K6's g and JtJ (`lk_fused_gn_t_ref`'s terms
+    in absolute value, in each tracker's `gn_crop` window)."""
+    window, pts, jac, templ = args
+    b, h, w = window.shape
+    origin, hc, wc = tk.gn_crop(pts, h, w, crop)
+    oi = origin.long()
+    rows = oi[:, 1, None] + torch.arange(hc, device=window.device)
+    cols = oi[:, 0, None] + torch.arange(wc, device=window.device)
+    sub = window[torch.arange(b, device=window.device)[:, None, None],
+                 rows[:, :, None], cols[:, None, :]]
+    xy = pts - origin[:, :, None]
+    val, dx, dy = tk._sample_dense(sub[:, None], xy[:, 0], xy[:, 1], kind)
+    v, s = val[:, 0].abs(), jac.shape[1] // 2
+    jm = (jac[:, :s].abs() * (dx.abs() + v[:, None])
+          + jac[:, s:].abs() * (dy.abs() + v[:, None]))         # (B, S, N)
+    return [(jm * (templ.abs() + v)[:, None]).sum(-1),
+            jm @ jm.transpose(1, 2)]
+
+
+def raw_verdict(torch, gots, wants, scales=None):
+    """RAW_REL's rule over B trackers' raw sums (lists of (B, ...)
+    tensors): a tracker passes when each of its sums is within RAW_REL of
+    its norm of the float32 plain form `wants`. Given the sums' rounding
+    scales (`chain_sum_scales`, `gn_sum_scales`; S != 8 only), a sum also
+    passes within RAW_REL of its norm plus ROUND_K float32 epsilons of
+    its scale. Returns {ok, err_raw (the largest error over trackers, as a
+    share of the norm), passed (per tracker)} and, given `scales`,
+    {by_floor (the trackers only the floor passed), factor (the largest
+    number of epsilons of the scale that a sum beyond RAW_REL needed)}."""
+    passed = torch.ones(gots[0].shape[0], dtype=torch.bool,
+                        device=gots[0].device)
+    near_all = passed.clone()
+    err, factor = 0.0, 0.0
+    for i, (a, w) in enumerate(zip(gots, wants)):
+        dims = tuple(range(1, a.dim()))
+        d = (a - w).abs().amax(dims)
+        nrm = torch.linalg.vector_norm(w, dim=dims)
+        err = max(err, float((d / nrm).max()))
+        near = d <= RAW_REL * nrm
+        near_all &= near
+        ok = near
+        if scales is not None:
+            unit = EPS32 * scales[i].abs().amax(dims)
+            need = (d - RAW_REL * nrm) / unit
+            ok = near | (need <= ROUND_K)
+            if bool((~near).any()):
+                factor = max(factor, float(need[~near].max()))
+        passed &= ok
+    out = dict(ok=bool(passed.all()), err_raw=err, passed=passed)
+    if scales is not None:
+        out.update(by_floor=passed & ~near_all, factor=factor)
+    return out
+
+
+def _planted_faults(torch, run, want, scales, verdict, faulty_args):
+    """`raw_verdict` (with the floor, `scales` of the sound inputs) on the
+    kernel's sums of each planted fault: `faulty_args` [(name, args)] run
+    through `run`, held against the sound inputs' plain form `want`.
+    `verdict` is the sound run's. Returns {name: {rejected,
+    trackers_rejected, floor_trackers (those only the floor passed in the
+    sound run), floor_trackers_rejected}}."""
+    out = {}
+    by = verdict["by_floor"]
+    for name, args in faulty_args:
+        got = run(*args)
+        v = raw_verdict(torch, got[1:], want[1:], scales)
+        rej = ~v["passed"]
+        out[name] = dict(rejected=not v["ok"],
+                         trackers_rejected=int(rej.sum()),
+                         floor_trackers=int(by.sum()),
+                         floor_trackers_rejected=int((rej & by).sum()))
+    return out
+
+
+def _sums_verdict(torch, run, args, got, want, scales_of, s, rows):
+    """The raw sums `got` of `run(*args)` against the plain form's `want`
+    by `raw_verdict`. At S != 8, where they miss, again with the rounding
+    floor (`scales_of()`); where the floor passes them, with
+    PLANTED_FAULTS: the window (args[0]) rounded to bfloat16, and args[2]
+    (the generators, or K6's Jacobian) with `rows` scaled by 1 + 1e-3.
+    Returns (verdict, the planted faults' results or None)."""
+    v = raw_verdict(torch, got[1:], want[1:])
+    if v["ok"] or s == 8:
+        return v, None
+    scales = scales_of()
+    v = raw_verdict(torch, got[1:], want[1:], scales)
+    if not v["ok"]:
+        return v, None
+    third = args[2].clone()
+    third[rows] *= 1 + 1e-3
+    return v, _planted_faults(torch, run, want, scales, v, [
+        (PLANTED_FAULTS[0], (args[0].bfloat16().float(),) + tuple(args[1:])),
+        (PLANTED_FAULTS[1], tuple(args[:2]) + (third,) + tuple(args[3:]))])
+
+
+def _floor_fields(row, v, planted):
+    """Record the rounding floor's readings on a kernel-phase row."""
+    if "factor" in v:
+        row.update(n_by_floor=int(v["by_floor"].sum()),
+                   floor_factor=v["factor"])
+    if planted is not None:
+        row["planted"] = planted
+
+
+def _floor_note(row):
+    if "floor_factor" not in row:
+        return ""
+    note = (f" ({row['n_by_floor']} trackers by the rounding floor, at "
+            f"most {row['floor_factor']:.3g} epsilons of the scale")
+    if "planted" in row:
+        note += "; planted faults: " + ", ".join(
+            f"{k} rejected on {r['trackers_rejected']} trackers, "
+            f"{r['floor_trackers_rejected']} of the floor's "
+            f"{r['floor_trackers']}" for k, r in row["planted"].items())
+    return note + ")"
+
+
+def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card, reps,
+               plain_reps, **meta):
+    """One chain-kernel launch against its plain form on the card (val
+    within 1e-3; raw sums by `raw_verdict`, its rounding floor at S != 8
+    only, with the planted faults wherever it was needed; NCC's combined
+    g and H within NCC_COMBINED_REL), both timed by CUDA events, with the
+    launch's bound. Returns the row."""
+    s = args[2].shape[0]
+
+    def run(*a):
+        return tk.lk_fused_chain_raw(*a, am=am, j0=j0, kind=kind, blur=blur)
+
+    got = run(*args)
+    torch.cuda.synchronize()
+    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind, blur=blur)
+    err_v = float((got[0] - want[0]).abs().max())
+    v, planted = _sums_verdict(
+        torch, run, args, got, want, lambda: chain_sum_scales(
+            torch, tk, args, am, j0, kind, blur), s, 0)
+    row = dict(meta, s=s, blur=blur, err_v=err_v, err_raw=v["err_raw"])
+    _floor_fields(row, v, planted)
+    _check(np.isfinite(err_v) and np.isfinite(v["err_raw"]),
+           f"{name}: non-finite output")
+    _check(err_v <= 1e-3 and v["ok"],
+           f"{name}: cuda vs plain val {err_v}, raw sums {v['err_raw']} of "
+           f"norm{_floor_note(row)}")
+    for fault, r in (planted or {}).items():
+        _check(r["rejected"], f"{name}: the planted fault '{fault}' passed "
+               f"the raw-sum rule ({r})")
+    if am == "ncc":
+        gk, hk = tk.ncc_combine(*got[1:])
+        gp, hp = tk.ncc_combine(*want[1:])
+        row["err_g"] = _rel_err(torch, gk, gp)
+        row["err_h"] = _rel_err(torch, hk, hp)
+        _check(row["err_g"] <= NCC_COMBINED_REL
+               and row["err_h"] <= NCC_COMBINED_REL,
+               f"{name}: combined g {row['err_g']} H {row['err_h']} of norm")
+    del got, want
+    row["ms"] = _time_ms(torch, lambda: run(*args), reps)
+    row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_chain_ref(
+        *args, am=am, j0=j0, kind=kind, blur=blur), plain_reps)
+    (row["bound_ms"], row["bound_by"], row["bytes"],
+     row["flops"]) = _bound_ms(torch, args, am, esm, kind, blur)
+    extra = ("" if am != "ncc" else
+             f", combined g {row['err_g']:.3g} H {row['err_h']:.3g}")
+    print(f"{name}{f' blur={blur}' if blur > 1 else ''}: max|dval| "
+          f"{err_v:.3g}, raw sums {row['err_raw']:.3g} of norm"
+          f"{_floor_note(row)}{extra}; cuda {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {row['bytes'] / 1e6:.1f} MB, "
+          f"{row['flops'] / 1e9:.2f} GFLOP) ({card})")
+    return row
+
+
+def _kernel_phase(torch, tk, frames, card, dev, s=8, blur=0, specs=None,
+                  n_points=N_POINTS, reps=50, plain_reps=5):
+    """Every instantiation of state size `s` (with `blur`'s taps) against
+    its plain form and timed (`_chain_row`), at each N; `frames` maps a
+    channel count to the scene with that many channels. Returns {(mode,
+    n, C): row}."""
     rows = {}
-    for am, esm, c, kind, b in _kernel_specs():
-        mc = c > 1
-        label = _label(am, esm, mc, kind)
-        mode = tk.mode_name(am, esm, mc, kind)
-        for n in N_POINTS:
-            args, j0 = _chain_inputs(torch, frames[c], n, b, am, esm, dev)
-            got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind)
-            torch.cuda.synchronize()
-            want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind)
-            err_v = float((got[0] - want[0]).abs().max())
-            err_raw = max(_rel_err(torch, a, w)
-                          for a, w in zip(got[1:], want[1:]))
-            _check(np.isfinite(err_v) and np.isfinite(err_raw),
-                   f"{label} {mode} C={c} N={n}: non-finite output")
-            _check(err_v <= 1e-3 and err_raw <= 1e-4,
-                   f"{label} {mode} C={c} N={n}: cuda vs plain val {err_v}, "
-                   f"raw sums {err_raw} of norm")
-            row = dict(b=b, c=c, err_v=err_v, err_raw=err_raw)
-            if am == "ncc":
-                gk, hk = tk.ncc_combine(*got[1:])
-                gp, hp = tk.ncc_combine(*want[1:])
-                row["err_g"] = _rel_err(torch, gk, gp)
-                row["err_h"] = _rel_err(torch, hk, hp)
-                _check(row["err_g"] <= NCC_COMBINED_REL
-                       and row["err_h"] <= NCC_COMBINED_REL,
-                       f"{label} N={n}: combined g {row['err_g']} H "
-                       f"{row['err_h']} of norm")
-            del got, want
-            row["ms"] = _time_ms(torch, lambda: tk.lk_fused_chain_raw(
-                *args, am=am, j0=j0, kind=kind), 50)
-            row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_chain_ref(
-                *args, am=am, j0=j0, kind=kind), 5)
-            (row["bound_ms"], row["bound_by"], row["bytes"],
-             row["flops"]) = _bound_ms(torch, args, am, esm, kind)
-            rows[(mode, n, c)] = row
-            extra = ("" if am != "ncc" else
-                     f", combined g {row['err_g']:.3g} H {row['err_h']:.3g}")
-            print(f"{label} {mode} C={c} N={n} B={b}: max|dval| {err_v:.3g}, "
-                  f"raw sums {err_raw:.3g} of norm{extra}; cuda "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                  f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} "
-                  f"GFLOP) ({card})")
+    for am, esm, c, kind, b in specs or _kernel_specs():
+        label = _label(am, esm, c > 1, kind, blur)
+        mode = tk.mode_name(am, esm, c > 1, kind, s, blur > 1)
+        for n in n_points:
+            args, j0 = _chain_inputs(torch, frames[c], n, b, am, esm, dev,
+                                     ssm_key=SSM_OF_S[s])
+            rows[(mode, n, c)] = _chain_row(
+                torch, tk, args, j0, am, esm, kind, blur,
+                f"{label} {mode} C={c} N={n} B={b}", card, reps, plain_reps,
+                b=b, c=c)
             del args, j0
             torch.cuda.empty_cache()
     return rows
 
 
+def _subgrid_phase(torch, tk, frame_d, card, dev):
+    """ssd:s2 at the sub-tracker grid's shapes: B_RKLT x 100 sub-trackers,
+    N = 16 (its stride-2 phase) and 64 (8x8 templates), 32-px windows,
+    `_chain_inputs` operands (random templates: on the fleet's own
+    operands the full-resolution call's g is float32 noise on converged
+    sub-trackers, see PERF.md), against its plain form (`_chain_row`).
+    Returns {N: row}."""
+    rows, b = {}, B_RKLT * 100
+    for n in (16, 64):
+        args, j0 = _chain_inputs(torch, frame_d, n, b, "ssd", False, dev,
+                                 ssm_key="2", size=SUBGRID_CROP,
+                                 span=SUBGRID_CROP)
+        rows[n] = _chain_row(
+            torch, tk, args, j0, "ssd", False, "linear", 0,
+            f"K1 sub-grid {tk.mode_name('ssd', False, False, 'linear', 2)} "
+            f"N={n} B={b} window {SUBGRID_CROP}", card, 50, 5, b=b, c=1)
+        del args, j0
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _gn_operands(torch, frame, n, b, s, dev, pad=16):
+    """K6 operands at the fleets' shapes: the chain kernel's (`_chain_inputs`
+    of the s-DOF SSM) on windows `pad` px wider on every side, the points
+    projected (window px) and the warp Jacobian (2S, N) formed as the
+    chain kernel forms them (`project_points`). Returns (window, pts, jac,
+    templ)."""
+    (win, M0, gens, ph, templ), _ = _chain_inputs(
+        torch, frame, n, b, "ssd", False, dev, ssm_key=SSM_OF_S[s],
+        size=CROP + 2 * pad)
+    from mtf_tpu_torch.ops.kernels.lk_fused import project_points
+    M0 = M0.clone()
+    M0[:, :2] += pad * M0[:, 2:3]
+    xr, yr, jx, jy = project_points(M0, gens, ph)
+    return (win, torch.stack([xr, yr], 1).contiguous(),
+            torch.cat([jx, jy], 1).contiguous(), templ)
+
+
+def _gn_bound(torch, tk, win, pts, jac, kind, crop):
+    """Least time of one K6 launch: the bytes it must move (the window
+    pixels its taps cover, 8 B of points, 8S B of Jacobian, 4 B of
+    template and 4 B of val per point, g and JtJ) over the HBM rate,
+    against ~40 (linear) or ~150 (cubic) FLOPs per point for the taps and
+    samples, 3 per state dim for Jm and 2 per accumulator, over the
+    float32 rate. Returns (ms, "bytes" | "operations", bytes, flops)."""
+    b, h, w = win.shape
+    n = pts.shape[-1]
+    s = jac.shape[1] // 2
+    origin, hc, wc = tk.gn_crop(pts, h, w, crop)
+    lo, hi, taps, first = ((0.001, 1.001, 2, 0) if kind == "linear"
+                           else (1.001, 2.001, 4, -1))
+    xy = pts - origin[:, :, None]
+    x = torch.clamp(xy[:, 0], lo, wc - hi).floor().long() + first \
+        + origin[:, 0, None].long()
+    y = torch.clamp(xy[:, 1], lo, hc - hi).floor().long() + first \
+        + origin[:, 1, None].long()
+    i0 = y * w + x
+    cover = torch.zeros((b, h * w), dtype=torch.bool, device=win.device)
+    cover.scatter_(1, torch.cat([i0 + (r * w + j) for r in range(taps)
+                                 for j in range(taps)], dim=-1), True)
+    nbytes = 4 * int(cover.sum()) + b * n * (8 + 8 * s + 8) \
+        + 4 * b * (s + s * s)
+    flops = b * n * ((40 if kind == "linear" else 150) + 3 * s
+                     + s * (s + 3))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def _gn_phase(torch, tk, frame_d, card, dev):
+    """K6 at every S and kind, with and without the crop, against its
+    plain form on the card (val within 1e-3, g and JtJ within RAW_REL of
+    their norms), timed by CUDA events, with its bound. Returns {(S, kind,
+    crop): row}."""
+    rows = {}
+    for s in STATE_DIMS:
+        args = _gn_operands(torch, frame_d, N_POINTS[-1], B, s, dev)
+        for kind in KINDS:
+            for crop in (None, CROP):
+                def run(*a):
+                    return tk.lk_fused_gn_t(*a, kind=kind, crop=crop)
+
+                got = run(*args)
+                torch.cuda.synchronize()
+                want = tk.lk_fused_gn_t_ref(*args, kind=kind, crop=crop)
+                err_v = float((got[0] - want[0]).abs().max())
+                v, planted = _sums_verdict(
+                    torch, run, args, got, want,
+                    lambda: gn_sum_scales(torch, tk, args, kind, crop), s,
+                    (slice(None), [0, s]))
+                name = f"K6 {tk.gn_mode_name(s, kind)} crop={crop}"
+                row = dict(s=s, kind=kind, crop=crop, err_v=err_v,
+                           err_raw=v["err_raw"])
+                _floor_fields(row, v, planted)
+                _check(np.isfinite(err_v) and err_v <= 1e-3 and v["ok"],
+                       f"{name}: cuda vs plain val {err_v}, g / JtJ "
+                       f"{v['err_raw']} of norm{_floor_note(row)}")
+                for fault, r in (planted or {}).items():
+                    _check(r["rejected"], f"{name}: the planted fault "
+                           f"'{fault}' passed the raw-sum rule ({r})")
+                del got, want
+                row["ms"] = _time_ms(torch, lambda: run(*args), 20)
+                row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_gn_t_ref(
+                    *args, kind=kind, crop=crop), 3)
+                (row["bound_ms"], row["bound_by"], row["bytes"],
+                 row["flops"]) = _gn_bound(torch, tk, args[0], args[1],
+                                           args[2], kind, crop)
+                rows[(s, kind, crop)] = row
+                print(f"{name} B={B} N={N_POINTS[-1]} window "
+                      f"{args[0].shape[-1]}: max|dval| {err_v:.3g}, g / JtJ "
+                      f"{row['err_raw']:.3g} of norm{_floor_note(row)}; "
+                      f"cuda {row['ms']:.4f} ms, "
+                      f"plain {row['plain_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                      f"{row['bytes'] / 1e6:.1f} MB) ({card})")
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def oracle_operands(torch, n, key, dev, seed=3):
+    """The K1-vs-K6 oracle's operands (a port of
+    `tests/test_dense_interp.py:134-181`), on `dev`: a random (128, 128)
+    image, a random near-identity state of SSM `key` under a 60-px
+    normalisation, a side x side grid plus random base points (3, n), a
+    random template, and the (2S, n) warp Jacobian of the point map at
+    that state by forward mode (`torch.func.jvp`). Returns (img, M0, gens,
+    ph, templ, pts (2, n), jac (2S, n))."""
+    from mtf_tpu_torch.ssm import get_ssm
+    rng = np.random.default_rng(seed)
+    img = torch.tensor(rng.uniform(0, 255, (128, 128)), dtype=torch.float32,
+                       device=dev)
+    ssm = get_ssm(key, device=dev)
+    s = ssm.dof
+    state = torch.tensor(rng.normal(0, 0.02, s), dtype=torch.float32,
+                         device=dev)
+    side = int(np.sqrt(n))
+    lin = np.linspace(-0.5, 0.5, side)
+    g = np.stack(np.meshgrid(lin, lin), -1).reshape(-1, 2)
+    g = np.concatenate([g, rng.uniform(-0.5, 0.5, (n - side * side, 2))])
+    ph = torch.tensor(np.concatenate([g.T, np.ones((1, n))]),
+                      dtype=torch.float32, device=dev).contiguous()
+    norm = torch.tensor([[60.0, 0, 64], [0, 60.0, 64], [0, 0, 1]],
+                        device=dev)
+    M0 = norm @ ssm.to_matrix(state)
+    templ = torch.tensor(rng.uniform(0, 255, n), dtype=torch.float32,
+                         device=dev)
+
+    def pts_of(dp):
+        q = (M0 @ ssm.to_matrix(dp)) @ ph
+        return q[:2] / q[2:3]
+
+    zero = torch.zeros(s, device=dev)
+    eye = torch.eye(s, device=dev)
+    rows = [torch.func.jvp(pts_of, (zero,), (eye[i],))[1] for i in range(s)]
+    jac = torch.cat([torch.stack([r[0] for r in rows]),
+                     torch.stack([r[1] for r in rows])])
+    return (img, M0.contiguous(), ssm.generators, ph, templ,
+            pts_of(zero).contiguous(), jac.contiguous())
+
+
+def _oracle_phase(torch, tk, dev):
+    """The K1-vs-K6 oracle on the card: the chain kernel (CUDA) against K6
+    (CUDA) fed the warp Jacobian built by forward mode (`oracle_operands`),
+    S in ORACLE_KEYS, N = 1024 and 4500: val within 1.0, g and JtJ within
+    1e-4 of their norms (the reference's tolerances). Returns {(key, n):
+    errors}."""
+    out = {}
+    for key in ORACLE_KEYS:
+        for n in (1024, 4500):
+            img, M0, gens, ph, templ, pts, jac = oracle_operands(torch, n,
+                                                                 key, dev)
+            v1, g1, h1 = tk.lk_fused_gn_t(img[None], pts[None], jac[None],
+                                          templ[None])
+            v2, g2, h2 = tk.lk_fused_chain(img[None], M0[None], gens,
+                                           ph[None], templ[None])
+            torch.cuda.synchronize()
+            e = dict(val=float((v1 - v2).abs().max()),
+                     g=float((g1 - g2).abs().max() / g1.norm()),
+                     h=float((h1 - h2).abs().max() / h1.norm()))
+            _check(e["val"] <= 1.0 and e["g"] <= 1e-4 and e["h"] <= 1e-4,
+                   f"K1 vs K6 oracle S={gens.shape[0]} N={n}: {e}")
+            print(f"K1 vs K6 oracle S={gens.shape[0]} ({key}) N={n}: "
+                  f"max|dval| {e['val']:.3g}, g {e['g']:.3g}, JtJ "
+                  f"{e['h']:.3g} of norm")
+            out[(key, n)] = e
+    return out
+
+
 def _counts(tk, gf):
-    """Every kernel's launch count: the chain kernel's per mode, the grid
-    flow's per tap kind as `grid_flow@<kind>`."""
-    return {**tk.lk_fused_chain_raw.launches,
+    """Every kernel's launch count: the chain kernel's per mode and state
+    size, K6's per state size and kind, the grid flow's per tap kind as
+    `grid_flow@<kind>`."""
+    return {**tk.lk_fused_chain_raw.launches, **tk.lk_fused_gn_t.launches,
             **{f"grid_flow@{k}": v for k, v in gf.grid_flow.launches.items()}}
 
 
 def _zero_counts(tk, gf):
-    for counts in (tk.lk_fused_chain_raw.launches, gf.grid_flow.launches):
+    for counts in (tk.lk_fused_chain_raw.launches, tk.lk_fused_gn_t.launches,
+                   gf.grid_flow.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
            windows=WINDOWS, warmup=WARMUP, interp="linear_mm", cfg=None,
-           label=None):
+           label=None, ssm="8"):
     """The fleet's main path: `warmup` updates, then `windows` timed
     windows of STEPS updates; the launch counts are zeroed just before
     and read just after, and each kernel must have launched exactly
@@ -522,7 +1044,7 @@ def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.parallel import TrackerFleet
     label = label or f"{key}/{am} {interp}"
-    sm = create_tracker(key, am, "8", device=dev,
+    sm = create_tracker(key, am, ssm, device=dev,
                         **(cfg if cfg is not None else cfg_of(key, interp)))
     fleet = TrackerFleet(sm, donate=True)
     _zero_counts(tk, gf)
@@ -578,33 +1100,48 @@ def _gt_leg(sm, frame0, corners, limit, label):
 
 
 def _plain_path_check(sm, key, am, frames, corners, label,
-                      interp="linear_mm", cfg=None):
+                      interp="linear_mm", cfg=None, ssm="8", boundary=None):
     """The same trackers on the plain path (CPU tensors: the kernels'
-    plain forms) agree with the CUDA path. The grid's RANSAC draw comes
-    from a generator on each path's device, so each CPU grid is handed
-    its CUDA twin's draws."""
+    plain forms) agree with the CUDA path, each tracker within
+    PLAIN_PATH_TOL_PX; a tracker named in `boundary` {index: why} is held
+    to PLAIN_PATH_BOUNDARY_TOL_PX instead. The grid's RANSAC draw comes
+    from a generator on each path's device, so each CPU grid is handed its
+    CUDA twin's draws. Returns the largest difference of the other
+    trackers."""
     from mtf_tpu_torch import create_tracker
-    from mtf_tpu_torch.sm.grid import GridTracker
+    from mtf_tpu_torch.sm.grid import GridTracker, SubTrackerGrid
     cfg = cfg if cfg is not None else cfg_of(key, interp)
-    cpu_sm = create_tracker(key, am, "8", device="cpu", **cfg)
-    cuda_grids = [m for m in sm.modules() if isinstance(m, GridTracker)]
-    cpu_grids = [m for m in cpu_sm.modules() if isinstance(m, GridTracker)]
+    boundary = boundary or {}
+    cpu_sm = create_tracker(key, am, ssm, device="cpu", **cfg)
+    grids = (GridTracker, SubTrackerGrid)
+    cuda_grids = [m for m in sm.modules() if isinstance(m, grids)]
+    cpu_grids = [m for m in cpu_sm.modules() if isinstance(m, grids)]
     for g_cuda, g_cpu in zip(cuda_grids, cpu_grids):
         g_cpu._hyp_indices = (lambda draw: lambda step, n: draw(step, n).cpu()
                               )(g_cuda._hyp_indices)
     sub = corners[:PLAIN_PATH_TRACKERS]
     st_g = sm.initialize(frames[0], sub)
     st_c = cpu_sm.initialize(frames[0].cpu(), sub)
-    diff = 0.0
+    per = np.zeros(len(sub))
     for t in range(1, 3):
         st_g = sm.update(st_g, frames[t])
         st_c = cpu_sm.update(st_c, frames[t].cpu())
-        diff = max(diff, float((sm.corners(st_g).cpu()
-                                - cpu_sm.corners(st_c)).abs().max()))
+        d = (sm.corners(st_g).cpu() - cpu_sm.corners(st_c)).abs()
+        per = np.maximum(per, d.flatten(1).amax(1).numpy())
+    named = np.isin(np.arange(len(sub)), list(boundary))
+    diff = float(per[~named].max())
     _check(diff < PLAIN_PATH_TOL_PX,
-           f"{label}: CUDA path vs plain path corners differ by {diff} px")
+           f"{label}: CUDA path vs plain path corners differ by {diff} px "
+           f"(per tracker {per.tolist()})")
+    for i, why in boundary.items():
+        _check(per[i] < PLAIN_PATH_BOUNDARY_TOL_PX,
+               f"{label}: tracker {i} ({why}) differs by {per[i]} px")
     print(f"{label} plain-path check: {PLAIN_PATH_TRACKERS} trackers, 2 "
-          f"frames, max corner diff {diff:.3g} px")
+          f"frames, max corner diff {diff:.3g} px, per tracker "
+          f"{[float(f'{x:.3g}') for x in per]}"
+          + "".join(f"; tracker {i} ({why}) {per[i]:.3g} px (limit "
+                    f"{PLAIN_PATH_BOUNDARY_TOL_PX})"
+                    for i, why in boundary.items()))
     return diff
 
 
@@ -612,19 +1149,10 @@ def _ptxas_k5(log):
     """{(points per lane K, tap kind): (registers, spill store bytes, spill
     load bytes)} of the grid-flow kernel's instantiations (mangled
     ILi<K>ELi<kind>E)."""
-    usage, name, spills = {}, None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and "grid_flow_kernel" in name:
-            k, kind = re.search(r"ILi(\d+)ELi(\d)E", name).groups()
-            usage[(int(k), KINDS[int(kind)])] = (int(m.group(1)),) + spills
+    usage = {}
+    for name, *use in _ptxas(log, "grid_flow_kernel"):
+        k, kind = re.search(r"ILi(\d+)ELi(\d)E", name).groups()
+        usage[(int(k), KINDS[int(kind)])] = tuple(use)
     return usage
 
 
@@ -836,6 +1364,155 @@ def _k5_entry(rows_k5, kind, launches, usage_k5, mf_row=None):
     }
 
 
+_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "err_v", "err_raw",
+             "n_by_floor", "floor_factor", "planted", "err_g", "err_h",
+             "b", "c")
+
+
+def _sub(row):
+    return {k: row[k] for k in _ROW_KEYS if k in row}
+
+
+def _chain_s_entry(tk, rows_s, s, launches, usage):
+    """The kernels-line entry of the chain kernel at state size `s`: its
+    SSD linear-tap row as the headline (B = 1280, N = 2500), every other
+    instantiation under `by_mode`; `launches` {mode: count} of the slice-6
+    main paths (the fleets and the other SSM keys' entry points)."""
+    head = rows_s[(tk.mode_name("ssd", False, False, "linear", s),
+                   N_POINTS[-1], 1)]
+    regs = {tk.mode_name(am, esm, mc, kind, s): usage[(s, am, esm, mc, kind,
+                                                       False)]
+            for am, esm, mc, kind in tk.INSTANTIATIONS}
+    return {
+        "name": f"lk_fused_chain:s{s} (K1-K4, K1c at S = {s})",
+        "route": "cuda", "source": SOURCE,
+        "replaces": f"{REPLACES} (n_s = gens.shape[0], :519)",
+        "launches": sum(launches.values()), "launches_by_mode": launches,
+        "max_abs_err": max(r["err_v"] for r in rows_s.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"ssd: B={B}, window {CROP}x{CROP}, N=2500, linear taps, "
+                 f"S={s}; by_mode: each mode at its fleet's B (ssd_mc C=3)",
+        "registers": {k: v[0] for k, v in regs.items()},
+        "spill_stores": max(v[1] for v in regs.values()),
+        "spill_loads": max(v[2] for v in regs.values()),
+        "by_mode": {m: _sub(r) for (m, _, _), r in rows_s.items()},
+    }
+
+
+def _k4b_entry(tk, rows_b, launches, usage):
+    """The kernels-line entry of the blurred taps (K4b): S = 8 SSD linear
+    at blur 2 (N = 625, B = 1280) as the headline, every (S, blur, mode)
+    under `by_case`; `launches` are the kernel phase's (no tracker path
+    blurs taps)."""
+    head = rows_b[(8, 2)][(tk.mode_name("ssd", False, False, "linear", 8,
+                                        True), 625, 1)]
+    regs = {tk.mode_name(am, esm, mc, kind, st, True):
+            usage[(st, am, esm, mc, kind, True)]
+            for st in STATE_DIMS for am, esm, mc, kind in tk.INSTANTIATIONS}
+    return {
+        "name": "lk_fused_chain+blur (K4b, blurred taps)",
+        "route": "cuda", "source": SOURCE, "replaces": K4B_REPLACES,
+        "launches": sum(launches.values()), "launches_by_mode": launches,
+        "max_abs_err": max(r["err_v"] for rows in rows_b.values()
+                           for r in rows.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"ssd: B={B}, window {CROP}x{CROP}, N=625, linear taps, "
+                 "blur 2, S=8; by_case: S 8 and 6, blur 2 and 3 at N=625, "
+                 "4 at N=169, every mode and kind",
+        "registers": {k: v[0] for k, v in regs.items()},
+        "spill_stores": max(v[1] for v in regs.values()),
+        "spill_loads": max(v[2] for v in regs.values()),
+        "by_case": {f"s{st} blur{bl} {m} N={n}": _sub(r)
+                    for (st, bl), rows in rows_b.items()
+                    for (m, n, _), r in rows.items()},
+    }
+
+
+def _gn_entry(tk, rows_gn, launches, usage_gn, oracle):
+    """The kernels-line entry of K6: S = 8 linear without a crop as the
+    headline (B = 1280, N = 2500, 176-px windows), every (S, kind, crop)
+    under `by_case`, and the K1-vs-K6 oracle's errors; `launches` are the
+    kernel phase's (no tracker path runs K6)."""
+    head = rows_gn[(8, "linear", None)]
+    return {
+        "name": "lk_fused_gn_t (K6)",
+        "route": "cuda", "source": GN_SOURCE, "replaces": GN_REPLACES,
+        "launches": launches,
+        "max_abs_err": max(r["err_v"] for r in rows_gn.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"B={B}, N=2500, {CROP + 32}x{CROP + 32} windows, S=8, "
+                 f"linear taps, no crop; by_case: every S and kind, crop "
+                 f"None and {CROP}",
+        "registers": {tk.gn_mode_name(*k): v[0] for k, v in usage_gn.items()},
+        "spill_stores": max(v[1] for v in usage_gn.values()),
+        "spill_loads": max(v[2] for v in usage_gn.values()),
+        "by_case": {f"{tk.gn_mode_name(st, kind)} crop={crop}": _sub(r)
+                    for (st, kind, crop), r in rows_gn.items()},
+        "oracle_k1_vs_k6": {f"{key} N={n}": e
+                            for (key, n), e in oracle.items()},
+    }
+
+
+def _subgrid_entry(tk, rows_sub, launches, usage):
+    """The kernels-line entry of ssd:s2 at the sub-tracker grid's shapes:
+    the full-resolution row (N = 64) as the headline, both point counts
+    under `by_n`; `launches` are the sub-grid fleet's own (the `ssd:s2`
+    entry of `lk_fused_chain:s2` counts the other paths)."""
+    head = rows_sub[64]
+    regs, sst, sld = usage[(2, "ssd", False, False, "linear", False)]
+    return {
+        "name": "lk_fused_chain[ssd:s2] sub-grid (K1 at S = 2, the "
+                "sub-trackers' shapes)",
+        "route": "cuda", "source": SOURCE,
+        "replaces": f"{REPLACES} (n_s = gens.shape[0], :519)",
+        "launches": launches,
+        "max_abs_err": max(r["err_v"] for r in rows_sub.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"B={head['b']} sub-trackers, window {SUBGRID_CROP}x"
+                 f"{SUBGRID_CROP}, N=64 (by_n: 16 in the stride-2 phase), "
+                 "linear taps, S=2",
+        "registers": regs, "spill_stores": sst, "spill_loads": sld,
+        "by_n": {str(n): _sub(r) for n, r in sorted(rows_sub.items())},
+    }
+
+
+def _rule_summary(row_sets):
+    """RAW_REL's rounding floor over every kernel-phase row: the rows and
+    trackers only it passed, the most epsilons of the scale they needed
+    (ROUND_K is the limit), and the planted faults: on how many rows each
+    was run and rejected, and how many of the floor's trackers it failed."""
+    used = [r for rs in row_sets for r in rs.values() if "planted" in r]
+    faults = {f: {"rows": sum(f in r["planted"] for r in used),
+                  "rows_rejected": sum(r["planted"][f]["rejected"]
+                                       for r in used),
+                  "floor_trackers": sum(r["planted"][f]["floor_trackers"]
+                                        for r in used),
+                  "floor_trackers_rejected": sum(
+                      r["planted"][f]["floor_trackers_rejected"]
+                      for r in used)} for f in PLANTED_FAULTS}
+    out = {"round_k": ROUND_K, "rows_by_floor": len(used),
+           "trackers_by_floor": sum(r["n_by_floor"] for r in used),
+           "max_epsilons_needed": max((r["floor_factor"] for r in used),
+                                      default=None),
+           "planted_faults": faults}
+    print(f"raw-sum rule: the rounding floor passed "
+          f"{out['trackers_by_floor']} trackers on {len(used)} rows, "
+          f"needing at most {out['max_epsilons_needed']} epsilons of the "
+          f"scale (ROUND_K {ROUND_K}); planted faults: " + ", ".join(
+              f"{f} rejected on {v['rows_rejected']} of {v['rows']} rows, on "
+              f"{v['floor_trackers_rejected']} of the floor's "
+              f"{v['floor_trackers']} trackers" for f, v in faults.items()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -845,6 +1522,7 @@ def main() -> int:
     from mtf_tpu_torch.ops.kernels import _build
     from mtf_tpu_torch.ops.kernels import grid_flow as gf
     from mtf_tpu_torch.ops.kernels import lk_fused as tk
+    from mtf_tpu_torch.ssm import get_ssm
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -859,20 +1537,42 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.load_all(["lk_fused_chain", "grid_flow"])
+    specs = [("lk_fused_chain", {"LK_S": st}) for st in STATE_DIMS] \
+        + ["lk_fused_gn", "grid_flow"]
+    libs = _build.load_all(specs)
     build_s = time.perf_counter() - t0
-    built = libs["lk_fused_chain"]
     print("build: " + ", ".join(f"{k} nvcc {v.seconds:.2f} s"
                                 for k, v in libs.items())
           + f" (side by side, {build_s:.2f} s in all)")
-    usage = _ptxas_usage(built.log)
-    for am, esm, mc, kind in tk.INSTANTIATIONS:
-        label = _label(am, esm, mc, kind)
-        _check((am, esm, mc, kind) in usage,
-               f"ptxas reported no {label} {kind} instantiation")
-        regs, st, ld = usage[(am, esm, mc, kind)]
-        print(f"ptxas: {label} {tk.mode_name(am, esm, mc, kind)}: {regs} "
-              f"registers, spill stores {st} B, spill loads {ld} B")
+    usage, spilled = {}, []
+    for st in STATE_DIMS:
+        got = _ptxas_usage(libs[_build.lib_key("lk_fused_chain",
+                                               {"LK_S": st})].log)
+        for am, esm, mc, kind in tk.INSTANTIATIONS:
+            for blurred in (False, True):
+                key = (am, esm, mc, kind, blurred)
+                mode = tk.mode_name(am, esm, mc, kind, st, blurred)
+                _check(key in got, f"ptxas reported no {mode} instantiation")
+                regs, sst, sld = got[key]
+                usage[(st,) + key] = got[key]
+                label = _label(am, esm, mc, kind, 2 if blurred else 0)
+                print(f"ptxas: {label} {mode}: {regs} registers, spill "
+                      f"stores {sst} B, spill loads {sld} B")
+                if sst or sld:
+                    spilled.append(mode)
+                if st == 8 and not blurred:
+                    want = REGS_S8[(am, esm, mc)][KINDS.index(kind)]
+                    _check(regs == want, f"{mode}: {regs} registers, "
+                           f"{want} expected (REGS_S8)")
+    _check(not spilled, f"chain kernel instantiations spill: {spilled}")
+    usage_gn = _ptxas_gn(libs["lk_fused_gn"].log)
+    _check(sorted(usage_gn) == sorted(tk.GN_INSTANTIATIONS),
+           f"ptxas reported K6 instantiations {sorted(usage_gn)}")
+    for (st, kind), (regs, sst, sld) in sorted(usage_gn.items()):
+        print(f"ptxas: K6 {tk.gn_mode_name(st, kind)}: {regs} registers, "
+              f"spill stores {sst} B, spill loads {sld} B")
+        _check(sst == 0 and sld == 0, f"K6 {tk.gn_mode_name(st, kind)} "
+               f"spills")
     usage_k5 = _ptxas_k5(libs["grid_flow"].log)
     _check(sorted(usage_k5) == sorted(gf.INSTANTIATIONS),
            f"ptxas reported grid-flow instantiations {sorted(usage_k5)}")
@@ -893,8 +1593,30 @@ def main() -> int:
     frames = {1: frame_d, 3: frame3_d, 2: frame3_d[..., :2].contiguous(),
               4: torch.cat([frame3_d, frame_d[..., None]], -1)}
     rows = _kernel_phase(torch, tk, frames, card, dev)
+    # slice 6: every instantiation at the other state sizes, at N = 2500
+    rows_s = {st: _kernel_phase(torch, tk, frames, card, dev, s=st,
+                                specs=[sp for sp in _kernel_specs()
+                                       if sp[2] in (1, 3)],
+                                n_points=N_POINTS[-1:], reps=20,
+                                plain_reps=3) for st in NEW_S}
+    # K4b: the blurred taps in every mode and kind at S = 8 and 6
+    _zero_counts(tk, gf)
+    rows_b = {}
+    for st in K4B_S:
+        for blur, n in K4B_CASES:
+            rows_b[(st, blur)] = _kernel_phase(
+                torch, tk, frames, card, dev, s=st, blur=blur,
+                specs=[sp for sp in _kernel_specs() if sp[2] in (1, 3)],
+                n_points=(n,), reps=10, plain_reps=2)
+    launches_b = {k: v for k, v in tk.lk_fused_chain_raw.launches.items()
+                  if "+blur" in k}
     del frames
+    gn0 = dict(tk.lk_fused_gn_t.launches)
+    rows_gn = _gn_phase(torch, tk, frame_d, card, dev)
+    oracle = _oracle_phase(torch, tk, dev)
+    launches_gn = sum(tk.lk_fused_gn_t.launches.values()) - sum(gn0.values())
     corners_rk = _corners(B_RKLT)
+    rows_sub = _subgrid_phase(torch, tk, frame_d, card, dev)
     rows_k5 = {kind: _k5_phase(torch, gf, corners_rk, frame_d, card, dev,
                                f"{kind}_mm") for kind in KINDS}
     row_k5_mf = _k5_mf_phase(torch, gf, corners_rk, frame_d, card, dev)
@@ -1030,13 +1752,48 @@ def main() -> int:
         del sm, frames
         torch.cuda.empty_cache()
 
+    # -- slice 6: the matrix SSMs on the chain kernel, the sub-tracker grid --
+    ssm_fleets = {}
+    launches_s = {st: {} for st in STATE_DIMS}
+    for name, (key, am, ssm, b, cfg, expect, timed) in ssm_family().items():
+        crn = {B: corners, B_SLICE2: corners2, B_RKLT: corners_rk}[b]
+        label = f"{name} ({key}/{am}/{ssm})"
+        sm, fps, got = _fleet(torch, key, am, b, card, crn, frame_d, dev, tk,
+                              gf, expect, windows=WINDOWS if timed else 0,
+                              cfg=cfg, label=label, ssm=ssm)
+        for k, v in got.items():
+            if ":s" in k and name != "subgrid":
+                st = int(k.split(":s")[1][0])
+                launches_s[st][k] = launches_s[st].get(k, 0) + v
+        reading = SSM_FAMILY_GT_READING_PX[name]
+        gt, frames = _gt_leg(sm, frame0, crn, gt_limit(reading), label)
+        plain = _plain_path_check(sm, key, am, frames, crn, label, cfg=cfg,
+                                  ssm=ssm,
+                                  boundary=PLAIN_PATH_BOUNDARY.get(name))
+        ssm_fleets[name] = {"B": b, "fps": fps, "gt_px": gt,
+                            "gt_limit_px": gt_limit(reading),
+                            "jax_cpu_reading_px": reading,
+                            "plain_path_px": plain, "launches": got}
+        del sm, frames
+        torch.cuda.empty_cache()
+    for key in OTHER_SSM_KEYS:
+        dof = get_ssm(key, device=dev).dof
+        mode = tk.mode_name("ssd", False, False, "linear", dof)
+        _, _, got = _fleet(torch, "fclk", "ssd", B, card, corners, frame_d,
+                           dev, tk, gf, {mode: MAX_ITERS}, windows=0,
+                           label=f"fclk/ssd/{key}", ssm=key)
+        if dof != 8:
+            launches_s[dof][mode] = launches_s[dof].get(mode, 0) + got[mode]
+        ssm_fleets[f"fclk_ssd_{key}"] = {"B": B, "launches": got}
+    torch.cuda.empty_cache()
+
     kernels = []
     for am, esm, mc, kind in tk.INSTANTIATIONS:
         label = _label(am, esm, mc, kind)
         mode = tk.mode_name(am, esm, mc, kind)
         c = 3 if mc else 1
         row = rows[(mode, N_POINTS[-1], c)]
-        regs, st, ld = usage[(am, esm, mc, kind)]
+        regs, st, ld = usage[(8, am, esm, mc, kind, False)]
         keys = ("ms", "plain_ms", "bound_ms", "err_v", "err_raw") + (
             ("err_g", "err_h") if am == "ncc" else ())
         entry = {
@@ -1067,10 +1824,19 @@ def main() -> int:
                 str(cc): {k: rows[(mode, n, cc)][k] for k in keys}
                 for cc in MC_CHANNELS for n in (N_POINTS[-1],)}
         kernels.append(entry)
+    for st in NEW_S:
+        kernels.append(_chain_s_entry(tk, rows_s[st], st, launches_s[st],
+                                      usage))
+    kernels.append(_subgrid_entry(tk, rows_sub, ssm_fleets["subgrid"]
+                                  ["launches"]["ssd:s2"], usage))
+    kernels.append(_k4b_entry(tk, rows_b, launches_b, usage))
+    kernels.append(_gn_entry(tk, rows_gn, launches_gn, usage_gn, oracle))
     for kind in KINDS:
         kernels.append(_k5_entry(rows_k5[kind], kind, k5_launches[kind],
                                  usage_k5,
                                  row_k5_mf if kind == "linear" else None))
+    rule = _rule_summary([rows, rows_sub, rows_gn] + list(rows_s.values())
+                         + list(rows_b.values()))
     print(json.dumps({
         "kernels": kernels,
         "fleets": {"fclk_ssd": {"B": B, "fps": fps1, "gt_px": gt1},
@@ -1092,7 +1858,8 @@ def main() -> int:
                                   "launches": launches_fclm},
                    "fclk_ssd_cubic": cubic["cubic"],
                    "fclk_ssd_cubic_bspl": cubic["cubic_bspl"],
-                   **family},
+                   **family, **ssm_fleets},
+        "raw_sum_rule": rule,
         "build_s": {k: v.seconds for k, v in libs.items()},
         "wall_s": time.perf_counter() - t_start,
         "card": card}))

@@ -1,8 +1,9 @@
 """Carry tracker state between the JAX package and the port.
 
 `to_torch` takes the JAX package's FCLK, ESM, grid (any flow, Median
-Flow included), RKLT, cascade, parallel or pyramidal tracker state (SSD
-or NCC; composites nested in composites too) as a pytree of numpy arrays
+Flow included), sub-tracker grid, RKLT, cascade, parallel or pyramidal
+tracker state (SSD or NCC, any matrix SSM; composites nested in
+composites too) as a pytree of numpy arrays
 (for example `jax.tree.map(np.asarray, state)` or a loaded checkpoint)
 for one tracker or a vmapped batch, and returns the port's batched state
 on a device (None: the card). `to_numpy` goes back: it returns the port's
@@ -24,7 +25,11 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   inlier_mask (P,) -> batched. The JAX `key` has no counterpart: the
   port's update counter `step` (a 0-d int64 CPU tensor) starts at 0, and
   `to_numpy` returns it as `step`, so a caller rebuilding the JAX state
-  supplies a key. `prev_frame` (H, W[, C]), held by f2f and
+  supplies a key. Sub-tracker grid extra (`SubGridState`): sub_states,
+  the P sub-trackers' states with a leading P (B, P batched) -> one flat
+  batch of B·P (tracker-major), centers0 (P, 2), half_img (),
+  inlier_mask (P,) -> batched; its `key` becomes `step` as the grid's
+  does. `prev_frame` (H, W[, C]), held by f2f and
   forward-backward grids: a vmapped JAX state holds B copies of the one
   shared frame; `to_torch` checks that they are equal and keeps one,
   `to_numpy` gives the B copies back as a broadcast view;
@@ -34,9 +39,10 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   (fused corners (4, 2),), CascadeSM and PyramidalSM () -> batched. A
   JAX RKLT or parallel state straight from `initialize` has no corners
   in `extra` yet: the port fills them (RKLT: the refiner's; parallel:
-  the mean of the members'). Which composite a state belongs to is read
-  from `sm`, the port's tracker; without it a composite is taken for
-  RKLT.
+  the mean of the members'), each through its member's SSM. Which
+  composite a state belongs to is read from `sm`, the port's tracker;
+  without it a composite is taken for RKLT, and its corners are filled
+  only for an 8-DOF refiner, taken for the homography.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from mtf_tpu_torch.am.base import AMState
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
                                         ParallelSM, PyramidalSM)
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
-from mtf_tpu_torch.sm.grid import GridState
+from mtf_tpu_torch.sm.grid import GridState, SubGridState
 from mtf_tpu_torch.sm.lk import LKCache
 from mtf_tpu_torch.ssm.projective import Homography
 
@@ -98,7 +104,20 @@ def to_torch(jstate, device=None, sm=None):
         a = np.asarray(x, np.float32)
         return torch.tensor(a[None] if single else a, device=device)
 
-    def extra_of(ex):
+    def flat(x):
+        # a sub-tracker leaf (P, ...) or (B, P, ...) -> (B·P, ...)
+        a = np.asarray(x, np.float32)
+        if not single:
+            a = a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
+        return torch.tensor(a, device=device)
+
+    def extra_of(ex, f=t):
+        if hasattr(ex, "sub_states"):
+            return SubGridState(
+                sub_states=tracker(ex.sub_states, flat),
+                centers0=t(ex.centers0), half_img=t(ex.half_img),
+                step=torch.zeros((), dtype=torch.int64),
+                inlier_mask=t(ex.inlier_mask))
         if hasattr(ex, "templates"):
             prev = None
             if ex.prev_frame is not None:
@@ -108,20 +127,20 @@ def to_torch(jstate, device=None, sm=None):
                              centers0=t(ex.centers0),
                              step=torch.zeros((), dtype=torch.int64),
                              inlier_mask=t(ex.inlier_mask), prev_frame=prev)
-        return LKCache(J0=t(ex.J0), H0=t(ex.H0),
-                       coarse=tuple(tuple(t(x) for x in pack)
+        return LKCache(J0=f(ex.J0), H0=f(ex.H0),
+                       coarse=tuple(tuple(f(x) for x in pack)
                                     for pack in ex.coarse))
 
-    def tracker(js):
+    def tracker(js, f=t):
         am, rg = js.am_state, js.region
         return TrackerState(
-            ssm_state=t(js.ssm_state),
-            am_state=AMState(template=t(am.template), p_am=t(am.p_am),
-                             extra=tuple(t(x) for x in am.extra)),
-            region=RegionState(norm_mat=t(rg.norm_mat),
-                               base_pts=t(rg.base_pts),
-                               base_corners=t(rg.base_corners)),
-            extra=extra_of(js.extra))
+            ssm_state=f(js.ssm_state),
+            am_state=AMState(template=f(am.template), p_am=f(am.p_am),
+                             extra=tuple(f(x) for x in am.extra)),
+            region=RegionState(norm_mat=f(rg.norm_mat),
+                               base_pts=f(rg.base_pts),
+                               base_corners=f(rg.base_corners)),
+            extra=extra_of(js.extra, f))
 
     def convert(js, m):
         if not _is_composite(js):
@@ -135,8 +154,15 @@ def to_torch(jstate, device=None, sm=None):
             return CompositeState(members)
         if isinstance(m, ParallelSM):
             return CompositeState(members, extra=(m._fused(members),))
+        if isinstance(m, RKLT):
+            ssm = m.templ_sm.ssm
+        elif members[-1].ssm_state.shape[-1] == 8:
+            ssm = Homography(device=device)
+        else:
+            raise ValueError("to_torch: an RKLT state without corners needs "
+                             "sm=, the port's tracker, for its refiner's SSM")
         return CompositeState(members, extra=(image_corners(
-            Homography(device=device), members[-1]),))
+            ssm, members[-1]),))
 
     return convert(jstate, sm)
 
@@ -148,7 +174,18 @@ def to_numpy(state, squeeze: bool = False):
         a = x.detach().cpu().numpy()
         return a[0] if squeeze else a
 
-    def extra_of(ex):
+    def extra_of(ex, f=n):
+        if isinstance(ex, SubGridState):
+            b = ex.centers0.shape[0]
+
+            def unflat(x):
+                a = x.detach().cpu().numpy()
+                a = a.reshape((b, a.shape[0] // b) + a.shape[1:])
+                return a[0] if squeeze else a
+            return SubGridState(sub_states=tracker(ex.sub_states, unflat),
+                                centers0=n(ex.centers0),
+                                half_img=n(ex.half_img), step=ex.step.numpy(),
+                                inlier_mask=n(ex.inlier_mask))
         if isinstance(ex, GridState):
             prev = None
             if ex.prev_frame is not None:
@@ -159,22 +196,22 @@ def to_numpy(state, squeeze: bool = False):
             return GridState(templates=n(ex.templates), offsets=n(ex.offsets),
                              centers0=n(ex.centers0), step=ex.step.numpy(),
                              inlier_mask=n(ex.inlier_mask), prev_frame=prev)
-        return LKCache(J0=n(ex.J0), H0=n(ex.H0),
-                       coarse=tuple(tuple(n(x) for x in pack)
+        return LKCache(J0=f(ex.J0), H0=f(ex.H0),
+                       coarse=tuple(tuple(f(x) for x in pack)
                                     for pack in ex.coarse))
 
-    def tracker(st):
+    def tracker(st, f=n):
         if isinstance(st, CompositeState):
             return CompositeState(tuple(tracker(m) for m in st.members),
                                   extra=tuple(n(x) for x in st.extra))
         am, rg = st.am_state, st.region
         return TrackerState(
-            ssm_state=n(st.ssm_state),
-            am_state=AMState(template=n(am.template), p_am=n(am.p_am),
-                             extra=tuple(n(x) for x in am.extra)),
-            region=RegionState(norm_mat=n(rg.norm_mat),
-                               base_pts=n(rg.base_pts),
-                               base_corners=n(rg.base_corners)),
-            extra=extra_of(st.extra))
+            ssm_state=f(st.ssm_state),
+            am_state=AMState(template=f(am.template), p_am=f(am.p_am),
+                             extra=tuple(f(x) for x in am.extra)),
+            region=RegionState(norm_mat=f(rg.norm_mat),
+                               base_pts=f(rg.base_pts),
+                               base_corners=f(rg.base_corners)),
+            extra=extra_of(st.extra, f))
 
     return tracker(state)

@@ -1,7 +1,8 @@
-// Dense-convention cubic tap weights, shared by the chain kernel
-// (lk_fused_chain.cu, K1c) and the grid-flow kernel (grid_flow.cu, K5c), so
-// both weigh their 4x4 taps exactly as the plain forms do
-// (ops/kernels/dense_sample.py:_weights_dense, ops/interp.py:_cubic_axis).
+// Dense-convention tap weights and samples, shared by the chain kernel
+// (lk_fused_chain.cu, K1c), K6 (lk_fused_gn.cu) and the grid-flow kernel
+// (grid_flow.cu, K5c), so all weigh and sum their taps exactly as the plain
+// forms do (ops/kernels/dense_sample.py:_weights_dense,
+// ops/interp.py:_cubic_axis); the chain kernel spells the cubic sum out.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +47,47 @@ __device__ __forceinline__ void cubic_axis(float x, float (&w)[4],
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     cubic_tap<kKind>((f + (float)(j - 1)) - x, w[j], d[j]);
+}
+
+// The linear dense sample at a clamped point whose 2x2 taps start at t
+// (row stride `stride`), fx, fy its fractional parts: the value and its x
+// and y derivatives, each 0 along an axis where the point sits exactly on
+// an integer (the dense form's phi'(0) = 0).
+__device__ __forceinline__ void linear_sample(const float* t, int stride,
+                                              float fx, float fy, float& v,
+                                              float& dx, float& dy) {
+  const float v00 = t[0], v01 = t[1], v10 = t[stride], v11 = t[stride + 1];
+  const float top = v00 * (1.0f - fx) + v01 * fx;
+  const float bot = v10 * (1.0f - fx) + v11 * fx;
+  v = top * (1.0f - fy) + bot * fy;
+  dx = fx > 0.0f ? (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy : 0.0f;
+  dy = fy > 0.0f ? bot - top : 0.0f;
+}
+
+// The cubic dense sample from the 4x4 taps starting at t (row stride
+// `stride`) with `cubic_axis` weights: each row summed first, as the dense
+// contractions do.
+__device__ __forceinline__ void cubic_sample(const float* t, int stride,
+                                             const float (&wx)[4],
+                                             const float (&dwx)[4],
+                                             const float (&wy)[4],
+                                             const float (&dwy)[4], float& v,
+                                             float& dx, float& dy) {
+  v = dx = dy = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* row = t + r * stride;
+    float rs = 0.0f, rd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float pix = row[j];
+      rs += wx[j] * pix;
+      rd += dwx[j] * pix;
+    }
+    v += wy[r] * rs;
+    dx += wy[r] * rd;
+    dy += dwy[r] * rs;
+  }
 }
 
 }  // namespace dense_taps

@@ -13,9 +13,18 @@
     create_tracker("casc", "ssd", "8", members=[("grid", "ssd", "8"),
                                                ("fclk", "ssd", "8")], ...)
     create_tracker("pyr", "ssd", "8", pyr_sm="fclk", pyr_n_levels=3, ...)
+    create_tracker("fclk", "ssd", "6", ...)       # any SSM key, e.g. affine
+    create_tracker("grid", "ssd", "8", grid_sm="fclk", crop=32, ...)
 
-The LK keys take `interp` "linear_mm", "cubic_mm" (Catmull-Rom) or
-"cubic_bspl_mm" (cubic B-spline); the grid keys take those and the
+Every SSM key of the JAX package's `SSM_REGISTRY` is ported (2-8 DOF:
+translation to homography, the Lie SSMs, SL3 and CBH); the LK keys run
+the chain kernel at S = the SSM's DOF. `grid_sm` other than "flow" /
+"cv" builds a `SubTrackerGrid` of `grid_sm` sub-trackers on `grid_am`
+(default "ssd") and `grid_ssm` (default "2") at `grid_patch_res`
+(default 8), which take the configuration's other options, its `crop`
+too (the port's LK needs one). The LK keys take `interp` "linear_mm",
+"cubic_mm" (Catmull-Rom) or "cubic_bspl_mm" (cubic B-spline); the grid
+keys take those and the
 gather kinds "linear", "cubic" and "cubic_bspl", on (H, W) or (H, W, C)
 frames. The AM keys "mcssd" and "ssd3" are SSD over (H, W, 3) frames
 (FCLK and its LM variant fclm only, as in the JAX package's fused path).
@@ -35,7 +44,7 @@ from mtf_tpu_torch.am import AMParams, get_am
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
                                         PyramidalSM, RKLTParams)
 from mtf_tpu_torch.sm.core import SMParams
-from mtf_tpu_torch.sm.grid import GridParams, GridTracker
+from mtf_tpu_torch.sm.grid import GridParams, GridTracker, SubTrackerGrid
 from mtf_tpu_torch.sm.lk import LM_KEYS, SM_LK_REGISTRY
 from mtf_tpu_torch.ssm import get_ssm
 
@@ -47,6 +56,7 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "grid_coarse_stride", "grid_estimator", "grid_n_hyps",
               "grid_inlier_thresh", "grid_fb_err", "grid_patch_scale",
               "grid_zncc", "grid_pyramid_levels", "grid_flow", "grid_sm",
+              "grid_am", "grid_ssm",
               "seed", "rklt_failure_thresh", "rklt_feedback", "enable_spi",
               # composites
               "members", "casc_reinit_thresh", "pyr_sm", "pyr_n_levels",
@@ -68,8 +78,8 @@ _PORTED_SM = (set(SM_LK_REGISTRY) | set(GRID_KEYS) | RKLT_KEYS | MF_KEYS
 # the rest of slice 3
 _SLICE_OF_SM = {
     "iclk": "1b", "ic": "1b", "iclm": "1b", "aesm": "1, slice 4",
-    "hrch": "1c (low-DOF SSMs: Queue 1, slice 4)",
-    "hesm": "1c (low-DOF SSMs: Queue 1, slice 4)",
+    "hrch": "1c (unblocked: its low-DOF SSMs are ported)",
+    "hesm": "1c (unblocked: its low-DOF SSMs are ported)",
     "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
     "gric": "1c (ICLK: Queue 1b)", "pfrk": "1c (PF: Queue 1, slice 5)",
     "nnrk": "1c (NN: Queue 1, slice 5)", "pfic": "1c (PF: Queue 1, slice 5)",
@@ -151,8 +161,7 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     if unknown:
         raise NotImplementedError(
             f"options {unknown} are not ported yet: the LK options beyond "
-            "slices 1 and 2 come with ROADMAP Queue 1b and Queue 1, "
-            "slice 4")
+            "slices 1 and 2 come with ROADMAP Queue 1b")
 
     # a composite's members take its options, but not its own member
     # list or pyramid SM (a member of the same kind would recurse)
@@ -209,14 +218,21 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         return GridTracker(make_am(), make_ssm(), prm, gp)
     if sm_key in GRID_KEYS:
         # grid_sm selects the per-patch tracker: "flow" / "cv" are the
-        # batched flow grid ("cv" pyramidal over 3 levels by default)
+        # batched flow grid ("cv" pyramidal over 3 levels by default),
+        # any other SM key a grid of such sub-trackers
         grid_sm = str(cfg.get("grid_sm", "flow")).lower()
-        if grid_sm not in ("flow", "cv"):
-            raise NotImplementedError(
-                f"grid_sm {grid_sm!r} (a grid of sub-trackers) is not "
-                "ported yet: it comes with ROADMAP Queue 1c (its default "
-                "grid_ssm '2' needs the low-DOF SSMs of Queue 1, slice 4)")
         gp = _grid_params(cfg, GRID_KEYS[sm_key])
+        if grid_sm not in ("flow", "cv"):
+            if not cfg.get("crop"):
+                raise ValueError(
+                    f"grid_sm {grid_sm!r}: the sub-trackers need a crop "
+                    "window (the port's LK samples from one); pass crop=")
+            patch_cfg = {k: v for k, v in cfg.items() if k != "grid_sm"}
+            patch_cfg["resx"] = patch_cfg["resy"] = gp.patch_res
+            sub_sm = create_tracker(grid_sm, str(cfg.get("grid_am", "ssd")),
+                                    str(cfg.get("grid_ssm", "2")), ilm,
+                                    device=device, **patch_cfg)
+            return SubTrackerGrid(sub_sm, make_ssm(), prm, gp)
         if grid_sm == "cv":
             gp = replace(gp, pyramid_levels=int(
                 cfg.get("grid_pyramid_levels", 3)))

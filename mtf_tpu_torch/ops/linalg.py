@@ -60,3 +60,21 @@ def inv3x3(M: torch.Tensor) -> torch.Tensor:
             [C, -(a * h - b * g), a * e - b * d]]
     return torch.stack([torch.stack([v * inv_det for v in r], dim=-1)
                         for r in rows], dim=-2)
+
+
+def lstsq_normal(A: torch.Tensor, b: torch.Tensor,
+                 jitter: float = 1e-10) -> torch.Tensor:
+    """Least squares min ‖A x - b‖ for A (..., M, K), b (..., M) or
+    (..., M, J), by the normal equations with a trace-scaled jitter and
+    the clamped Cholesky (the JAX package's DLT solver; K <= ~8)."""
+    At = A.transpose(-1, -2)
+    AtA = At @ A
+    vec = b.dim() == A.dim() - 1
+    Atb = At @ (b[..., None] if vec else b)
+    k = AtA.shape[-1]
+    scale = torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1) / k
+    AtA = AtA + (jitter * scale)[..., None, None] * torch.eye(
+        k, dtype=A.dtype, device=A.device)
+    x = torch.stack([chol_solve_small(AtA, Atb[..., j])
+                     for j in range(Atb.shape[-1])], dim=-1)
+    return x[..., 0] if vec else x

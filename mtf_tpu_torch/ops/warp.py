@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from mtf_tpu_torch.ops.linalg import chol_solve_small, inv3x3
+from mtf_tpu_torch.ops.linalg import chol_solve_small, inv3x3, lstsq_normal
 
 
 def homogenize(pts: torch.Tensor) -> torch.Tensor:
@@ -92,6 +92,43 @@ def homography_dlt(src: torch.Tensor, dst: torch.Tensor,
     Wn = h.reshape(h.shape[:-1] + (3, 3))
     W = inv3x3(Td) @ Wn @ Ts
     return W / W[..., 2:3, 2:3]
+
+
+def affine_dlt(src: torch.Tensor, dst: torch.Tensor,
+               weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Least-squares affine warp (..., 3, 3), last row [0, 0, 1], with
+    dst ~ W @ src for (..., N, 2) correspondences and optional per-point
+    weights (..., N) (rows scaled by sqrt(max(w, 0)))."""
+    A = homogenize(src)                                      # (..., N, 3)
+    b = dst
+    if weights is not None:
+        wsq = torch.sqrt(torch.clamp(weights, min=0.0))[..., None]
+        A, b = A * wsq, b * wsq
+    sol = lstsq_normal(A, b)                                 # (..., 3, 2)
+    W = _eye3_like(src[..., :3, :])
+    W[..., :2, :] = sol.transpose(-1, -2)
+    return W
+
+
+def similitude_dlt(src: torch.Tensor, dst: torch.Tensor,
+                   weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Least-squares similitude [[a, -b, tx], [b, a, ty], [0, 0, 1]] for
+    (..., N, 2) correspondences and optional weights (..., N)."""
+    x, y = src[..., 0], src[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    A = torch.cat([torch.stack([x, -y, o, z], dim=-1),
+                   torch.stack([y, x, z, o], dim=-1)], dim=-2)  # (..., 2N, 4)
+    b = torch.cat([dst[..., 0], dst[..., 1]], dim=-1)
+    if weights is not None:
+        wsq = torch.sqrt(torch.clamp(weights, min=0.0))
+        wsq2 = torch.cat([wsq, wsq], dim=-1)
+        A, b = A * wsq2[..., None], b * wsq2
+    a, bb, tx, ty = lstsq_normal(A, b).unbind(-1)
+    W = _eye3_like(src[..., :3, :])
+    W[..., 0, 0], W[..., 0, 1], W[..., 0, 2] = a, -bb, tx
+    W[..., 1, 0], W[..., 1, 1], W[..., 1, 2] = bb, a, ty
+    return W
 
 
 def homography_from_unit_square(corners: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Grid tracker (port of `mtf_tpu/sm/grid.py:GridTracker`): a lattice of
-P small patches, each tracked by a 2-DOF LK flow, fused by a robust warp
-fit.
+"""Grid trackers (port of `mtf_tpu/sm/grid.py`): `GridTracker`, a
+lattice of P small patches, each tracked by a 2-DOF LK flow, fused by a
+robust warp fit of any matrix SSM; and `SubTrackerGrid`, a lattice of P
+whole sub-trackers (any ported SM, AM and SSM) fused the same way.
 
 Per update and for B trackers at once: the patches are placed by the
 flow geometry (`warped`: every point rides the current warp against the
@@ -29,6 +30,11 @@ Each pyramid level is one call for all trackers and patches:
     package's per-patch path (`_track_patches`) does; no TPU kernel
     stands behind it.
 
+`SubTrackerGrid` runs its B·P sub-trackers as one flat batch of the
+sub-tracker's own batched update (tracker-major: sub-tracker b·P + p),
+takes the mean of each one's corners as its patch centre, fits the
+warp, and re-seats every sub-tracker on the fitted warp.
+
 The previous frame (f2f, forward-backward) is one (H, W[, C]) copy shared
 by the B trackers, owned by the state (a JAX fleet holds B copies). The
 hypothesis draw is a `torch.Generator` on the tracker's device, seeded
@@ -51,9 +57,8 @@ from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import ransac
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.kernels.grid_flow import grid_flow
-from mtf_tpu_torch.ops.linalg import solve2x2
-from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
-from mtf_tpu_torch.ssm.projective import Homography
+from mtf_tpu_torch.ops.linalg import inv3x3, solve2x2
+from mtf_tpu_torch.sm.core import SearchMethod, TrackerState, image_corners
 
 # the grid window's margin around the point cloud at the start of a level
 _GRID_MARGIN = 4.0
@@ -106,6 +111,26 @@ def _level_norm(norm_mat: torch.Tensor, lvl: int) -> torch.Tensor:
     return d[:, None] * norm_mat
 
 
+def _hyp_draw(g: GridParams, ssm, step: int, n_pts: int) -> torch.Tensor:
+    """An update's (n_hyps, sample) index draw, shared by the trackers; a
+    function of (seed, step) only, on the SSM's device."""
+    gen = torch.Generator(device=ssm.generators.device)
+    gen.manual_seed(((g.seed & 0x7FFFFFFF) << 32) + step)
+    return ransac.hyp_indices(gen, g.n_hyps, n_pts,
+                              ransac.min_sample_size(ssm))
+
+
+def _patch_centres(g: GridParams, base_corners: torch.Tensor) -> torch.Tensor:
+    """(B, P, 2) template-frame patch centres: a uniform grid strictly
+    inside the unit square, mapped through each region's base corners."""
+    r = torch.linspace(-0.5, 0.5, g.grid_res + 2, dtype=base_corners.dtype,
+                       device=base_corners.device)[1:-1]
+    cy, cx = torch.meshgrid(r, r, indexing="ij")
+    c_unit = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
+    H = W.homography_from_unit_square(base_corners)
+    return W.apply_warp(H, c_unit.expand(base_corners.shape[0], -1, -1))
+
+
 class GridTracker(SearchMethod):
     """`SearchMethod` over B trackers; `am` is unused (the patch distance
     is SSD, on standardised patches with `zncc`)."""
@@ -118,17 +143,10 @@ class GridTracker(SearchMethod):
         if g.flow not in FLOWS:
             raise ValueError(f"GridParams.flow must be one of {FLOWS}, got "
                              f"{g.flow!r}")
-        queue = {
-            "border 'replicate'": (prm.border == "replicate",
-                                   "Queue 1, slice 8"),
-            "ssm '8'": (isinstance(ssm, Homography), "Queue 1, slice 4"),
-        }
-        missing = [(k, q) for k, (ok, q) in queue.items() if not ok]
-        if missing:
+        if prm.border != "replicate":
             raise NotImplementedError(
-                f"GridTracker is ported for {', '.join(queue)} only; this "
-                "configuration lacks "
-                + ", ".join(f"{k} (ROADMAP {q})" for k, q in missing))
+                "GridTracker is ported for border 'replicate' only; other "
+                "borders come with ROADMAP Queue 1, slice 8")
         sel = None
         if g.coarse_point_stride > 1:
             r = np.arange(0, g.patch_res, g.coarse_point_stride)
@@ -258,14 +276,7 @@ class GridTracker(SearchMethod):
         region = state.region
         b = region.norm_mat.shape[0]
         dev, dt = frame.device, frame.dtype
-        # patch centres: a uniform grid strictly inside the unit square,
-        # mapped through each region's base corners
-        r = torch.linspace(-0.5, 0.5, g.grid_res + 2, dtype=dt,
-                           device=dev)[1:-1]
-        cy, cx = torch.meshgrid(r, r, indexing="ij")
-        c_unit = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
-        H = W.homography_from_unit_square(region.base_corners)
-        centers0 = W.apply_warp(H, c_unit.expand(b, -1, -1))  # (B, P, 2)
+        centers0 = _patch_centres(g, region.base_corners)
         half = g.patch_scale / (g.grid_res + 1)
         o = torch.linspace(-half, half, g.patch_res, dtype=dt, device=dev)
         oy, ox = torch.meshgrid(o, o, indexing="ij")
@@ -280,12 +291,7 @@ class GridTracker(SearchMethod):
             prev_frame=frame.clone() if self.keeps_prev_frame else None)
 
     def _hyp_indices(self, step: int, n_pts: int) -> torch.Tensor:
-        """This update's (n_hyps, sample) index draw, shared by the
-        trackers; a function of (seed, step) only."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(((self.grid.seed & 0x7FFFFFFF) << 32) + step)
-        return ransac.hyp_indices(gen, self.grid.n_hyps, n_pts,
-                                  ransac.min_sample_size(self.ssm))
+        return _hyp_draw(self.grid, self.ssm, step, n_pts)
 
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
@@ -352,3 +358,85 @@ class GridTracker(SearchMethod):
             self.ssm, centers0, centers_new, idx, method=g.estimator,
             inlier_thresh=g.inlier_thresh_px / region.norm_mat[:, 0, 0],
             weights=weights)
+
+
+class SubGridState(NamedTuple):
+    """SubTrackerGrid-specific state of B trackers of P sub-trackers."""
+    sub_states: TrackerState   # the B·P sub-trackers' state, one flat
+                               # batch, tracker-major (b·P + p)
+    centers0: torch.Tensor     # (B, P, 2) template-frame patch centres
+    half_img: torch.Tensor     # (B,) patch half-size in image pixels
+    step: torch.Tensor         # () int64 on the CPU: updates so far
+    inlier_mask: torch.Tensor  # (B, P) last fit's inlier weights
+
+
+class SubTrackerGrid(SearchMethod):
+    """Grid of whole sub-trackers fused by a robust warp fit (the
+    reference's general GridTracker: any `grid_sm` x `grid_am` x `grid_ssm`
+    per patch). The B·P sub-trackers are one batch of `sub`'s own update;
+    the fit's hypothesis draw is the grid's (`GridParams.seed`, the update
+    counter)."""
+
+    name = "grid_sub"
+
+    def __init__(self, sub: SearchMethod, ssm, prm=None,
+                 grid: GridParams | None = None):
+        super().__init__(sub.am, ssm, prm)
+        self.sub = sub
+        self.grid = grid or GridParams()
+
+    @staticmethod
+    def _patch_corners_img(norm_mat, centers_t, half_img):
+        """(B, P, 4, 2) image corner squares of half-size `half_img` (B,)
+        around the centres (B, P, 2)."""
+        c_img = W.apply_warp(norm_mat, centers_t)
+        offs = torch.tensor([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0],
+                             [-1.0, 1.0]], dtype=c_img.dtype,
+                            device=c_img.device)
+        return c_img[:, :, None, :] + half_img[:, None, None, None] * offs
+
+    def _init_extra(self, state: TrackerState, frame: torch.Tensor):
+        g = self.grid
+        region = state.region
+        centers0 = _patch_centres(g, region.base_corners)
+        b, P, _ = centers0.shape
+        half_img = g.patch_scale / (g.grid_res + 1) * region.norm_mat[:, 0, 0]
+        corners = self._patch_corners_img(region.norm_mat, centers0,
+                                          half_img)
+        return SubGridState(
+            sub_states=self.sub.initialize(frame,
+                                           corners.reshape(b * P, 4, 2)),
+            centers0=centers0, half_img=half_img,
+            step=torch.zeros((), dtype=torch.int64),
+            inlier_mask=torch.ones((b, P), dtype=frame.dtype,
+                                   device=frame.device))
+
+    def _hyp_indices(self, step: int, n_pts: int) -> torch.Tensor:
+        return _hyp_draw(self.grid, self.ssm, step, n_pts)
+
+    def _update(self, state: TrackerState,
+                frame: torch.Tensor) -> TrackerState:
+        g = self.grid
+        gs: SubGridState = state.extra
+        region = state.region
+        b, P, _ = gs.centers0.shape
+        sub_states = self.sub.update(gs.sub_states, frame)
+        # patch centres: the mean of each sub-tracker's corners, pulled
+        # back into the template frame for the fit
+        centers_img = image_corners(self.sub.ssm, sub_states).reshape(
+            b, P, 4, 2).mean(-2)
+        centers_t = W.apply_warp(inv3x3(region.norm_mat), centers_img)
+        idx = (self._hyp_indices(int(gs.step), P)
+               if g.estimator in ransac.SAMPLED else None)
+        new_ssm, inl = ransac.robust_fit(
+            self.ssm, gs.centers0, centers_t, idx, method=g.estimator,
+            inlier_thresh=g.inlier_thresh_px / region.norm_mat[:, 0, 0])
+        # re-seat every sub-tracker on the fitted warp (reset to the SSM,
+        # GridTracker.cc:294+), which stops them drifting apart
+        corners = self._patch_corners_img(
+            region.norm_mat, self.ssm.warp_pts(new_ssm, gs.centers0),
+            gs.half_img)
+        sub_states = self.sub.set_region(sub_states,
+                                         corners.reshape(b * P, 4, 2))
+        return state._replace(ssm_state=new_ssm, extra=gs._replace(
+            sub_states=sub_states, step=gs.step + 1, inlier_mask=inl))

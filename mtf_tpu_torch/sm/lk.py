@@ -2,16 +2,18 @@
 of `mtf_tpu/sm/lk.py`): forward compositional LK (`FCLK`) and ESM, each
 with optional Levenberg-Marquardt accept/reject (the `*lm` keys).
 
-Slices 1, 2 and 4: SSD or NCC appearance, 8-DOF homography, dense
-sampling with linear, Catmull-Rom or cubic B-spline taps
+SSD or NCC appearance, any matrix SSM of `ssm/projective.py` (the JAX
+package fuses every SSM that keeps the default matrix `warp_pts_from`,
+`mtf_tpu/sm/lk.py:326-330`; the chain kernel runs at S = the SSM's DOF),
+dense sampling with linear, Catmull-Rom or cubic B-spline taps
 (`interp="linear_mm"`, `"cubic_mm"`, `"cubic_bspl_mm"`) from a window of
 `crop` pixels hoisted out of the iteration loop, selft Hessian and
 optional coarse-to-fine point decimation (`coarse_pt_iters`). Every
 Gauss-Newton iteration is one call of the chain kernel (`lk_fused_chain`)
 for all B trackers, in the AM's mode (SSD, or NCC moments) and, for ESM,
 with the template Jacobian as its constant J0 operand (mean Jacobian
-½(J + J0)). The 3x3 warp algebra, the NCC combine, the 8x8 solve and the
-LM test stay in PyTorch.
+½(J + J0)). The 3x3 warp algebra, the NCC combine, the S x S solve and
+the LM test stay in PyTorch.
 
 Multi-channel frames (H, W, C), C 2-4 (the `mcssd` / `ssd3` keys), take
 the kernel's multi-channel SSD mode, as the JAX package's fused path
@@ -48,7 +50,6 @@ from mtf_tpu_torch.ops.kernels.lk_fused import (MAX_CHANNELS, lk_fused_chain,
                                                 ncc_combine, ncc_moments)
 from mtf_tpu_torch.ops.linalg import neg_def_solve
 from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
-from mtf_tpu_torch.ssm.projective import Homography
 
 # crop margin of the hoisted window: covers the motion within one update
 # and the widest binomial support of the coarse phases
@@ -117,7 +118,6 @@ class LKBase(SearchMethod):
         super().__init__(am, ssm, prm)
         need = {
             "am 'ssd' or 'ncc'": am.name in ("ssd", "ncc"),
-            "ssm '8'": isinstance(ssm, Homography),
             f"interp one of {DENSE_INTERPS}": prm.interp in DENSE_INTERPS,
             "border 'replicate'": prm.border == "replicate",
             "a crop window": prm.crop is not None,
@@ -131,7 +131,7 @@ class LKBase(SearchMethod):
                 f"{type(self).__name__} is ported for {', '.join(need)} "
                 f"only; this configuration lacks {', '.join(missing)}. The "
                 "other LK options come with ROADMAP Queue 1b (the rest of "
-                "slice 2) and Queue 1, slice 4")
+                "slice 2)")
         self._check_channels(am.prm.n_channels)
         self.kind = prm.interp[:-len(interp.MM_SUFFIX)]
         for i, (stride, _) in enumerate(prm.coarse_pt_iters):

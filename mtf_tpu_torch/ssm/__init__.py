@@ -8,6 +8,6 @@ def get_ssm(key: str, device=None) -> SSM:
     k = key.lower()
     if k not in SSM_REGISTRY:
         raise NotImplementedError(
-            f"SSM {key!r} is not ported yet: the remaining SSMs come with "
-            "ROADMAP Queue 1, slice 4")
+            f"SSM {key!r} is not ported yet: the spline and TPS SSMs come "
+            "with ROADMAP Queue 1, slice 4 (item 2)")
     return SSM_REGISTRY[k](device=device)

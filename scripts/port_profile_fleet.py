@@ -5,19 +5,21 @@ the card.
 
 Each argument triple (default: "fclk ssd 1280", "esm ncc 1024",
 "eslm ncc 1024", "rklt ssd 384", "fclk mcssd 512",
-"fclk@cubic_mm ssd 1280" and slice 5's "rklt_cubic ssd 384",
-"mf ssd 384", "grfc ssd 384", "prl ssd 1024" and "pyr ssd 1280") is one
-fleet in `chip_smoke.py`'s configuration for its key (`sm@interp` picks
-the taps; a name of `chip_smoke.grid_family` takes that fleet's key and
-configuration), on its scene (the 3-channel one for the multi-channel AM
-keys) and corners. Per fleet: 3 warm-up updates, the wall time of 20
-updates by the host clock (ending in a synchronize), then 5 updates under
-`torch.profiler` (CPU and CUDA): the device time of all kernels per
-update, the busy share (that time over the unprofiled update's wall
-time, and over the profiled one, which the profiler's own host cost
-inflates), the kernel launches per update, and the kernels that take
-most device time. Prints one JSON line per fleet, and the profiler table
-to standard error.
+"fclk@cubic_mm ssd 1280", slice 5's "rklt_cubic ssd 384",
+"mf ssd 384", "grfc ssd 384", "prl ssd 1024" and "pyr ssd 1280", and
+slice 6's "fclk/6 ssd 1280", "rklt/6 ssd 384" and "subgrid ssd 384") is
+one fleet in `chip_smoke.py`'s configuration for its key (`sm@interp`
+picks the taps, `sm/ssm` any SSM key, the homography "8" by default; a
+name of `chip_smoke.grid_family` or `chip_smoke.ssm_family` takes that
+fleet's key, SSM and configuration), on its scene (the 3-channel one for
+the multi-channel AM keys) and corners. Per fleet: 3 warm-up updates,
+the wall time of 20 updates by the host clock (ending in a synchronize),
+then 5 updates under `torch.profiler` (CPU and CUDA): the device time of
+all kernels per update, the busy share (that time over the unprofiled
+update's wall time, and over the profiled one, which the profiler's own
+host cost inflates), the kernel launches per update, and the kernels
+that take most device time. Prints one JSON line per fleet, and the
+profiler table to standard error.
 """
 import json
 import sys
@@ -39,14 +41,19 @@ TIMED = 20
 def profile(key: str, am: str, b: int, card: str) -> dict:
     dev = torch.device("cuda", 0)
     name = key
+    key, _, ssm = key.partition("/")
     key, _, interp = key.partition("@")
+    ssm = ssm or "8"
     cfg = cs.cfg_of(key, interp or "linear_mm")
     family = cs.grid_family()
     if key in family:
         key, _, _, cfg, _ = family[key]
+    ssm_family = cs.ssm_family()
+    if key in ssm_family:
+        key, _, ssm, _, cfg, _, _ = ssm_family[key]
     mc = am.startswith("mc") or am.endswith("3")
     frame = torch.as_tensor(cs._scene3(0) if mc else cs._scene(0), device=dev)
-    fleet = TrackerFleet(create_tracker(key, am, "8", device=dev, **cfg),
+    fleet = TrackerFleet(create_tracker(key, am, ssm, device=dev, **cfg),
                          donate=True)
     st = fleet.initialize(frame, cs._corners(b))
     for _ in range(3):
@@ -103,7 +110,8 @@ def main(argv) -> int:
                      ["fclk@cubic_mm", "ssd", "1280"],
                      ["rklt_cubic", "ssd", "384"], ["mf", "ssd", "384"],
                      ["grfc", "ssd", "384"], ["prl", "ssd", "1024"],
-                     ["pyr", "ssd", "1280"]])
+                     ["pyr", "ssd", "1280"], ["fclk/6", "ssd", "1280"],
+                     ["rklt/6", "ssd", "384"], ["subgrid", "ssd", "384"]])
     for key, am, b in triples:
         print(json.dumps(profile(key, am, int(b), card)), flush=True)
     return 0

@@ -28,7 +28,7 @@ from mtf_tpu_torch.ops.kernels.dense_sample import _weights_dense
 from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.utils import synth as tsynth
-from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene
+from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene, jax_init
 from test_torch_gpu import CUBIC_KINDS, all_mode_inputs
 from test_torch_gpu import assert_norm_close
 from test_torch_grid_family import pyr_flow_pair
@@ -149,7 +149,7 @@ def ref():
         seed=3)
     frames = frames.numpy()
     fl = JFleet(jcreate("fclk", "ssd", "8", **FLEET_CFG))
-    st = fl.initialize(frames[0], CORNERS)
+    st = jax_init(fl, frames[0], CORNERS)
     out = {"frames": frames, "gt": gt, "state0": jax.tree.map(np.asarray, st)}
     leg = []
     for t in range(1, len(frames)):
@@ -158,7 +158,7 @@ def ref():
     out["generic"] = np.stack(leg)
     pfl = JFleet(jcreate("fclk", "ssd", "8", use_pallas=True, **FLEET_CFG))
     out["pallas"] = np.asarray(pfl.corners(pfl.update(
-        pfl.initialize(frames[0], CORNERS), frames[1])))
+        jax_init(fl, frames[0], CORNERS), frames[1])))
     return out
 
 

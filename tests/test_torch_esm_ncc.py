@@ -21,7 +21,7 @@ from mtf_tpu_torch import create_tracker as tcreate
 from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.ssm import get_ssm as tget_ssm
-from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene
+from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene, jax_init
 
 # the configurations of tests/test_r5_features.py:36-50 (no coarse phases
 # unless given: 10 full-resolution iterations)
@@ -45,14 +45,23 @@ def _frames():
 
 
 @functools.cache
+def _jax_r5_init(case: int):
+    """The generic JAX fleet of a case and its init state, computed once:
+    the Pallas path starts from the same state (`jax_init`)."""
+    key, am, kw = R5_CASES[case]
+    fl = JFleet(jcreate(key, am, "8", **R5, **kw))
+    return fl, jax_init(fl, _frames()[0], CORNERS)
+
+
+@functools.cache
 def _jax_r5(case: int, use_pallas):
     """JAX corners (B, 2, 4) after one update, computed once per case and
     path."""
     key, am, kw = R5_CASES[case]
-    frame, f2 = _frames()
-    fl = JFleet(jcreate(key, am, "8", use_pallas=use_pallas, **R5, **kw))
-    return np.asarray(fl.corners(fl.update(fl.initialize(frame, CORNERS),
-                                           f2)))
+    fl, st0 = _jax_r5_init(case)
+    if use_pallas is not None:
+        fl = JFleet(jcreate(key, am, "8", use_pallas=use_pallas, **R5, **kw))
+    return np.asarray(fl.corners(fl.update(st0, _frames()[1])))
 
 
 @pytest.mark.parametrize("jax_path", ["generic", "pallas"])
@@ -76,7 +85,7 @@ def lm_ref():
     frames, gt = jsynth.synthetic_sequence(
         frame, CORNERS, fl.sm.ssm, n_frames=4, sigma_scale=0.004, seed=3)
     frames = np.asarray(frames)
-    st = fl.initialize(frames[0], CORNERS)
+    st = jax_init(fl, frames[0], CORNERS)
     out = {"frames": frames, "gt": gt, "state0": jax.tree.map(np.asarray, st)}
     leg = []
     for t in range(1, len(frames)):
@@ -85,7 +94,7 @@ def lm_ref():
     out["leg"] = np.stack(leg)
     pfl = JFleet(jcreate("eslm", "ncc", "8", use_pallas=True, **CFG))
     out["pallas"] = np.asarray(pfl.corners(pfl.update(
-        pfl.initialize(frames[0], CORNERS), frames[1])))
+        jax_init(fl, frames[0], CORNERS), frames[1])))
     return out
 
 

@@ -4,7 +4,10 @@ iterations as 6 + 3 + 1 coarse-to-fine, dense linear sampling from a
 144-px window), stepped by `mtf_tpu_torch` and by the JAX package on the
 same frames. Corners must agree within 0.05 px, the chain kernel's
 parity tolerance in the JAX package's own tests."""
+import concurrent.futures
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -42,6 +45,34 @@ def _scene(seed=1, h=240, w=320):
         np.float32)
 
 
+_JAX_INITS = {}
+
+
+def jax_init(fl, frame, corners):
+    """The JAX fleet `fl`'s `initialize`, traced and compiled once per
+    tracker: `TrackerFleet.initialize` wraps `vmap(sm.initialize)` in a
+    new `jax.jit` on every call, and so traces and compiles it again each
+    time. A Pallas fleet takes its generic twin's init state: the JAX LK
+    trackers read `use_pallas` only when they update (`_fused_ok`)."""
+    sm = fl.sm
+    hit = _JAX_INITS.get(id(sm))
+    if hit is None or hit[0] is not sm:
+        hit = _JAX_INITS[id(sm)] = (sm, jax.jit(jax.vmap(
+            sm.initialize, in_axes=(None, 0))))
+    return hit[1](jnp.asarray(frame), jnp.asarray(corners))
+
+
+def side_by_side(calls, threads=4):
+    """Run `calls` (callables of no argument, each filling a cached JAX
+    reference) on `threads` threads. A reference is mostly a JAX trace and
+    an XLA compile, and a compile runs beside the other threads' traces
+    (`test_torch_ssm_fleet.py`'s 7 fleets: 40.3 s one after the other,
+    28.5 s on 4 threads of an 8-core CPU)."""
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for f in [pool.submit(c) for c in calls]:
+            f.result()
+
+
 def _jax_fleet(use_pallas):
     return JFleet(jcreate("fclk", "ssd", "8", use_pallas=use_pallas, **CFG))
 
@@ -54,17 +85,16 @@ def ref():
     frame = _scene()
     f2 = np.roll(frame, (3, 2), (0, 1))
     out = {"frame": frame, "f2": f2}
+    gfl = _jax_fleet(None)
+    st0 = jax_init(gfl, frame, CORNERS)
+    out["state0"] = jax.tree.map(np.asarray, st0)
     for name, use_pallas in (("generic", None), ("pallas", True)):
-        fl = _jax_fleet(use_pallas)
-        st0 = fl.initialize(frame, CORNERS)
+        fl = gfl if use_pallas is None else _jax_fleet(use_pallas)
         out[name] = np.asarray(fl.corners(fl.update(st0, f2)))
-        if name == "generic":
-            out["state0"] = jax.tree.map(np.asarray, st0)
-            gfl = fl
     frames, gt = jsynth.synthetic_sequence(
         frame, CORNERS, gfl.sm.ssm, n_frames=4, sigma_scale=0.004, seed=3)
     frames = np.asarray(frames)
-    st = gfl.initialize(frames[0], CORNERS)
+    st = jax_init(gfl, frames[0], CORNERS)
     leg = []
     for t in range(1, len(frames)):
         st = gfl.update(st, frames[t])

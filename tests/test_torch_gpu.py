@@ -1,7 +1,8 @@
 """CUDA-kernel tests of `mtf_tpu_torch`, and the JAX-free input helpers
 the kernel tests share: the chain kernel's (SSD and NCC, each with and
-without ESM's J0 operand, and multi-channel SSD; linear and cubic taps)
-and the grid-flow kernel's (K5, and K5c with cubic taps).
+without ESM's J0 operand, and multi-channel SSD; linear and cubic taps,
+plain or blurred; at every state size), K6's (`lk_fused_gn_t`) and the
+grid-flow kernel's (K5, and K5c with cubic taps).
 
 The `gpu` tests skip where there is no CUDA device (the CUDA kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -13,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
+from chip_smoke import oracle_operands
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.ops.kernels import lk_fused as tk
+from mtf_tpu_torch.ssm import get_ssm
 from mtf_tpu_torch.ssm.projective import Homography
 
 HC = WC = 144
@@ -106,6 +110,46 @@ def all_mode_inputs(n, am, esm, c, b=3, seed=0, size=HC):
     return mode_inputs(n, am, esm, b, seed, size)
 
 
+# an SSM key of each state size the chain kernel takes
+SSM_OF_S = {2: "2", 3: "3s", 4: "4", 5: "5", 6: "6", 8: "8"}
+NEW_S = [2, 3, 4, 5, 6]
+
+
+def ssm_inputs(n, s, am="ssd", esm=False, c=1, b=3, seed=0, size=HC):
+    """`all_mode_inputs` at state size s: the generators of the s-DOF SSM
+    `SSM_OF_S[s]`, M0 of trackers 1.. through its warp at a random
+    near-identity state (tracker 0 keeps its integer translation), and
+    with ESM a J0 (b, s, n)."""
+    arrays, j0 = all_mode_inputs(n, am, esm, c, b, seed, size)
+    win, M0, _, ph, templ = arrays
+    ssm = get_ssm(SSM_OF_S[s], device="cpu")
+    rng = np.random.default_rng(seed + 300)
+    sc = size / HC
+    norm = np.array([[70.0 * sc, 0, size / 2], [0, 70.0 * sc, size / 2],
+                     [0, 0, 1]], np.float32)
+    state = torch.tensor(rng.normal(0, 0.02, (b, s)), dtype=torch.float32)
+    M0 = M0.copy()
+    M0[1:] = (norm @ ssm.to_matrix(state).numpy())[1:]
+    if j0 is not None:
+        j0 = rng.normal(0, 30.0, (b, s, n)).astype(np.float32)
+    return (win, M0, ssm.generators.numpy(), ph, templ), j0
+
+
+def gn_inputs(n, s, b=3, seed=0, hw=(180, 220), spread=100.0):
+    """K6 numpy operands: b smooth (h, w) images, points (b, 2, n) in a
+    `spread`-px square inside the image's middle, a random warp Jacobian
+    (b, 2s, n) on the scale of an image-px one, a template (b, n)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    img = np.stack([_window(rng, max(h, w))[:h, :w] for _ in range(b)])
+    lo = rng.uniform(20, [w - spread - 20, h - spread - 20], (b, 2))
+    pts = lo[:, :, None] + rng.uniform(0, spread, (b, 2, n))
+    jac = rng.normal(0, 50.0, (b, 2 * s, n))
+    templ = rng.uniform(0, 255, (b, n))
+    return [np.ascontiguousarray(a, np.float32)
+            for a in (img, pts, jac, templ)]
+
+
 def k5_inputs(n, b=2, seed=5, hw=64, p=8, scale=20.0, zncc=True):
     """Grid-flow (K5) numpy operands and the planted shift: b smooth
     (hw, hw) windows; p patch centres in the window's middle, each with a
@@ -134,6 +178,16 @@ def k5_inputs(n, b=2, seed=5, hw=64, p=8, scale=20.0, zncc=True):
     return (win, np.ascontiguousarray(pts.transpose(0, 2, 1), np.float32),
             templ.reshape(b, -1).astype(np.float32),
             np.full((b,), scale, np.float32), shift)
+
+
+def assert_raw_close(got, want, scales=None):
+    """The kernel's raw sums `got` (a list of (B, ...) tensors) each within
+    1e-4 of its norm of the plain form's `want`, per tracker; with the
+    sums' rounding `scales` (S != 8), within 1e-4 of the norm plus
+    `chip_smoke.ROUND_K` float32 epsilons of the scale
+    (`chip_smoke.raw_verdict`)."""
+    v = cs.raw_verdict(torch, list(got), list(want), scales)
+    assert v["ok"], (v["err_raw"], v.get("factor"))
 
 
 def assert_norm_close(got, want, rel):
@@ -324,3 +378,126 @@ def test_cuda_k5_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         gf.grid_flow(win[:, :3, :3].contiguous(), pts, templ, scale, 16, 2,
                      kind="cubic")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("am,esm,c", ALL_MODES)
+@pytest.mark.parametrize("s", NEW_S)
+def test_cuda_chain_every_s_matches_plain(cuda_device, s, am, esm, c):
+    """Each mode at each new state size, with every tap kind, against the
+    plain form on the card: val within 1e-3, every raw sum within 1e-4 of
+    its norm (`assert_raw_close`, with the rounding floor where a sum
+    cancels); one launch of its `:s<S>` instantiation per call."""
+    for n in (169, 2500):
+        arrays, j0 = ssm_inputs(n, s, am, esm, c, b=16)
+        args = _on(cuda_device, arrays)
+        j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+        for kind in gf.KINDS:
+            mode = tk.mode_name(am, esm, c > 1, kind, s)
+            before = tk.lk_fused_chain_raw.launches[mode]
+            got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind)
+            torch.cuda.synchronize()
+            assert tk.lk_fused_chain_raw.launches[mode] == before + 1
+            assert got[1].shape == (16, s)
+            want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind)
+            assert float((got[0] - want[0]).abs().max()) <= 1e-3
+            assert_raw_close(got[1:], want[1:], cs.chain_sum_scales(
+                torch, tk, args, am, j0, kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 64])
+def test_cuda_chain_at_sub_grid_shapes(cuda_device, n):
+    """ssd:s2 at the sub-tracker grid's shapes: 8x8 templates (N = 64,
+    and 16 in the stride-2 phase) in 32-px windows, 512 sub-trackers a
+    launch, against the plain form on the card under the rules above."""
+    arrays, _ = ssm_inputs(n, 2, b=512, size=32)
+    args = _on(cuda_device, arrays)
+    for kind in gf.KINDS:
+        got = tk.lk_fused_chain_raw(*args, kind=kind)
+        torch.cuda.synchronize()
+        want = tk.lk_fused_chain_ref(*args, kind=kind)
+        assert float((got[0] - want[0]).abs().max()) <= 1e-3, kind
+        assert_raw_close(got[1:], want[1:], cs.chain_sum_scales(
+            torch, tk, args, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blur", [2, 3, 4])
+@pytest.mark.parametrize("s", [8, 6])
+def test_cuda_blurred_taps_match_plain(cuda_device, s, blur):
+    """K4b: every mode and tap kind with the binomially blurred taps at
+    blur 2-4, against the plain form on the card (same rules as the plain
+    taps); one launch of its `+blur` instantiation per call."""
+    for am, esm, c in ALL_MODES:
+        arrays, j0 = ssm_inputs(625, s, am, esm, c, b=8)
+        args = _on(cuda_device, arrays)
+        j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+        for kind in gf.KINDS:
+            mode = tk.mode_name(am, esm, c > 1, kind, s, blurred=True)
+            before = tk.lk_fused_chain_raw.launches[mode]
+            got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind,
+                                        blur=blur)
+            torch.cuda.synchronize()
+            assert tk.lk_fused_chain_raw.launches[mode] == before + 1
+            want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind,
+                                         blur=blur)
+            assert float((got[0] - want[0]).abs().max()) <= 1e-3, mode
+            assert_raw_close(got[1:], want[1:], None if s == 8 else
+                             cs.chain_sum_scales(torch, tk, args, am, j0,
+                                                 kind, blur))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", gf.KINDS)
+@pytest.mark.parametrize("s", tk.STATE_DIMS)
+def test_cuda_k6_matches_plain(cuda_device, s, kind):
+    """K6 against its plain form on the card, with and without a crop:
+    val within 1e-3, g and JtJ within 1e-4 of their norms (with
+    `assert_raw_close`'s rounding floor)."""
+    args = _on(cuda_device, gn_inputs(2500, s, b=8))
+    for crop in (None, 144):
+        mode = tk.gn_mode_name(s, kind)
+        before = tk.lk_fused_gn_t.launches[mode]
+        val, g, h = tk.lk_fused_gn_t(*args, kind=kind, crop=crop)
+        torch.cuda.synchronize()
+        assert tk.lk_fused_gn_t.launches[mode] == before + 1
+        v0, g0, h0 = tk.lk_fused_gn_t_ref(*args, kind=kind, crop=crop)
+        assert float((val - v0).abs().max()) <= 1e-3
+        assert_raw_close((g, h), (g0, h0), None if s == 8 else
+                         cs.gn_sum_scales(torch, tk, args, kind, crop))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["2", "6", "8"])
+@pytest.mark.parametrize("n", [1024, 4500])
+def test_cuda_k1_vs_k6_oracle(cuda_device, n, key):
+    """The chain kernel (CUDA) against K6 (CUDA) fed the jvp-built warp
+    Jacobian: val within 1.0, g and JtJ within 1e-4 of their norms (the
+    reference's tolerances, `tests/test_dense_interp.py:176-181`)."""
+    img, M0, gens, ph, templ, ptsT, jacT = oracle_operands(
+        torch, n, key, cuda_device)
+    v1, g1, h1 = tk.lk_fused_gn_t(img[None], ptsT[None], jacT[None],
+                                  templ[None])
+    v2, g2, h2 = tk.lk_fused_chain(img[None], M0[None], gens, ph[None],
+                                   templ[None])
+    assert float((v1 - v2).abs().max()) <= 1.0
+    assert_norm_close(g2[0].cpu(), g1[0].cpu(), 1e-4)
+    assert_norm_close(h2[0].cpu(), h1[0].cpu(), 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_k6_and_blur_reject_bad_inputs(cuda_device):
+    img, pts, jac, templ = _on(cuda_device, gn_inputs(100, 6, b=2))
+    with pytest.raises(ValueError, match="S = 7"):
+        tk.lk_fused_gn_t(img, pts, torch.cat([jac, jac[:, :2]], 1), templ)
+    with pytest.raises(ValueError):
+        tk.lk_fused_gn_t(img, pts[:, :, :50], jac, templ)
+    with pytest.raises(TypeError):
+        tk.lk_fused_gn_t(img.double(), pts, jac, templ)
+    arrays, _ = ssm_inputs(169, 6, b=2, size=16)
+    args = _on(cuda_device, arrays)
+    with pytest.raises(ValueError, match="taps"):
+        tk.lk_fused_chain(*args, kind="cubic", blur=8)
+    with pytest.raises(ValueError, match="blur"):
+        tk.lk_fused_chain(*args, blur=9)

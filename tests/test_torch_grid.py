@@ -26,7 +26,7 @@ from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm import grid as tgrid
-from mtf_tpu_torch.ssm import SSM, get_ssm
+from mtf_tpu_torch.ssm import get_ssm
 from test_torch_fleet import _scene
 from test_torch_gpu import k5_inputs
 
@@ -46,13 +46,15 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def jax_fit_indices(n_updates, seed=0, n_hyps=64, n_pts=100):
-    """The (n_hyps, 4) index draw of each of a JAX grid tracker's first
-    updates: the key chain of `GridTracker._update`."""
+def jax_fit_indices(n_updates, seed=0, n_hyps=64, n_pts=100, sample=4):
+    """The (n_hyps, sample) index draw of each of a JAX grid tracker's
+    first updates: the key chain of `GridTracker._update` (and of
+    `SubTrackerGrid._update`); `sample` is the SSM's minimal sample, 4 for
+    the homography."""
     key, out = jax.random.PRNGKey(seed), []
     for _ in range(n_updates):
         key, k_fit = jax.random.split(key)
-        out.append(_t(jransac.hyp_indices(k_fit, n_hyps, n_pts, 4)))
+        out.append(_t(jransac.hyp_indices(k_fit, n_hyps, n_pts, sample)))
     return out
 
 
@@ -186,14 +188,16 @@ def test_fit_pts_and_set_region_match_jax():
             GRID_CORNERS, corners))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
-    class Translation(SSM):
-        dof = 2
-
-        def _generators(self):
-            return np.zeros((2, 3, 3), np.float32)
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, slice 4"):
-        Translation(device="cpu").fit_pts(_t(corners), _t(corners))
+    # below 8 DOF the base fit dispatches by DOF, as the JAX package's: the
+    # affine DLT at 5-7, the similitude DLT below (ASRT and Similitude keep
+    # the base fit), here on set_region's template-frame correspondences
+    src = st.region.base_corners
+    dst = W.apply_warp(torch.linalg.inv(st.region.norm_mat), _t(corners))
+    for key in ("5", "4"):
+        fit = get_ssm(key, device="cpu").fit_pts(src, dst)
+        want = np.asarray(jax.vmap(jget_ssm(key).fit_pts)(src.numpy(),
+                                                           dst.numpy()))
+        np.testing.assert_allclose(fit.numpy(), want, rtol=0, atol=1e-5)
 
 
 # -- pyramid and K5 -------------------------------------------------------
@@ -356,14 +360,15 @@ def test_grid_factory_keys(key, est, levels):
 
 
 @pytest.mark.parametrize("key,kw,queue", [
-    ("grid", {"grid_sm": "esm"}, "Queue 1c"),
+    ("grid", {"grid_sm": "tld"}, "Queue 1c"),
     ("gric", {}, "Queue 1c"), ("pfrk", {}, "Queue 1c"),
     ("casc", {"multi_cfg": "multi.cfg"}, "Queue 1, slice 8")])
 def test_grid_rejects_unported(key, kw, queue):
-    """What stays unported raises naming its queue: a grid of
-    sub-trackers, the shorthands with ICLK or PF members, composites from
-    a multi.cfg file. (The rigid and f2f flows, forward-backward masking
-    and the gather kinds are held against the JAX package in
-    `test_torch_grid_family.py`.)"""
+    """What stays unported raises naming its queue: a grid of sub-trackers
+    that are not ported (the grid of ported sub-trackers is held against
+    the JAX package in `test_torch_ssm_fleet.py`), the shorthands with
+    ICLK or PF members, composites from a multi.cfg file. (The rigid and
+    f2f flows, forward-backward masking and the gather kinds are held
+    against the JAX package in `test_torch_grid_family.py`.)"""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
         tcreate(key, "ssd", "8", device="cpu", **{**GRID_CFG, **kw})

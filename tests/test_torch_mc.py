@@ -32,7 +32,7 @@ from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm.lk import _blur2
 from mtf_tpu_torch.utils import synth as tsynth
-from test_torch_fleet import CFG, CORNER_TOL, CORNERS
+from test_torch_fleet import CFG, CORNER_TOL, CORNERS, jax_init
 from test_torch_gpu import assert_norm_close, mc_inputs
 
 # off the integer grid, so no base point sits exactly on an integer
@@ -81,7 +81,7 @@ def ref():
         sigma_scale=0.004, seed=3)
     frames = frames.numpy()
     fl = JFleet(jcreate("fclk", "mcssd", "8", **FLEET_CFG))
-    st = fl.initialize(frames[0], MC_CORNERS)
+    st = jax_init(fl, frames[0], MC_CORNERS)
     out = {"frames": frames, "gt": gt, "state0": jax.tree.map(np.asarray, st)}
     leg = []
     for t in range(1, len(frames)):
@@ -91,7 +91,7 @@ def ref():
     pfl = JFleet(jcreate("fclk", "mcssd", "8", use_pallas=True,
                          **FLEET_CFG))
     out["pallas"] = np.asarray(pfl.corners(pfl.update(
-        pfl.initialize(frames[0], MC_CORNERS), frames[1])))
+        jax_init(fl, frames[0], MC_CORNERS), frames[1])))
     return out
 
 
@@ -324,7 +324,9 @@ def test_kernel_modes_outside_the_trackers_raise():
     with pytest.raises(ValueError, match="kind"):
         tk.lk_fused_chain(win, M0, gens, ph, templ, kind="nearest")
     assert "ssd_mc" in tk.lk_fused_chain_raw.launches
-    assert len(tk.lk_fused_chain_raw.launches) == 15
+    # the 15 instantiations at each state size, with plain and blurred taps
+    assert len(tk.INSTANTIATIONS) == 15
+    assert len(tk.lk_fused_chain_raw.launches) == 15 * 2 * len(tk.STATE_DIMS)
 
 
 @pytest.mark.parametrize("key", ["mcssd", "ssd3", "MCSSD"])
