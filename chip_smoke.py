@@ -26,7 +26,8 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
      and cubic_bspl taps, each with plain and, as K4b, blurred taps), K6
      (18: 6 state sizes x 3 tap kinds) and the grid-flow kernel (18: 6
      points-per-lane counts, each as K5 with linear taps and K5c with
-     cubic and cubic_bspl taps); prints the build times and each
+     cubic and cubic_bspl taps; each launch at the lanes per patch and
+     points per lane of `grid_flow.layout`); prints the build times and each
      instantiation's registers and spills (none allowed anywhere; the
      S = 8 plain-tap instantiations must keep REGS_S8);
   3. kernel phase: at the fleets' shapes (ssd B = 1280, the other single-
@@ -34,9 +35,11 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
      4; N = 169, 625, 2500; every mode with each tap kind) compares each
      CUDA kernel with its plain PyTorch form on the card (val within 1e-3,
      every raw sum within 1e-4 of its norm; NCC's combined g and H within
-     1e-3 of their norms, see NCC_COMBINED_REL) and times both by CUDA
-     events; computes each launch's bound from its inputs (the bytes it
-     must move over 3.35 TB/s, its FLOPs over 67 TFLOP/s float32);
+     1e-3 of their norms, see NCC_COMBINED_REL) and times the kernel by
+     CUDA-graph replays (`_graph_ms`: device time, the wrapper's host time
+     left out) and the plain form by CUDA events; computes each launch's
+     bound from its inputs (the bytes it must move over 3.35 TB/s, its
+     FLOPs over 67 TFLOP/s float32);
   4. fclk/ssd fleet: 3 warm-up updates, then 3 windows of 20 updates;
      prints the median frames/s and checks that every update launched K1
      exactly 10 times; a 6-frame synthetic GT leg (mean corner error
@@ -60,7 +63,7 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
      (linear K5; cubic and cubic_bspl K5c, from rklt at `cubic_mm` /
      `cubic_bspl_mm`); the CUDA kernel against its plain form on the
      card (disp within 1e-4 template units on all but 0.1% of patches,
-     every one within 1e-2: see K5_TOL), both timed by CUDA events, and
+     every one within 1e-2: see K5_TOL), both timed as in 3, and
      each level's bound (the window pixels the taps cover, 12 B per
      point, the disp written, over 3.35 TB/s, against
      K5_FLOPS_PER_PT_ITER per point per iteration over 67 TFLOP/s); then
@@ -69,7 +72,10 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
      3 levels with 56, 96 and 160-px windows, forward and back), where a
      component beyond 1e-2 also passes if the kernel is no further from
      the float64 plain form than the float32 one is, plus 1e-2 (see
-     K5_MAX), reported as the `mf` row of the K5 entry's `by_level`;
+     K5_MAX; each such component is printed by tracker, patch and
+     component, `scripts/port_mf_parting.py` adds its condition and the
+     tracker's fate), reported as the `mf` row of the K5 entry's
+     `by_level`;
   9. rklt/ssd fleet, B = 384: 3 warm-ups and 3 windows of 20 updates,
      each update launching K5 exactly 2 times and the ssd_esm chain
      kernel exactly 10 times; the GT leg (limit 0.2 px: the JAX package
@@ -99,8 +105,8 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
      without the 144-px crop (B = 1280, N = 2500, 176-px windows); the
      K1-vs-K6 oracle (`_oracle_phase`) at S = 2, 6 and 8; ssd:s2 at the
      sub-tracker grid's own shapes (`_subgrid_phase`: B = 38,400
-     sub-trackers, N = 16 and 64, 32-px windows); each timed by CUDA
-     events against its plain form, with its bound;
+     sub-trackers, N = 16 and 64, 32-px windows); each timed as in 3
+     against its plain form, with its bound;
  13. slice 5, each fleet through the entry points with its exact launch
      counts per update (`grid_family`), its GT leg and its plain-path
      check (8 trackers, 2 frames, <= 0.05 px, the CPU grids given the
@@ -140,11 +146,14 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
 Launch counts (the chain kernel's per mode and state size, K6's per state
 size and kind, the grid flow's per tap kind) are set to 0 just before
 each fleet path and read just after it; every
-kernel not named for the path must have launched 0 times. Every failed
+kernel not named for the path must have launched 0 times. A kernel's
+`launches` in the kernels line sums its main-path launches over the
+fleets (K4b and K6, on no tracker path, count their kernel phase's). Every failed
 check raises, so the script exits non-zero and prints no ok line. The
 last line is {"ok": true, "device": {...}}; the line before it is the JSON
 summary of the kernels.
 """
+import collections
 import json
 import re
 import subprocess
@@ -245,13 +254,14 @@ STATE_DIMS = (2, 3, 4, 5, 6, 8)
 SSM_OF_S = {2: "2", 3: "3s", 4: "4", 5: "5", 6: "6", 8: "8"}
 NEW_S = (2, 3, 4, 5, 6)
 # the registers ptxas gives the S = 8 plain-tap instantiations, (linear,
-# cubic, cubic_bspl) per mode: the blurred taps and the other state sizes
-# leave them as they were (NVIDIA H100 80GB HBM3, CUDA 12.8)
-REGS_S8 = {("ssd", False, False): (180, 209, 195),
-           ("ncc", False, False): (202, 227, 215),
-           ("ssd", True, False): (182, 212, 209),
-           ("ncc", True, False): (207, 236, 228),
-           ("ssd", False, True): (182, 198, 195)}
+# cubic, cubic_bspl) per mode, under the chain kernel's register classes
+# (`csrc/lk_fused_chain.cu:min_blocks`): the blurred taps and the other
+# state sizes leave them as they are (NVIDIA H100 80GB HBM3, CUDA 12.8)
+REGS_S8 = {("ssd", False, False): (53, 80, 80),
+           ("ncc", False, False): (64, 123, 104),
+           ("ssd", True, False): (80, 80, 80),
+           ("ncc", True, False): (79, 80, 80),
+           ("ssd", False, True): (64, 80, 80)}
 # raw chain sums: within RAW_REL of their norm of the float32 plain form,
 # per tracker. At S = 8 that is the whole rule. At the other state sizes a
 # tracker's g (or NCC's [Σ Jm v]) can cancel to a norm near the float32
@@ -426,6 +436,27 @@ def _time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, calls=20):
+    """Device time of one call of `fn`: `calls` calls captured in a CUDA
+    graph (after a warm-up on a side stream), replayed until a timing
+    takes >= 50 ms; the median of 5 timings by CUDA events. The host's
+    time to launch each call (a kernel wrapper's checks and allocations,
+    about as long as a small launch) stays out of it."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    replays = max(3, int(50 / max(_time_ms(torch, graph.replay, 2), 1e-3)))
+    times = sorted(_time_ms(torch, graph.replay, replays) for _ in range(5))
+    return times[2] / calls
 
 
 def _check(cond, msg):
@@ -753,12 +784,13 @@ def _floor_note(row):
     return note + ")"
 
 
-def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card, reps,
+def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card,
                plain_reps, **meta):
     """One chain-kernel launch against its plain form on the card (val
     within 1e-3; raw sums by `raw_verdict`, its rounding floor at S != 8
     only, with the planted faults wherever it was needed; NCC's combined
-    g and H within NCC_COMBINED_REL), both timed by CUDA events, with the
+    g and H within NCC_COMBINED_REL), the kernel timed by `_graph_ms`,
+    the plain form by CUDA events, with the
     launch's bound. Returns the row."""
     s = args[2].shape[0]
 
@@ -791,7 +823,7 @@ def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card, reps,
                and row["err_h"] <= NCC_COMBINED_REL,
                f"{name}: combined g {row['err_g']} H {row['err_h']} of norm")
     del got, want
-    row["ms"] = _time_ms(torch, lambda: run(*args), reps)
+    row["ms"] = _graph_ms(torch, lambda: run(*args))
     row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_chain_ref(
         *args, am=am, j0=j0, kind=kind, blur=blur), plain_reps)
     (row["bound_ms"], row["bound_by"], row["bytes"],
@@ -808,7 +840,7 @@ def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card, reps,
 
 
 def _kernel_phase(torch, tk, frames, card, dev, s=8, blur=0, specs=None,
-                  n_points=N_POINTS, reps=50, plain_reps=5):
+                  n_points=N_POINTS, plain_reps=5):
     """Every instantiation of state size `s` (with `blur`'s taps) against
     its plain form and timed (`_chain_row`), at each N; `frames` maps a
     channel count to the scene with that many channels. Returns {(mode,
@@ -822,8 +854,8 @@ def _kernel_phase(torch, tk, frames, card, dev, s=8, blur=0, specs=None,
                                      ssm_key=SSM_OF_S[s])
             rows[(mode, n, c)] = _chain_row(
                 torch, tk, args, j0, am, esm, kind, blur,
-                f"{label} {mode} C={c} N={n} B={b}", card, reps, plain_reps,
-                b=b, c=c)
+                f"{label} {mode} C={c} N={n} B={b}", card, plain_reps, b=b,
+                c=c)
             del args, j0
             torch.cuda.empty_cache()
     return rows
@@ -844,7 +876,7 @@ def _subgrid_phase(torch, tk, frame_d, card, dev):
         rows[n] = _chain_row(
             torch, tk, args, j0, "ssd", False, "linear", 0,
             f"K1 sub-grid {tk.mode_name('ssd', False, False, 'linear', 2)} "
-            f"N={n} B={b} window {SUBGRID_CROP}", card, 50, 5, b=b, c=1)
+            f"N={n} B={b} window {SUBGRID_CROP}", card, 5, b=b, c=1)
         del args, j0
         torch.cuda.empty_cache()
     return rows
@@ -902,8 +934,8 @@ def _gn_bound(torch, tk, win, pts, jac, kind, crop):
 def _gn_phase(torch, tk, frame_d, card, dev):
     """K6 at every S and kind, with and without the crop, against its
     plain form on the card (val within 1e-3, g and JtJ within RAW_REL of
-    their norms), timed by CUDA events, with its bound. Returns {(S, kind,
-    crop): row}."""
+    their norms), timed as `_chain_row` times, with its bound. Returns
+    {(S, kind, crop): row}."""
     rows = {}
     for s in STATE_DIMS:
         args = _gn_operands(torch, frame_d, N_POINTS[-1], B, s, dev)
@@ -931,7 +963,7 @@ def _gn_phase(torch, tk, frame_d, card, dev):
                     _check(r["rejected"], f"{name}: the planted fault "
                            f"'{fault}' passed the raw-sum rule ({r})")
                 del got, want
-                row["ms"] = _time_ms(torch, lambda: run(*args), 20)
+                row["ms"] = _graph_ms(torch, lambda: run(*args))
                 row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_gn_t_ref(
                     *args, kind=kind, crop=crop), 3)
                 (row["bound_ms"], row["bound_by"], row["bytes"],
@@ -1034,13 +1066,18 @@ def _zero_counts(tk, gf):
             counts[k] = 0
 
 
+# launches per kernel instantiation over every fleet's main path (`_fleet`)
+MAIN_PATH_LAUNCHES = collections.Counter()
+
+
 def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
            windows=WINDOWS, warmup=WARMUP, interp="linear_mm", cfg=None,
            label=None, ssm="8"):
     """The fleet's main path: `warmup` updates, then `windows` timed
     windows of STEPS updates; the launch counts are zeroed just before
-    and read just after, and each kernel must have launched exactly
-    `expect[name]` times per update (0 for any name not in `expect`)."""
+    and read just after (and added to MAIN_PATH_LAUNCHES), and each kernel
+    must have launched exactly `expect[name]` times per update (0 for any
+    name not in `expect`)."""
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.parallel import TrackerFleet
     label = label or f"{key}/{am} {interp}"
@@ -1060,6 +1097,7 @@ def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
         torch.cuda.synchronize()
         rates.append(b * STEPS / (time.perf_counter() - t0))
     counts = _counts(tk, gf)
+    MAIN_PATH_LAUNCHES.update(counts)
     n_updates = warmup + windows * STEPS
     for name, got in counts.items():
         _check(got == expect.get(name, 0) * n_updates,
@@ -1211,8 +1249,9 @@ def _k5_bound(torch, win, pts, disp, scale, n, n_iters, kind):
 
 def _k5_check(torch, gf, call, name, card, f64_clause=False):
     """One recorded grid-flow call: the CUDA kernel against its plain form
-    on the card under K5's rule (K5_TOL, K5_OVER_SHARE, K5_MAX), both timed
-    by CUDA events, and the launch's bound. With `f64_clause` (Median
+    on the card under K5's rule (K5_TOL, K5_OVER_SHARE, K5_MAX), the
+    kernel timed by `_graph_ms`, the plain form by CUDA events, and the
+    launch's bound. With `f64_clause` (Median
     Flow's 20-iteration calls) a disp component beyond K5_MAX of the
     float32 plain form also passes when the kernel is no further from the
     float64 plain form than the float32 one is, plus K5_MAX (see the note
@@ -1233,7 +1272,11 @@ def _k5_check(torch, gf, call, name, card, f64_clause=False):
     by_f64 = far & (d64 <= p64 + K5_MAX) if f64_clause else \
         torch.zeros_like(far)
     worst = torch.argsort(d, descending=True)[:3]
+    # (tracker, patch, component) of each component beyond K5_MAX
+    parting = [[i // (2 * got.shape[1]), i // 2 % got.shape[1], i % 2]
+               for i in far.nonzero().flatten().tolist()]
     row = dict(n=n, iters=n_iters, window=win.shape[-1], err=err,
+               layout=list(gf.layout(n, n_iters)), parting=parting,
                kind=kind, max_disp=float(want.abs().max()),
                q999=float(torch.quantile(d.double(), 0.999)),
                n_over=int((d > K5_TOL).sum()), n_patches=d.numel() // 2,
@@ -1248,20 +1291,23 @@ def _k5_check(torch, gf, call, name, card, f64_clause=False):
           f"{row['plain_vs_f64']:.3g}; worst components (cuda - plain, "
           f"cuda - f64, plain - f64): {worst_s}"
           + (f"; {row['n_by_f64']} beyond {K5_MAX} passed by the float64 "
-             f"clause" if f64_clause else ""))
+             f"clause (tracker, patch, component: {parting})"
+             if f64_clause else ""))
     _check(bool((~far | by_f64).all()) and row["n_over"] <= K5_OVER_SHARE
            * row["n_patches"], f"{name}: cuda vs plain disp max {err} "
            f"(limit {K5_MAX}" + (", or no further than the float32 plain "
            "form from the float64 one, plus the limit" if f64_clause
            else "") + f"), {row['n_over']} patches over {K5_TOL} "
            f"(limit {K5_OVER_SHARE} of {row['n_patches']})")
-    row["ms"] = _time_ms(torch, lambda: gf.grid_flow(*args), 50)
+    row["ms"] = _graph_ms(torch, lambda: gf.grid_flow(*args))
     row["plain_ms"] = _time_ms(torch, lambda: gf.grid_flow_ref(*args), 5)
     (row["bound_ms"], row["bound_by"], row["bytes"],
      row["flops"]) = _k5_bound(torch, win, pts, want, scale, n, n_iters,
                                kind)
     print(f"{name} B={win.shape[0]} P={pts.shape[-1] // n} n={n} "
-          f"iters={n_iters} window {win.shape[-1]}: max|ddisp| {err:.3g} "
+          f"iters={n_iters} window {win.shape[-1]} layout "
+          f"{row['layout'][0]} lanes x {row['layout'][1]}: max|ddisp| "
+          f"{err:.3g} "
           f"(of max |disp| {row['max_disp']:.3g}) template units; cuda "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
@@ -1307,8 +1353,9 @@ def _k5_mf_phase(torch, gf, corners, frame_d, card, dev):
     t_bytes = sum(r["bytes"] for r in rows.values()) / HBM_BYTES_PER_S
     t_ops = sum(r["flops"] for r in rows.values()) / F32_FLOPS_PER_S
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err", "q999",
-            "n_over", "n_patches", "n_by_f64", "cuda_vs_f64",
-            "plain_vs_f64", "worst", "max_disp", "n", "iters", "window")
+            "n_over", "n_patches", "n_by_f64", "parting", "cuda_vs_f64",
+            "plain_vs_f64", "worst", "max_disp", "n", "iters", "window",
+            "layout")
     row = {"ms": sum(r["ms"] for r in rows.values()),
            "plain_ms": sum(r["plain_ms"] for r in rows.values()),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1333,7 +1380,7 @@ def _k5_entry(rows_k5, kind, launches, usage_k5, mf_row=None):
     t_ops = sum(r["flops"] for r in rows_k5.values()) / F32_FLOPS_PER_S
     mine = {k: v for (k, kd), v in usage_k5.items() if kd == kind}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err", "max_disp",
-            "n", "iters", "window")
+            "n", "iters", "window", "layout")
     by_level = {lvl: {k: r[k] for k in keys}
                 for lvl, r in sorted(rows_k5.items())}
     errs = [r["err"] for r in rows_k5.values()]
@@ -1597,8 +1644,8 @@ def main() -> int:
     rows_s = {st: _kernel_phase(torch, tk, frames, card, dev, s=st,
                                 specs=[sp for sp in _kernel_specs()
                                        if sp[2] in (1, 3)],
-                                n_points=N_POINTS[-1:], reps=20,
-                                plain_reps=3) for st in NEW_S}
+                                n_points=N_POINTS[-1:], plain_reps=3)
+              for st in NEW_S}
     # K4b: the blurred taps in every mode and kind at S = 8 and 6
     _zero_counts(tk, gf)
     rows_b = {}
@@ -1607,7 +1654,7 @@ def main() -> int:
             rows_b[(st, blur)] = _kernel_phase(
                 torch, tk, frames, card, dev, s=st, blur=blur,
                 specs=[sp for sp in _kernel_specs() if sp[2] in (1, 3)],
-                n_points=(n,), reps=10, plain_reps=2)
+                n_points=(n,), plain_reps=2)
     launches_b = {k: v for k, v in tk.lk_fused_chain_raw.launches.items()
                   if "+blur" in k}
     del frames
@@ -1801,7 +1848,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": launches[mode],
+            "launches": MAIN_PATH_LAUNCHES[mode],
             "max_abs_err": max(r["err_v"] for (m, _, _), r in rows.items()
                                if m == mode),
             "ms": row["ms"],

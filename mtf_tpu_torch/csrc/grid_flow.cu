@@ -32,18 +32,42 @@
 // live (the semantics of the JAX package's XLA path,
 // sm/grid.py:_track_patches_mm).
 //
-// Layout: one segment of `lanes` threads per (tracker, patch), lanes the
-// power of two >= n up to 32, so a warp holds 32 / lanes whole patches
-// (two at the grid's coarse level, n = 16); each lane takes K = n / lanes
-// (rounded up to a power of two) points, keeps their samples in registers
-// through an iteration and, up to K = 8 (n <= 256, every grid level),
-// their coordinates and template values for the whole launch; the
-// displacement stays in registers across iterations (the TPU kernel kept
-// it in VMEM). Sums are
-// xor-butterfly shuffles inside the segment: IEEE addition commutes, so
-// every lane gets the same bits, solves the same 2x2 and carries the same
-// displacement; the order is fixed (no atomics), so results repeat. The tap
-// kind is a template parameter beside K: 6 x 3 instantiations.
+// Layout (chosen per (n, n_iters) by ops/kernels/grid_flow.py:layout and
+// passed in): one segment of `lanes` threads per (tracker, patch), lanes a
+// power of two up to 32, so a warp holds 32 / lanes whole patches; each
+// lane takes K points (K a power of two, lanes x K >= n): point j of lane
+// l is l + j * lanes. Up to K = 8 a lane keeps its points' coordinates and
+// template values in registers for the whole launch and their samples
+// through an iteration; wider lanes re-read their points and sample their
+// taps again for the sums. The displacement stays in registers across
+// iterations (the TPU kernel kept it in VMEM).
+// Sums: each lane sums its K points pairwise (a balanced tree whose leaf
+// pairs are one product and one FMA, as a running FMA sum of two points
+// is), then an xor-butterfly of shuffles sums the lanes of the segment:
+// the whole patch is a balanced tree, no less accurate than a running sum,
+// IEEE addition commutes, so every lane gets the same bits, solves the
+// same 2x2 and carries the same displacement; the order is fixed (no
+// atomics), so results repeat. The tap kind is a template parameter beside
+// K: 6 x 3 instantiations.
+//
+// What bounds it. Every iteration of a patch is one serial chain: the tap
+// gathers, the sums, the butterfly and the damped 2x2 solve (two IEEE
+// divisions), and only the gathers and the sums are the work the bound
+// counts. With one lane per point or two (32 lanes at n = 64), the
+// butterfly (5 steps of 5 shuffles and adds) and the solve, which every
+// lane of the segment repeats, issued more than half of the instructions,
+// so the kernel was issue-bound at 7.7x its operations bound on Median
+// Flow's shapes. With 8 points a lane (8 lanes at n = 64; 4 x 4 at
+// n = 16, 16 x 4 for a single iteration) the butterfly shrinks to 3 or 2
+// steps, the solve is shared by 4-8x more points per lane, and each lane
+// has 4-8 independent tap gathers in flight on the chain; index
+// arithmetic is 32-bit. On an H100 80GB HBM3 at 700 W (PERF.md §6)
+// Median Flow's six launches went from 2.00 to 1.16 ms (bound 0.26,
+// operations) and rklt's level 1 from 0.054 to 0.025 ms. What bounds it
+// now is the per-point sampling itself (clamp, floor, four gathers, the
+// lerps and the derivative selects, ~40 instructions a point and
+// iteration against the bound's 60 FLOPs), then the per-iteration
+// butterflies (two more with zncc) and the solve.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32), each input read once and
 // each output written once: the window pixels the taps cover (at most the
@@ -63,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "dense_taps.cuh"
 
 namespace {
@@ -73,6 +99,7 @@ using dense_taps::kCubic;
 using dense_taps::kLinear;
 
 constexpr int kThreads = 256;
+constexpr int kMaxLanes = 32;
 
 __device__ __forceinline__ float seg_sum(float v, int lanes) {
   for (int off = lanes >> 1; off > 0; off >>= 1)
@@ -90,6 +117,29 @@ __device__ __forceinline__ void seg_sum5(float (&a)[5], int lanes) {
   }
 }
 
+template <int J>
+using Idx = std::integral_constant<int, J>;
+
+// Pairwise sums over a lane's points [Lo, Lo + Len) of M per-point
+// quantities: `leaf(Idx<j>, out)` sets the M terms of point j, and
+// `pair(Idx<j>, out)` those of points j and j + 1 summed with one product
+// and one FMA each; halves are added, so the order is fixed.
+template <int Lo, int Len, int M, class Leaf, class Pair>
+__device__ __forceinline__ void tree_sum(Leaf& leaf, Pair& pair,
+                                         float (&out)[M]) {
+  if constexpr (Len == 1) {
+    leaf(Idx<Lo>{}, out);
+  } else if constexpr (Len == 2) {
+    pair(Idx<Lo>{}, out);
+  } else {
+    float hi[M];
+    tree_sum<Lo, Len / 2>(leaf, pair, out);
+    tree_sum<Lo + Len / 2, Len / 2>(leaf, pair, hi);
+#pragma unroll
+    for (int m = 0; m < M; ++m) out[m] += hi[m];
+  }
+}
+
 // Value and derivatives (the dense convention) of the window `wb` (row
 // stride wc) at a clamped position (x, y): bilinear, the derivative along
 // an axis 0 at an exactly integer coordinate; or 4x4 cubic taps, each tap
@@ -101,7 +151,7 @@ __device__ __forceinline__ void sample_taps(const float* __restrict__ wb,
   if constexpr (kKind == kLinear) {
     const float xf = floorf(x), yf = floorf(y);
     const float fx = x - xf, fy = y - yf;
-    const float* t0 = wb + (size_t)((int)yf) * wc + (int)xf;
+    const float* t0 = wb + ((int)yf * wc + (int)xf);
     const float v00 = __ldg(t0), v01 = __ldg(t0 + 1);
     const float v10 = __ldg(t0 + wc), v11 = __ldg(t0 + wc + 1);
     const float top = v00 * (1.0f - fx) + v01 * fx;
@@ -113,12 +163,11 @@ __device__ __forceinline__ void sample_taps(const float* __restrict__ wb,
     float wx[4], dwx[4], wy[4], dwy[4];
     cubic_axis<kKind>(x, wx, dwx);
     cubic_axis<kKind>(y, wy, dwy);
-    const float* t0 = wb + (size_t)((int)floorf(y) - 1) * wc
-                      + ((int)floorf(x) - 1);
+    const float* t0 = wb + (((int)floorf(y) - 1) * wc + ((int)floorf(x) - 1));
     v = gx = gy = 0.0f;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float* row = t0 + (size_t)r * wc;
+      const float* row = t0 + r * wc;
       float rs = 0.0f, rd = 0.0f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -150,9 +199,9 @@ __device__ __forceinline__ void grid_flow_body(
   const int p = active ? (int)(seg % n_patches) : 0;
   const size_t pn = (size_t)n_patches * n;
   const float* wb = win + (size_t)b * hc * wc;
-  const float* xb = pts + (size_t)b * 2 * pn + (size_t)p * n;
+  const float* xb = pts + (size_t)b * 2 * pn + (size_t)p * n + lane;
   const float* yb = xb + pn;
-  const float* tb = templ + (size_t)b * pn + (size_t)p * n;
+  const float* tb = templ + (size_t)b * pn + (size_t)p * n + lane;
   const float s = scale[b];
   constexpr bool kLin = kKind == kLinear;
   // clamp bounds rounded from double, as the plain form's scalars are
@@ -162,24 +211,23 @@ __device__ __forceinline__ void grid_flow_body(
   const float nf = (float)n;
 
   // point j of this lane is lane + j * lanes; it is live while < n
-  const int n_mine = active ? n : 0;
-  // Up to 8 points per lane (n <= 256: every grid level) keep their
-  // coordinates, template values and samples in registers; wider lanes
-  // keep only the values between the passes of an iteration, re-read
-  // their points through the read-only cache and sample the taps again
-  // for the sums, which keeps them under the 255-register cap without
-  // spills.
+  const int n_mine = active ? n - lane : 0;
+  auto live = [&](int j) { return j * lanes < n_mine; };
+  // Up to 8 points per lane (n <= 256 at 32 lanes, every grid level at any
+  // layout) keep their coordinates, template values and samples in
+  // registers; wider lanes keep only the values between the passes of an
+  // iteration, re-read their points through the read-only cache and
+  // sample the taps again for the sums, which keeps them under the
+  // 255-register cap without spills.
   constexpr bool kHold = K <= 8;
   constexpr int kHeld = kHold ? K : 1;
   float px[kHeld], py[kHeld], tv[kHeld];
   if constexpr (kHold) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int i = lane + j * lanes;
-      const bool live = i < n_mine;
-      px[j] = live ? xb[i] : 0.0f;
-      py[j] = live ? yb[i] : 0.0f;
-      tv[j] = live ? tb[i] : 0.0f;
+      px[j] = live(j) ? xb[j * lanes] : 0.0f;
+      py[j] = live(j) ? yb[j * lanes] : 0.0f;
+      tv[j] = live(j) ? tb[j * lanes] : 0.0f;
     }
   }
 
@@ -195,46 +243,56 @@ __device__ __forceinline__ void grid_flow_body(
         bx = px[j];
         by = py[j];
       } else {
-        bx = __ldg(xb + lane + j * lanes);
-        by = __ldg(yb + lane + j * lanes);
+        bx = __ldg(xb + j * lanes);
+        by = __ldg(yb + j * lanes);
       }
       const float x = fminf(fmaxf(__fadd_rn(bx, ox), lo), hix);
       const float y = fminf(fmaxf(__fadd_rn(by, oy), lo), hiy);
       sample_taps<kKind>(wb, wc, x, y, v, gx, gy);
     };
+    // every live point's samples first: K independent gathers in flight
     float v[K], gx[kHeld], gy[kHeld];
-    float s1 = 0.0f;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       v[j] = 0.0f;
       if constexpr (kHold) gx[j] = gy[j] = 0.0f;
-      if (lane + j * lanes >= n_mine) continue;
-      float vj, gxj, gyj;
-      sample_point(j, vj, gxj, gyj);
-      v[j] = vj;
+      if (!live(j)) continue;
+      float gxj, gyj;
+      sample_point(j, v[j], gxj, gyj);
       if constexpr (kHold) {
         gx[j] = gxj;
         gy[j] = gyj;
       }
-      s1 += vj;
     }
     if (zncc) {
-      const float mu = seg_sum(s1, lanes) / nf;
-      float s2 = 0.0f;
+      // dead points hold 0 and stay 0: they add nothing to any sum
+      auto v_leaf = [&](auto jc, float (&o)[1]) { o[0] = v[jc.value]; };
+      auto v_pair = [&](auto jc, float (&o)[1]) {
+        o[0] = v[jc.value] + v[jc.value + 1];
+      };
+      float s1[1];
+      tree_sum<0, K>(v_leaf, v_pair, s1);
+      const float mu = seg_sum(s1[0], lanes) / nf;
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        v[j] = lane + j * lanes < n_mine ? v[j] - mu : 0.0f;
-        s2 += v[j] * v[j];
-      }
-      const float inv = 1.0f / (sqrtf(seg_sum(s2, lanes) / nf) + 1e-6f);
+      for (int j = 0; j < K; ++j) v[j] = live(j) ? v[j] - mu : 0.0f;
+      auto c_leaf = [&](auto jc, float (&o)[1]) {
+        o[0] = v[jc.value] * v[jc.value];
+      };
+      auto c_pair = [&](auto jc, float (&o)[1]) {
+        constexpr int j = decltype(jc)::value;
+        o[0] = __fmaf_rn(v[j + 1], v[j + 1], __fmul_rn(v[j], v[j]));
+      };
+      float s2[1];
+      tree_sum<0, K>(c_leaf, c_pair, s2);
+      const float inv = 1.0f / (sqrtf(seg_sum(s2[0], lanes) / nf) + 1e-6f);
 #pragma unroll
       for (int j = 0; j < K; ++j) v[j] *= inv;
     }
-    // the 5 per-patch sums [JxJx, JxJy, JyJy, Jx r, Jy r]
-    float a[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (lane + j * lanes >= n_mine) continue;
+    // the 5 per-patch sums [JxJx, JxJy, JyJy, Jx r, Jy r]: the terms of
+    // point j from its Jacobian (jx, jy) and residual r, 0 where dead
+    auto point_terms = [&](int j, float& jx, float& jy, float& r) {
+      jx = jy = r = 0.0f;
+      if (!live(j)) return;
       float dx, dy, t;
       if constexpr (kHold) {
         dx = gx[j];
@@ -243,16 +301,34 @@ __device__ __forceinline__ void grid_flow_body(
       } else {
         float vj;
         sample_point(j, vj, dx, dy);
-        t = __ldg(tb + lane + j * lanes);
+        t = __ldg(tb + j * lanes);
       }
-      const float r = v[j] - t;
-      const float jx = dx * s, jy = dy * s;
-      a[0] += jx * jx;
-      a[1] += jx * jy;
-      a[2] += jy * jy;
-      a[3] += jx * r;
-      a[4] += jy * r;
-    }
+      r = v[j] - t;
+      jx = dx * s;
+      jy = dy * s;
+    };
+    auto a_leaf = [&](auto jc, float (&o)[5]) {
+      float jx, jy, r;
+      point_terms(jc.value, jx, jy, r);
+      o[0] = __fmul_rn(jx, jx);
+      o[1] = __fmul_rn(jx, jy);
+      o[2] = __fmul_rn(jy, jy);
+      o[3] = __fmul_rn(jx, r);
+      o[4] = __fmul_rn(jy, r);
+    };
+    auto a_pair = [&](auto jc, float (&o)[5]) {
+      constexpr int j = decltype(jc)::value;
+      float jx, jy, r, kx, ky, q;
+      point_terms(j, jx, jy, r);
+      point_terms(j + 1, kx, ky, q);
+      o[0] = __fmaf_rn(kx, kx, __fmul_rn(jx, jx));
+      o[1] = __fmaf_rn(kx, ky, __fmul_rn(jx, jy));
+      o[2] = __fmaf_rn(ky, ky, __fmul_rn(jy, jy));
+      o[3] = __fmaf_rn(kx, q, __fmul_rn(jx, r));
+      o[4] = __fmaf_rn(ky, q, __fmul_rn(jy, r));
+    };
+    float a[5];
+    tree_sum<0, K>(a_leaf, a_pair, a);
     seg_sum5(a, lanes);
     const float hxx = a[0] + 1e-6f, hxy = a[1], hyy = a[2] + 1e-6f;
     const float gxr = a[3], gyr = a[4];
@@ -279,10 +355,21 @@ __device__ __forceinline__ void grid_flow_body(
   win, pts, templ, scale, disp, batch, hc, wc, n_patches, n, lanes, n_iters, \
       zncc
 
-// Up to 8 points per lane: ptxas's own register budget for 256 threads.
+// Up to 4 points per lane, and 8 with cubic taps: ptxas's own register
+// budget for 256 threads.
 template <int K, int kKind>
 __global__ void __launch_bounds__(kThreads)
 grid_flow_kernel(GRID_FLOW_PARAMS) {
+  grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
+}
+
+// 8 points per lane with linear taps: with its own budget ptxas aimed at
+// 3 blocks per SM and spilled (80 registers, 8 B); asking for 3 blocks
+// leaves it up to 85 registers and no spill. The cubic kinds need more
+// (118-127 registers) and keep ptxas's own budget.
+template <int K, int kKind>
+__global__ void __launch_bounds__(kThreads, 3)
+grid_flow_kernel_8(GRID_FLOW_PARAMS) {
   grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
 }
 
@@ -308,6 +395,9 @@ int launch(const void* win, const void* pts, const void* templ,
   if constexpr (K >= 16)
     grid_flow_kernel_wide<K, kKind><<<blocks, kThreads, 0, stream>>>(
         w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
+  else if constexpr (K == 8 && kKind == kLinear)
+    grid_flow_kernel_8<K, kKind><<<blocks, kThreads, 0, stream>>>(
+        w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
   else
     grid_flow_kernel<K, kKind><<<blocks, kThreads, 0, stream>>>(
         w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
@@ -323,7 +413,7 @@ int launch_kind(const void* win, const void* pts, const void* templ,
                 int n_patches, int n, int lanes, int per_lane, int n_iters,
                 int zncc, cudaStream_t st) {
 #define GRID_FLOW_CASE(K)                                                   \
-  if (per_lane <= K)                                                        \
+  if (per_lane == K)                                                        \
     return launch<K, kKind>(win, pts, templ, scale, disp, batch, hc, wc,    \
                             n_patches, n, lanes, n_iters, zncc, st);
   GRID_FLOW_CASE(1)
@@ -340,19 +430,23 @@ int launch_kind(const void* win, const void* pts, const void* templ,
 
 // Plain C entry point (bound with ctypes). All pointers are device pointers
 // to contiguous float32 tensors: win (B, Hc, Wc), pts (B, 2, P*n),
-// templ (B, P*n), scale (B), disp (B, P, 2) written. 1 <= n <= 1024;
-// `kind` is 0 linear, 1 cubic, 2 cubic_bspl. `stream` is the caller's CUDA
-// stream. Returns cudaErrorInvalidValue, launching nothing, for an n or a
-// kind out of range, else cudaGetLastError() after the launch.
+// templ (B, P*n), scale (B), disp (B, P, 2) written. 1 <= n <= 1024; the
+// layout is `lanes` threads per patch (a power of two up to 32) of
+// `per_lane` points each (1, 2, 4, 8, 16 or 32), lanes x per_lane >= n
+// (ops/kernels/grid_flow.py:layout picks it); `kind` is 0 linear, 1 cubic,
+// 2 cubic_bspl. `stream` is the caller's CUDA stream. Returns
+// cudaErrorInvalidValue, launching nothing, for an n, a layout or a kind
+// out of range, else cudaGetLastError() after the launch.
 extern "C" int grid_flow_launch(const void* win, const void* pts,
                                 const void* templ, const void* scale,
                                 void* disp, int batch, int hc, int wc,
                                 int n_patches, int n, int n_iters, int zncc,
-                                int kind, void* stream) {
+                                int kind, int lanes, int per_lane,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int lanes = 1;
-  while (lanes < n && lanes < 32) lanes <<= 1;
-  const int per_lane = (n + lanes - 1) / lanes;
+  if (n < 1 || n > 1024 || lanes < 1 || lanes > kMaxLanes ||
+      (lanes & (lanes - 1)) || lanes * per_lane < n)
+    return (int)cudaErrorInvalidValue;
   if (kind == kLinear)
     return launch_kind<kLinear>(win, pts, templ, scale, disp, batch, hc, wc,
                                 n_patches, n, lanes, per_lane, n_iters, zncc,

@@ -45,24 +45,36 @@
 // before the average, so an out-of-band point still adds J0 / 2) cannot
 // occur here.
 //
-// Layout: one block per tracker, threads stride over the points; each
-// thread keeps its accumulators in registers (SSD: S + S(S+1)/2, 44 at
-// S = 8 and 5 at S = 2; NCC: 21 more at S = 8), then a warp-shuffle +
-// shared-memory block reduction writes them out without atomics
-// (deterministic summation order). j0 is laid out (B, S, N), so
-// neighbouring threads read neighbouring points of each row. The MC mode
-// sums its channels into the same accumulators (no register grows with
-// C); the channel count is a runtime loop, so one instantiation takes
-// C = 1-4, and the single-channel modes keep C = 1 at compile time. The
-// TPU kernel builds its (Wc, TN) tap-weight matrices once and shares them
-// across channels; here the shared part is per point: projection, warp
-// Jacobian, tap positions and weights once, then C times only the tap
-// reads and the accumulation. The blurred mode (K4b, reached by no tracker:
-// the trackers blur the frame once per stride instead) keeps no per-point
-// weight arrays: each row's and each column's weight is summed over the
-// binomial taps on the fly inside the tap loop, blur being a runtime
-// argument; it is a separate template flag, so the plain-tap code is the
-// same with or without it.
+// Layout: one block of 1-8 warps per tracker (ops/kernels/lk_fused.py:
+// block_warps: one warp per two 32-point chunks, so small N leaves room
+// on the SM for more trackers); each warp takes 32 points at a time, one
+// per lane, and loads the next chunk's point and template value while it
+// works on this one. A lane projects its point, forms the warp Jacobian
+// and samples the taps, then writes its row of the warp's tile in shared
+// memory: Jm (S entries) and the vectors the sums need (SSD the residual
+// t - v; NCC n0, v and 1). The warp then accumulates the tile's outer
+// products on the tensor cores (tile_mma: D (16 x 8) += [Jm | vectors]
+// Jm^T, four m16n8k8 TF32 products of 8 points, each split 3xTF32 for
+// float32-class accuracy), so J^T J, g (NCC: a, Jm v, Jm 1) live in a
+// 4-register fragment instead of 44 (SSD) or 65 (NCC) accumulators per
+// thread; only NCC's 5 scalar moments stay per-lane sums. The warps' D
+// fragments are summed in warp order through shared memory: a fixed
+// summation order with no atomics, so results repeat. J^T J is D's upper
+// triangle, mirrored. A point past N writes zeros, so it adds nothing to
+// any sum (ESM: after the mean with J0), and NCC's live count stays N.
+// j0 is laid out (B, S, N), so neighbouring lanes read neighbouring
+// points of each row. The MC mode runs the tile and its products once
+// per channel (no register grows with C); the channel count is a runtime
+// loop, so one instantiation takes C = 1-4, and the single-channel modes
+// keep C = 1 at compile time. The TPU kernel builds its (Wc, TN)
+// tap-weight matrices once and shares them across channels; here the
+// shared part is per point: projection, warp Jacobian, tap positions and
+// weights once, then C times only the tap reads and the accumulation.
+// The blurred mode (K4b, reached by no tracker: the trackers blur the
+// frame once per stride instead) keeps no per-point weight arrays: each
+// row's and each column's weight is summed over the binomial taps on the
+// fly inside the tap loop, blur being a runtime argument; it is a
+// separate template flag and kernel.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32), each input read once and
 // each output written once: per tracker the window pixels the points' taps
@@ -75,19 +87,26 @@
 // and values, ~0.21 GB in all, ~0.06 ms; ~0.7 GFLOP is ~0.01 ms. Memory
 // bounds every plain-tap mode; the blurred taps cost (2r + 1) tap
 // evaluations per weight and ((2r + 2)^2 or (2r + 4)^2) weights per point
-// and channel, which makes operations bound them from blur ~3 on. The
-// kernel's own limit is the exposed latency of the dependent tap gathers:
-// K1 at B = 1280, N = 2500 took 0.15 ms on an H100 80GB HBM3 at 700 W.
-// Neighbouring threads take neighbouring points, which map to neighbouring
-// pixels, so tap reads coalesce. The register accumulators leave one
-// 256-thread block per SM at S = 8, which leaves little to hide that
-// latency; the NCC modes hold 2 S + 5 more accumulators than SSD and the
-// cubic kinds 16 more tap weights. Fewer live registers, several small-N
-// trackers per block, taps read straight from the shared frame (no crop)
-// and a bf16 window are later work.
-
+// and channel, which makes operations bound them from blur ~3 on.
+// What held the kernel back, measured on an H100 80GB HBM3 at 700 W with
+// ablations of the earlier design (one thread per point, S + S(S+1)/2
+// float32 accumulators per thread, PERF.md §6): at S = 8 those
+// accumulators took the thread to 180 registers, one 256-thread block per
+// SM, which left the two dependent memory round trips of each point (its
+// coordinates, then its tap gathers) exposed; without the J^T J sums K1
+// ran 0.096 ms instead of 0.145, with the next point's loads in flight
+// 0.114, and capped at 128 registers it spilled and gained nothing. The
+// tensor-core tile takes the accumulators out of the registers (64-112
+// at S = 8, 2-4 blocks per SM), and the prefetch covers the first round
+// trip, and blocks sized to N let an SM hold several small-N trackers.
+// K1 at B = 1280 then took 0.075 ms at N = 2500 (bound 0.0295), 0.028 at
+// 625 and 0.008 at 169 (0.143, 0.057 and 0.026 before), on the same card.
+// What bounds it now is the tap gathers' latency against the warps an SM
+// holds, and the issue of the per-point work (projection, Jacobian, taps,
+// tile and its products).
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "dense_taps.cuh"
 
@@ -105,10 +124,18 @@ using dense_taps::linear_sample;
 
 constexpr int kS = LK_S;                    // state dims (the SSM's DOF)
 constexpr int kMaxBlur = 8;                 // as MAX_BLUR in lk_fused.py
-constexpr int kNH = kS * (kS + 1) / 2;      // upper triangle of J^T J
 constexpr int kNScal = 5;                   // NCC scalar moments
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 256;            // a block is 1-8 warps
+constexpr int kMaxWarps = kMaxThreads / 32;
+// the per-warp tile of tile_mma: 16 rows (Jm's S, zero up to 8, then the
+// vectors) x 32 points; a row stride of 36 floats makes the row writes
+// (one point per lane) and the fragment reads (bank 4 grp + tig) free of
+// bank conflicts
+constexpr int kRows = 16;
+constexpr int kTileStride = 36;
+// dynamic shared memory per warp: its tile, its D (16 x 8) and its NCC
+// scalars
+constexpr int kWarpSmem = kRows * kTileStride + kRows * 8 + kNScal;
 
 // One tap at offset t = k - x of `kKind` for the blurred mode: its weight
 // phi(t) and its derivative with respect to x, -phi'(t) (linear: sign(t)
@@ -141,6 +168,53 @@ __device__ __forceinline__ void blurred_tap(float t, int r,
   }
 }
 
+// The tensor-core accumulation. One m16n8k8 TF32 product per 8 points:
+// A (16 x 8) is the tile's 16 rows at those points, B (8 x 8) its first
+// 8 rows (the Jm entries) transposed, so D (16 x 8) += [Jm | vectors]
+// Jm^T over them. Each float x is split into big, x rounded to TF32's 10
+// mantissa bits (to nearest, ties away, as cvt.rna: two integer
+// operations), and small = x - big (exact), which the tensor core reads
+// to 10 bits (|small| <= 2^-11 |x|, so x is kept to ~2^-21); D takes
+// small_a big_b, big_a small_b, then big_a big_b (3xTF32: float32-class
+// products, the small x small term below float32 rounding) and
+// accumulates in float32 in a fixed order.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += tile rows x (its Jm rows)^T over the warp's 32 points (4 products
+// of 8 points, in order). Fragment layout of m16n8k8 (grp = lane / 4,
+// tig = lane % 4): a = A[grp][tig], A[grp + 8][tig], A[grp][tig + 4],
+// A[grp + 8][tig + 4]; b = B[tig][grp], B[tig + 4][grp], which are a[0]
+// and a[2] here; d = D[grp][2 tig], D[grp][2 tig + 1], D[grp + 8][2 tig],
+// D[grp + 8][2 tig + 1].
+__device__ __forceinline__ void tile_mma(const float (*t)[kTileStride],
+                                         int grp, int tig, float (&d)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const int col = kc * 8 + tig;
+    uint32_t big[4], small[4];
+    split_tf32(t[grp][col], big[0], small[0]);
+    split_tf32(t[grp + 8][col], big[1], small[1]);
+    split_tf32(t[grp][col + 4], big[2], small[2]);
+    split_tf32(t[grp + 8][col + 4], big[3], small[3]);
+    mma_tf32(d, small, big[0], big[2]);
+    mma_tf32(d, big, small[0], small[2]);
+    mma_tf32(d, big, big[0], big[2]);
+  }
+}
+
 // One block's whole iteration: the kernels below run it for one tracker.
 template <bool kNcc, bool kEsm, bool kMc, int kKind, bool kBlur>
 __device__ __forceinline__ void chain_iteration(
@@ -151,15 +225,11 @@ __device__ __forceinline__ void chain_iteration(
     float* __restrict__ h_out, float* __restrict__ mom_out,
     float* __restrict__ scal_out, int hc, int wc, int n, int channels,
     int blur) {
-  // accumulator layout: [g or a (S) | J^T J upper triangle (S(S+1)/2)],
-  // and for NCC [Jm v (S) | Jm (S) | the 5 scalars]
-  constexpr int kMom = kS + kNH;
-  constexpr int kScal = kMom + 2 * kS;
-  constexpr int kNAcc = kNcc ? kScal + kNScal : kMom;
   constexpr bool kLin = kKind == kLinear;
   // rows 0..2: M0; rows 3 + 3 s + r: row r of M0 G_s
   __shared__ float a_rows[3 + 3 * kS][3];
-  __shared__ float red[kWarps][kNAcc];
+  // per warp (kWarpSmem floats each): tiles, then Ds, then NCC scalars
+  extern __shared__ float warp_smem[];
   // blurred taps: C(2r, i) / 4^r, by Pascal's rule and halvings, so exact
   // in float32 as _binomial_taps' float32 taps are (no division, which
   // would be a call)
@@ -167,6 +237,15 @@ __device__ __forceinline__ void chain_iteration(
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  float (*tile)[kRows][kTileStride] =
+      reinterpret_cast<float (*)[kRows][kTileStride]>(warp_smem);
+  float (*red)[kRows * 8] = reinterpret_cast<float (*)[kRows * 8]>(
+      warp_smem + nwarps * kRows * kTileStride);
+  float (*red_s)[kNScal] = reinterpret_cast<float (*)[kNScal]>(
+      warp_smem + nwarps * (kRows * kTileStride + kRows * 8));
+  const int grp = lane >> 2, tig = lane & 3;
   const int nch = kMc ? channels : 1;
   const float* m = m0 + (size_t)b * 9;
   const int rad = kBlur ? blur - 1 : 0;
@@ -179,18 +258,23 @@ __device__ __forceinline__ void chain_iteration(
     }
   }
   if (tid < 9) a_rows[tid / 3][tid % 3] = m[tid];
-  for (int e = tid; e < kS * 9; e += kThreads) {
+  for (int e = tid; e < kS * 9; e += nthreads) {
     const int s = e / 9, r = (e / 3) % 3, k = e % 3;
     const float* G = gens + s * 9;
     a_rows[3 + 3 * s + r][k] =
         m[r * 3 + 0] * G[0 * 3 + k] + m[r * 3 + 1] * G[1 * 3 + k] +
         m[r * 3 + 2] * G[2 * 3 + k];
   }
+  // rows the points never write (S..7, and past the vectors) stay 0
+  for (int e = tid; e < nwarps * kRows * kTileStride; e += nthreads)
+    (&tile[0][0][0])[e] = 0.0f;
   __syncthreads();
 
-  float acc[kNAcc];
+  float (*t_w)[kTileStride] = tile[warp];
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // this warp's D fragment
+  float sc[kNScal];                           // NCC scalar moments
 #pragma unroll
-  for (int i = 0; i < kNAcc; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kNScal; ++i) sc[i] = 0.0f;
 
   const size_t plane = (size_t)hc * wc;
   const float* phb = ph + (size_t)b * 3 * n;
@@ -205,8 +289,26 @@ __device__ __forceinline__ void chain_iteration(
   const float hix = (float)((double)wc - (kLin ? 1.001 : 2.001) - rad);
   const float hiy = (float)((double)hc - (kLin ? 1.001 : 2.001) - rad);
 
-  for (int p = tid; p < n; p += kThreads) {
-    const float px = phb[p], py = phb[n + p], pw = phb[2 * n + p];
+  // The next chunk's point and (first) template value are loaded while
+  // this one is processed. A point past N reads as (0, 0, 1): finite, its
+  // taps inside the window, and every term it makes is set to 0.
+  auto load_point = [&](int q, float& x, float& y, float& w, float& t) {
+    const bool ok = q < n;
+    x = ok ? phb[q] : 0.0f;
+    y = ok ? phb[n + q] : 0.0f;
+    w = ok ? phb[2 * n + q] : 1.0f;
+    t = ok ? tb[q] : 0.0f;
+  };
+  float npx, npy, npw, nt;
+  load_point(warp * 32 + lane, npx, npy, npw, nt);
+
+  // each warp takes 32 points at a time, one per lane, its trip count the
+  // same for every lane (mma needs the whole warp)
+  for (int base = warp * 32; base < n; base += nthreads) {
+    const int p = base + lane;
+    const bool live = p < n;
+    const float px = npx, py = npy, pw = npw, t_first = nt;
+    load_point(p + nthreads, npx, npy, npw, nt);
     // The linear derivative steps at integer coordinates, so the
     // projection is rounded exactly as the plain form rounds it: separate
     // products and sums in its order (no FMA contraction), an IEEE
@@ -275,24 +377,22 @@ __device__ __forceinline__ void chain_iteration(
           const float* row = tc + i * wc;
           float rs = 0.0f, rd = 0.0f;
           for (int j = 0; j < ntaps; ++j) {
-            float w, d;
-            blurred_tap<kKind>((fx0 + (float)j) - x, rad, btaps, w, d);
+            float w, dd;
+            blurred_tap<kKind>((fx0 + (float)j) - x, rad, btaps, w, dd);
             const float pix = row[j];
             rs += w * pix;
-            rd += d * pix;
+            rd += dd * pix;
           }
-          float w, d;
-          blurred_tap<kKind>((fy0 + (float)i) - y, rad, btaps, w, d);
+          float w, dd;
+          blurred_tap<kKind>((fy0 + (float)i) - y, rad, btaps, w, dd);
           v += w * rs;
           dx += w * rd;
-          dy += d * rs;
+          dy += dd * rs;
         }
       } else if constexpr (kLin) {
         linear_sample(tc, wc, fx, fy, v, dx, dy);
       } else {
-        // dense_taps::cubic_sample's sum, spelled out: through the helper
-        // the multi-channel instantiations took other register counts
-        // (196 for 198 and 195), and the plain taps keep theirs
+        // dense_taps::cubic_sample's sum, spelled out
         v = dx = dy = 0.0f;
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -309,139 +409,166 @@ __device__ __forceinline__ void chain_iteration(
           dy += dwy[r] * rs;
         }
       }
-      vb[(size_t)c * n + p] = v;
-      const float t = tb[(size_t)c * n + p];
-
-      float jm[kS];
+      float t = t_first;
+      if (live) {
+        vb[(size_t)c * n + p] = v;
+        if (c > 0) t = tb[(size_t)c * n + p];
+      }
+      // this point's rows of the tile: Jm (with ESM the mean with J0,
+      // then masked), then the vectors; a point past N writes zeros
 #pragma unroll
       for (int s = 0; s < kS; ++s) {
-        jm[s] = jx[s] * dx + jy[s] * dy;
-        if constexpr (kEsm) jm[s] = 0.5f * (jm[s] + j0b[(size_t)s * n + p]);
-      }
-      // SSD: the residual weights g; NCC: n0 weights a
-      const float w = kNcc ? t : t - v;
-#pragma unroll
-      for (int s = 0; s < kS; ++s) acc[s] += jm[s] * w;
-      int k = kS;
-#pragma unroll
-      for (int i = 0; i < kS; ++i) {
-#pragma unroll
-        for (int j = i; j < kS; ++j) acc[k++] += jm[i] * jm[j];
+        float jm = jx[s] * dx + jy[s] * dy;
+        if constexpr (kEsm)
+          jm = 0.5f * (jm + (live ? j0b[(size_t)s * n + p] : 0.0f));
+        t_w[s][lane] = live ? jm : 0.0f;
       }
       if constexpr (kNcc) {
-#pragma unroll
-        for (int s = 0; s < kS; ++s) {
-          acc[kMom + s] += jm[s] * v;
-          acc[kMom + kS + s] += jm[s];
+        t_w[8][lane] = live ? t : 0.0f;
+        t_w[9][lane] = live ? v : 0.0f;
+        t_w[10][lane] = live ? 1.0f : 0.0f;
+        if (live) {
+          sc[0] += v;
+          sc[1] += v * v;
+          sc[2] += t * v;
+          sc[3] += 1.0f;
+          sc[4] += t;
         }
-        acc[kScal + 0] += v;
-        acc[kScal + 1] += v * v;
-        acc[kScal + 2] += t * v;
-        acc[kScal + 3] += 1.0f;
-        acc[kScal + 4] += t;
+      } else {
+        t_w[8][lane] = live ? t - v : 0.0f;
       }
+      __syncwarp();
+      tile_mma(t_w, grp, tig, d);
+      __syncwarp();
     }
   }
 
-  const int lane = tid & 31, warp = tid >> 5;
+  // this warp's D, and (NCC) its scalars, to shared memory
+  red[warp][grp * 8 + 2 * tig] = d[0];
+  red[warp][grp * 8 + 2 * tig + 1] = d[1];
+  red[warp][(grp + 8) * 8 + 2 * tig] = d[2];
+  red[warp][(grp + 8) * 8 + 2 * tig + 1] = d[3];
+  if constexpr (kNcc) {
 #pragma unroll
-  for (int i = 0; i < kNAcc; ++i) {
-    float s = acc[i];
+    for (int i = 0; i < kNScal; ++i) {
+      float v = sc[i];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][i] = s;
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red_s[warp][i] = v;
+    }
   }
   __syncthreads();
 
-  if (tid < kNAcc) {
+  // D over the warps, in warp order: rows 0..S-1 x cols 0..S-1 are
+  // Jm Jm^T (its upper triangle, mirrored), row 8 g (SSD) or a (NCC),
+  // rows 9 and 10 [Jm v; Jm 1]
+  for (int e = tid; e < kRows * 8 + (kNcc ? kNScal : 0); e += nthreads) {
     float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-    if (tid < kS) {
-      g_out[(size_t)b * kS + tid] = s;
-    } else if (tid < kMom) {
-      int idx = tid - kS, i = 0;
-      while (idx >= kS - i) {
-        idx -= kS - i;
-        ++i;
+    if (e < kRows * 8) {
+      const int row = e >> 3, col = e & 7;
+      for (int w = 0; w < nwarps; ++w) s += red[w][e];
+      if (row < kS && col < kS && row <= col) {
+        float* h = h_out + (size_t)b * kS * kS;
+        h[row * kS + col] = s;
+        h[col * kS + row] = s;
+      } else if (col < kS && row == 8) {
+        g_out[(size_t)b * kS + col] = s;
+      } else if (kNcc && col < kS && (row == 9 || row == 10)) {
+        mom_out[(size_t)b * 2 * kS + (row - 9) * kS + col] = s;
       }
-      const int j = i + idx;
-      float* h = h_out + (size_t)b * kS * kS;
-      h[i * kS + j] = s;
-      h[j * kS + i] = s;
-    } else if (tid < kScal) {
-      mom_out[(size_t)b * 2 * kS + (tid - kMom)] = s;
     } else {
-      scal_out[(size_t)b * kNScal + (tid - kScal)] = s;
+      const int i = e - kRows * 8;
+      for (int w = 0; w < nwarps; ++w) s += red_s[w][i];
+      scal_out[(size_t)b * kNScal + i] = s;
     }
   }
 }
 
-// The plain taps keep ptxas's own register budget, as before the blurred
-// mode existed. The blurred taps' runtime tap loops made ptxas trade
-// registers for occupancy and spill (capped at 64 or 128 registers), so
-// their kernel asks for one 256-thread block per SM, which leaves it all
-// 255 registers.
-template <bool kNcc, bool kEsm, bool kMc, int kKind>
-__global__ void __launch_bounds__(kThreads)
-lk_fused_chain_kernel(const float* __restrict__ win,
-                      const float* __restrict__ m0,
-                      const float* __restrict__ gens,
-                      const float* __restrict__ ph,
-                      const float* __restrict__ templ,
-                      const float* __restrict__ j0,
-                      float* __restrict__ val,
-                      float* __restrict__ g_out,
-                      float* __restrict__ h_out,
-                      float* __restrict__ mom_out,
-                      float* __restrict__ scal_out,
-                      int hc, int wc, int n, int channels, int blur) {
-  chain_iteration<kNcc, kEsm, kMc, kKind, false>(
-      win, m0, gens, ph, templ, j0, val, g_out, h_out, mom_out, scal_out, hc,
-      wc, n, channels, blur);
+#define CHAIN_PARAMS                                                        \
+  const float* __restrict__ win, const float* __restrict__ m0,              \
+      const float* __restrict__ gens, const float* __restrict__ ph,         \
+      const float* __restrict__ templ, const float* __restrict__ j0,        \
+      float* __restrict__ val, float* __restrict__ g_out,                   \
+      float* __restrict__ h_out, float* __restrict__ mom_out,               \
+      float* __restrict__ scal_out, int hc, int wc, int n, int channels,    \
+      int blur
+#define CHAIN_ARGS                                                          \
+  win, m0, gens, ph, templ, j0, val, g_out, h_out, mom_out, scal_out, hc,   \
+      wc, n, channels, blur
+
+// Register budgets of the plain taps, by class (ptxas's own budget took
+// 64 or 80 registers and spilled a few bytes in the classes below it,
+// PERF.md §6): linear taps without ESM keep ptxas's own (48-64
+// registers, four blocks of 8 warps per SM); ESM at S = 8, ESM with
+// linear taps and SSD (one channel or several) with cubic taps ask for
+// three blocks, at most 80 registers (ESM at S = 8 ran 13-22% faster
+// there than on its own budget); NCC, and ESM below S = 8, with cubic
+// taps ask for two, at most 128. The blurred taps' runtime tap loops made
+// ptxas trade registers for occupancy and spill (capped at 64 or 128
+// registers), so their kernel asks for one block per SM, which leaves it
+// all 255 registers.
+template <bool kNcc, bool kEsm, int kKind>
+constexpr int min_blocks() {
+  if (kKind == kLinear && !kEsm) return 0;              // ptxas's own
+  if (kEsm && kS == 8) return 3;
+  if (kKind != kLinear && (kNcc || kEsm)) return 2;
+  return 3;
 }
 
 template <bool kNcc, bool kEsm, bool kMc, int kKind>
-__global__ void __launch_bounds__(kThreads, 1)
-lk_fused_chain_blur_kernel(const float* __restrict__ win,
-                           const float* __restrict__ m0,
-                           const float* __restrict__ gens,
-                           const float* __restrict__ ph,
-                           const float* __restrict__ templ,
-                           const float* __restrict__ j0,
-                           float* __restrict__ val,
-                           float* __restrict__ g_out,
-                           float* __restrict__ h_out,
-                           float* __restrict__ mom_out,
-                           float* __restrict__ scal_out,
-                           int hc, int wc, int n, int channels, int blur) {
-  chain_iteration<kNcc, kEsm, kMc, kKind, true>(
-      win, m0, gens, ph, templ, j0, val, g_out, h_out, mom_out, scal_out, hc,
-      wc, n, channels, blur);
+__global__ void __launch_bounds__(kMaxThreads)
+lk_fused_chain_kernel(CHAIN_PARAMS) {
+  chain_iteration<kNcc, kEsm, kMc, kKind, false>(CHAIN_ARGS);
 }
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
+__global__ void __launch_bounds__(kMaxThreads, 3)
+lk_fused_chain_kernel_3(CHAIN_PARAMS) {
+  chain_iteration<kNcc, kEsm, kMc, kKind, false>(CHAIN_ARGS);
+}
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+lk_fused_chain_kernel_2(CHAIN_PARAMS) {
+  chain_iteration<kNcc, kEsm, kMc, kKind, false>(CHAIN_ARGS);
+}
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lk_fused_chain_blur_kernel(CHAIN_PARAMS) {
+  chain_iteration<kNcc, kEsm, kMc, kKind, true>(CHAIN_ARGS);
+}
+
+#undef CHAIN_ARGS
+#undef CHAIN_PARAMS
 
 struct Args {
   const float *win, *m0, *gens, *ph, *templ, *j0;
   float *val, *g, *h, *mom, *scal;
-  int batch, hc, wc, n, channels, blur;
+  int batch, hc, wc, n, channels, blur, warps;
   cudaStream_t stream;
 };
 
 template <bool kNcc, bool kEsm, bool kMc, int kKind, bool kBlur>
 void launch(const Args& a) {
+  const unsigned threads = 32u * a.warps;
+  const size_t smem = sizeof(float) * kWarpSmem * a.warps;
+#define CHAIN_LAUNCH(kernel)                                                \
+  kernel<kNcc, kEsm, kMc, kKind><<<a.batch, threads, smem, a.stream>>>(     \
+      a.win, a.m0, a.gens, a.ph, a.templ, a.j0, a.val, a.g, a.h, a.mom,     \
+      a.scal, a.hc, a.wc, a.n, a.channels, a.blur)
+  // only the kernel that runs is instantiated
+  constexpr int kMin = min_blocks<kNcc, kEsm, kKind>();
   if constexpr (kBlur)
-    lk_fused_chain_blur_kernel<kNcc, kEsm, kMc, kKind>
-        <<<a.batch, kThreads, 0, a.stream>>>(a.win, a.m0, a.gens, a.ph,
-                                             a.templ, a.j0, a.val, a.g, a.h,
-                                             a.mom, a.scal, a.hc, a.wc, a.n,
-                                             a.channels, a.blur);
+    CHAIN_LAUNCH(lk_fused_chain_blur_kernel);
+  else if constexpr (kMin == 3)
+    CHAIN_LAUNCH(lk_fused_chain_kernel_3);
+  else if constexpr (kMin == 2)
+    CHAIN_LAUNCH(lk_fused_chain_kernel_2);
   else
-    lk_fused_chain_kernel<kNcc, kEsm, kMc, kKind>
-        <<<a.batch, kThreads, 0, a.stream>>>(a.win, a.m0, a.gens, a.ph,
-                                             a.templ, a.j0, a.val, a.g, a.h,
-                                             a.mom, a.scal, a.hc, a.wc, a.n,
-                                             a.channels, a.blur);
+    CHAIN_LAUNCH(lk_fused_chain_kernel);
+#undef CHAIN_LAUNCH
 }
 
 // the five modes of one tap kind; false where there is no instantiation
@@ -476,24 +603,27 @@ bool launch_kind(const Args& a, int ncc, int esm, int mc) {
 // written only when ncc != 0 (null otherwise). `channels` is C (1-4) with
 // mc != 0 and 1 otherwise; `kind` is 0 linear, 1 cubic, 2 cubic_bspl;
 // `blur` 0 or 1 samples with plain taps, 2-8 with the binomially blurred
-// ones (the window must hold their 2 blur or 2 blur + 2 taps per axis).
-// `stream` is the caller's CUDA stream. Returns cudaErrorInvalidValue,
-// launching nothing, for a combination without an instantiation, else
-// cudaGetLastError() after the launch.
+// ones (the window must hold their 2 blur or 2 blur + 2 taps per axis);
+// `warps` (1-8) the warps of each tracker's block
+// (ops/kernels/lk_fused.py:block_warps picks it). `stream` is the
+// caller's CUDA stream. Returns cudaErrorInvalidValue, launching nothing,
+// for a combination without an instantiation or a block size out of
+// range, else cudaGetLastError() after the launch.
 extern "C" int lk_fused_chain_launch(const void* win, const void* m0,
                                      const void* gens, const void* ph,
                                      const void* templ, const void* j0,
                                      void* val, void* g, void* h, void* mom,
                                      void* scal, int batch, int hc, int wc,
                                      int n, int channels, int ncc, int esm,
-                                     int mc, int kind, int blur,
+                                     int mc, int kind, int blur, int warps,
                                      void* stream) {
   const Args a{(const float*)win, (const float*)m0, (const float*)gens,
                (const float*)ph, (const float*)templ, (const float*)j0,
                (float*)val, (float*)g, (float*)h, (float*)mom,
                (float*)scal, batch, hc, wc, n, mc ? channels : 1, blur,
-               (cudaStream_t)stream};
-  if (channels < 1 || channels > 4 || blur < 0 || blur > kMaxBlur)
+               warps, (cudaStream_t)stream};
+  if (channels < 1 || channels > 4 || blur < 0 || blur > kMaxBlur ||
+      warps < 1 || warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;
   bool ok = false;
   if (kind == kLinear)

@@ -23,8 +23,9 @@ Two levels, one contract:
   * `grid_flow_ref`: plain PyTorch;
   * `grid_flow`: CPU tensors take the plain form, CUDA tensors launch the
     CUDA kernel `csrc/grid_flow.cu` (one launch runs all `n_iters`
-    iterations); no fallback between them. `grid_flow.launches` counts
-    kernel launches per tap kind.
+    iterations) at the lanes per patch and points per lane that
+    `layout` picks; no fallback between them. `grid_flow.launches`
+    counts kernel launches per tap kind.
 
 Not carried over from the TPU kernel, being layout artifacts: the bf16
 window and tap-weight casts, the iota block-indicator (E-matrix)
@@ -47,9 +48,37 @@ from mtf_tpu_torch.ops.kernels.dense_sample import KINDS
 from mtf_tpu_torch.ops.linalg import solve2x2
 
 N_MAX = 1024        # points per patch the CUDA kernel takes (32 per lane)
+MAX_LANES = 32      # threads per patch: a patch never straddles a warp
 # points per lane of the kernel's instantiations, each with every tap kind
 POINTS_PER_LANE = (1, 2, 4, 8, 16, 32)
 INSTANTIATIONS = tuple((k, kind) for kind in KINDS for k in POINTS_PER_LANE)
+# points a lane takes: 8 (the most a lane keeps in registers,
+# `csrc/grid_flow.cu`) where a patch of more than 16 points runs several
+# iterations, so that the butterfly and the 2x2 solve that every lane of a
+# patch repeats are shared among the most points; 4 where a launch runs
+# one iteration or its patches are small, where more lanes in flight
+# cover the loads' latency better (a sweep of every layout on the card,
+# PERF.md §6: Median Flow's n = 64 x 20 iterations 8 x 8 lanes x
+# points, rklt's n = 16 x 8 iterations 4 x 4, n = 64 x 1 iteration 16 x 4)
+PER_LANE, PER_LANE_SHORT = 8, 4
+
+
+def layout(n: int, n_iters: int) -> tuple[int, int]:
+    """(lanes, points per lane) of the CUDA kernel for patches of n points
+    run `n_iters` iterations: the fewest lanes, a power of two up to
+    MAX_LANES, that take the n points at PER_LANE each (PER_LANE_SHORT for
+    one iteration or n <= 16), then the fewest points per lane (a power of
+    two) that cover n."""
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"grid_flow: n = {n} outside 1..{N_MAX}")
+    per = PER_LANE if n > 16 and n_iters > 1 else PER_LANE_SHORT
+    lanes = 1
+    while lanes < MAX_LANES and lanes * per < n:
+        lanes *= 2
+    per_lane = 1
+    while lanes * per_lane < n:
+        per_lane *= 2
+    return lanes, per_lane
 
 
 def _kind_check(kind: str) -> None:
@@ -131,25 +160,18 @@ def _check(win, pts, templ, scale, n, n_iters, kind):
 def _kernel_fn():
     """The kernel's C entry point, built and bound on first use."""
     fn = _build.load("grid_flow").lib.grid_flow_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
-              scale: torch.Tensor, n: int, n_iters: int,
-              zncc: bool = True, kind: str = "linear") -> torch.Tensor:
-    """`n_iters` joint grid-flow iterations (contract of `grid_flow_ref`)
-    -> disp (B, P, 2) in template units. CPU tensors run the plain form;
-    CUDA tensors launch the CUDA kernel on the current stream (K5 for
-    linear taps, K5c for the cubic kinds)."""
-    _kind_check(kind)
-    if win.device.type == "cpu":
-        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc, kind)
-    if win.device.type != "cuda":
-        raise ValueError(f"grid_flow: unsupported device {win.device}")
-    _check(win, pts, templ, scale, n, n_iters, kind)
+def launch(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
+           scale: torch.Tensor, n: int, n_iters: int, zncc: bool,
+           kind: str, lanes: int, per_lane: int) -> torch.Tensor:
+    """One CUDA launch at a given layout (`layout` picks it for
+    `grid_flow`; a timing sweep may pass any other): checked CUDA
+    operands -> disp (B, P, 2). Counts nothing."""
     b, hc, wc = win.shape
     p = templ.shape[-1] // n
     disp = torch.empty((b, p, 2), dtype=torch.float32, device=win.device)
@@ -158,10 +180,28 @@ def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
         err = _kernel_fn()(win.data_ptr(), pts.data_ptr(), templ.data_ptr(),
                            scale.data_ptr(), disp.data_ptr(), b, hc, wc, p,
                            n, int(n_iters), int(zncc), KINDS.index(kind),
-                           stream)
+                           lanes, per_lane, stream)
     if err != 0:
         raise RuntimeError(f"grid_flow: kernel launch failed with CUDA error "
-                           f"{err}")
+                           f"{err} (layout {lanes} lanes x {per_lane})")
+    return disp
+
+
+def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
+              scale: torch.Tensor, n: int, n_iters: int,
+              zncc: bool = True, kind: str = "linear") -> torch.Tensor:
+    """`n_iters` joint grid-flow iterations (contract of `grid_flow_ref`)
+    -> disp (B, P, 2) in template units. CPU tensors run the plain form;
+    CUDA tensors launch the CUDA kernel on the current stream (K5 for
+    linear taps, K5c for the cubic kinds) at `layout(n, n_iters)`."""
+    _kind_check(kind)
+    if win.device.type == "cpu":
+        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc, kind)
+    if win.device.type != "cuda":
+        raise ValueError(f"grid_flow: unsupported device {win.device}")
+    _check(win, pts, templ, scale, n, n_iters, kind)
+    disp = launch(win, pts, templ, scale, n, n_iters, zncc, kind,
+                  *layout(n, n_iters))
     grid_flow.launches[kind] += 1
     return disp
 

@@ -280,12 +280,31 @@ def _check(window, M0, gens, ph, templ, j0):
         raise ValueError("lk_fused_chain: empty batch or point set")
 
 
+# the warps a tracker's block of the CUDA chain kernel may have, and the
+# 32-point chunks each of them takes where N has enough: at small N a
+# block of fewer warps leaves room on the SM for more trackers at once (a
+# sweep of 1-8 warps on the card, PERF.md §6: 3 warps at N = 169 within
+# 3% of the best, 1 at the sub-tracker grid's 16 and 64, 8 at 2500; at
+# 625, 7 warps (3 chunks each) ran 14% faster than these 8, but moved the
+# LM refiner of one rklt tracker across an accept/reject tie)
+MAX_WARPS = 8
+CHUNKS_PER_WARP = 2
+
+
+def block_warps(n: int) -> int:
+    """Warps of each tracker's block of the CUDA chain kernel for N = n
+    points: one per CHUNKS_PER_WARP chunks of 32 points, 1 to
+    MAX_WARPS."""
+    chunks = -(-n // 32)
+    return max(1, min(MAX_WARPS, -(-chunks // CHUNKS_PER_WARP)))
+
+
 @functools.cache
 def _kernel_fn(s: int):
     """The chain kernels' C entry point of state size `s`, built (one
     library per S, `-DLK_S=<s>`) and bound on first use."""
     fn = _build.load("lk_fused_chain", {"LK_S": s}).lib.lk_fused_chain_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -331,7 +350,7 @@ def lk_fused_chain_raw(window: torch.Tensor, M0: torch.Tensor,
                             val.data_ptr(), g.data_ptr(), h.data_ptr(),
                             _ptr(mom), _ptr(scal), b, hc, wc, n, c, int(ncc),
                             int(esm), int(mc), KINDS.index(kind), blur,
-                            stream)
+                            block_warps(n), stream)
     if err != 0:
         raise RuntimeError(f"lk_fused_chain: kernel launch failed with CUDA "
                            f"error {err}")

@@ -1,57 +1,100 @@
-"""Time the chain kernel's K1 mode (SSD, one channel, linear taps) on the
-card, from whichever `mtf_tpu_torch` comes first on `sys.path`.
+"""Time the chain kernel on the card, from whichever `mtf_tpu_torch` comes
+first on `sys.path`.
 
-    PYTHONPATH=<tree> python3 scripts/port_time_k1.py [B N [S [blur]]]
+    PYTHONPATH=<tree> python3 scripts/port_time_k1.py [B N [S [blur [kind]]]]
+    PYTHONPATH=<tree> python3 scripts/port_time_k1.py table
+    PYTHONPATH=<tree> python3 scripts/port_time_k1.py sweep
 
-Defaults B = 1280, N = 2500 (the headline fleet's full-resolution
-iteration), S = 8 (the homography) and blur 0 (plain taps; 2-8 times the
-blurred taps, K4b). The operands are `chip_smoke.py`'s (`_chain_inputs`,
-seed 2, on its scene, with the warps of an S-DOF SSM); the kernel is
-called through `lk_fused_chain_raw` with the arguments every version of
-the port takes (a tree from before S and blur were arguments takes only
-S = 8 and blur 0), so two trees (a commit and its parent) can be timed in
-one call on one card, in turns (parent, change, change, parent). Prints
-one JSON line: the median of 5 CUDA-event timings of 200 launches each,
-the registers ptxas gave the timed instantiation, the package's path and
-the card.
+The first form times the SSD mode (one channel) at B trackers of N points
+each: defaults B = 1280, N = 2500 (the headline fleet's full-resolution
+iteration; N may be a comma list, e.g. 169,625,2500, the three phases of
+an update), S = 8 (the homography), blur 0 (plain taps; 2-8 times the
+blurred taps, K4b) and kind linear (K1; cubic or cubic_bspl time K1c).
+`table` times every chain row of PERF.md's kernel table at its shape:
+each mode and tap kind at its fleet's B and N = 2500, K1 and K1c
+ssd@cubic also at N = 169 and 625, SSD linear at S = 2-6, ssd:s2 at the
+sub-tracker grid's shapes, and K4b at blur 2. `sweep` (a tree with
+`lk_fused.block_warps`) times K1 at N = 169, 625 and 2500 and ssd:s2 at
+the sub-tracker grid's shapes at every block size of 1-8 warps.
+
+The operands are this repository's `chip_smoke.py`'s (`_chain_inputs`, seed 2,
+on its scene, with the warps of an S-DOF SSM); the kernel is called through
+`lk_fused_chain_raw` with the arguments every version of the port since its
+state sizes takes, so two trees (a commit and its parent) can be timed in one
+call on one card, in turns (parent, change, change, parent). Prints one JSON
+line: per row the device time of one launch (`chip_smoke._graph_ms`) and the
+time of one eager call (200 calls between CUDA events, the host's launch time
+included), the registers and spill bytes ptxas gave every chain instantiation
+of the state sizes timed, the package's path and the card.
 """
+import importlib.util
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
-# this script's repository last: the tree under test comes from PYTHONPATH
-sys.path.append(str(Path(__file__).resolve().parents[1]))
+import torch
 
-import torch  # noqa: E402
+# the tree under test, its mtf_tpu_torch, comes from PYTHONPATH (this
+# script's repository last); this repository's chip_smoke.py, by path (a
+# tree has its own), gives every tree the same operands and timing
+_REPO = Path(__file__).resolve().parents[1]
+sys.path.append(str(_REPO))
+_SPEC = importlib.util.spec_from_file_location("chip_smoke",
+                                               _REPO / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(cs)
 
-import chip_smoke as cs  # noqa: E402
 
-# an SSM key of each state size (the parent's chip_smoke may predate them)
+# an SSM key of each state size
 SSM_OF_S = {2: "2", 3: "3s", 4: "4", 5: "5", 6: "6", 8: "8"}
+B_SSD, B_OTHER, B_MC = 1280, 1024, 512       # the fleets' B (chip_smoke)
 
 
-def _registers(log: str, blurred: bool) -> int | None:
-    """ptxas registers of the SSD, single-channel, linear instantiation
-    (the chain kernel's template arguments all 0), of the blurred-tap
-    kernel where `blurred`."""
-    name = None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and re.search(r"lk_fused_chain_(blur_)?kernel", name):
-            flags = re.findall(r"Lb([01])E", name)
-            kind = re.search(r"Li(\d)E", name).group(1)
-            if (flags == ["0", "0", "0"] and kind == "0"
-                    and ("blur_kernel" in name) == blurred):
-                return int(m.group(1))
-    return None
+def table_rows():
+    """(label, am, esm, channels, kind, S, blur, B, N, window) of every
+    chain row of PERF.md's kernel table."""
+    rows = []
+    modes = (("K1", "ssd", False, 1), ("K2", "ncc", False, 1),
+             ("K3", "ssd", True, 1), ("K2+K3", "ncc", True, 1),
+             ("K4", "ssd", False, 3))
+    for kind in ("linear", "cubic", "cubic_bspl"):
+        for label, am, esm, c in modes:
+            b = B_SSD if label == "K1" else (B_MC if c > 1 else B_OTHER)
+            ns = (169, 625, 2500) if label == "K1" and kind != "cubic_bspl" \
+                else (2500,)
+            for n in ns:
+                rows.append((label if kind == "linear" else f"{label}@{kind}",
+                             am, esm, c, kind, 8, 0, b, n, 144))
+    for s in (2, 3, 4, 5, 6):
+        rows.append((f"K1:s{s}", "ssd", False, 1, "linear", s, 0, B_SSD,
+                     2500, 144))
+    for n in (16, 64):
+        rows.append(("K1:s2 sub-grid", "ssd", False, 1, "linear", 2, 0,
+                     384 * 100, n, 32))
+    rows.append(("K1+K4b blur 2", "ssd", False, 1, "linear", 8, 2, B_SSD,
+                 625, 144))
+    return rows
 
 
-def main(b: int = 1280, n: int = 2500, s: int = 8, blur: int = 0) -> int:
+def _time(tk, frames, dev, row):
+    label, am, esm, c, kind, s, blur, b, n, size = row
+    args, j0 = cs._chain_inputs(torch, frames[c], n, b, am, esm, dev,
+                                ssm_key=SSM_OF_S[s], size=size, span=size)
+    kw = dict(am=am, j0=j0, kind=kind)
+    if blur:
+        kw["blur"] = blur
+    def run():
+        return tk.lk_fused_chain_raw(*args, **kw)
+
+    ms, eager = cs._graph_ms(torch, run), cs._time_ms(torch, run, 200)
+    del args, j0
+    torch.cuda.empty_cache()
+    return {"ms": ms, "ms_eager": eager, "B": b, "N": n, "S": s, "C": c,
+            "kind": kind, "blur": blur}
+
+
+def main(*argv) -> int:
     if not torch.cuda.is_available():
         print("port_time_k1: needs a CUDA device", file=sys.stderr)
         return 1
@@ -64,20 +107,41 @@ def main(b: int = 1280, n: int = 2500, s: int = 8, blur: int = 0) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     frame = torch.as_tensor(cs._scene(0), device=dev)
-    args, _ = cs._chain_inputs(torch, frame, n, b, "ssd", False, dev,
-                               **({} if s == 8 else {"ssm_key": SSM_OF_S[s]}))
-    kw = {"blur": blur} if blur else {}
-    times = sorted(cs._time_ms(torch, lambda: tk.lk_fused_chain_raw(
-        *args, **kw), 200) for _ in range(5))
-    built = (_build.load("lk_fused_chain", {"LK_S": s})
-             if hasattr(tk, "STATE_DIMS") else _build.load("lk_fused_chain"))
-    print(json.dumps({"k1_ms": times[2], "k1_ms_all": times, "B": b, "N": n,
-                      "S": s, "blur": blur,
-                      "registers": _registers(built.log, blur > 1),
+    frames = {1: frame, 3: torch.as_tensor(cs._scene3(0), device=dev)}
+    sweep = argv[:1] == ("sweep",)
+    if argv[:1] == ("table",):
+        rows = table_rows()
+    elif sweep:
+        rows = [r for r in table_rows() if r[0] in ("K1", "K1:s2 sub-grid")]
+    else:
+        b, ns, s, blur, kind = (list(argv) + [None] * 5)[:5]
+        b, s, blur = int(b or 1280), int(s or 8), int(blur or 0)
+        kind = kind or "linear"
+        rows = [(f"ssd:s{s}@{kind}", "ssd", False, 1, kind, s, blur, b,
+                 int(n), 144) for n in (ns or "2500").split(",")]
+    sizes = sorted({r[5] for r in rows})
+    libs = _build.load_all([("lk_fused_chain", {"LK_S": s}) for s in sizes])
+    out = {}
+    for row in rows:
+        out[f"{row[0]} N={row[8]}"] = _time(tk, frames, dev, row)
+        if sweep:
+            default, out[f"{row[0]} N={row[8]}"]["warps"] = (
+                tk.block_warps, tk.block_warps(row[8]))
+            for w in range(1, tk.MAX_WARPS + 1):
+                tk.block_warps = lambda n, w=w: w
+                out[f"{row[0]} N={row[8]} warps={w}"] = _time(tk, frames,
+                                                             dev, row)
+            tk.block_warps = default
+    regs = {}
+    for s in sizes:
+        log = libs[_build.lib_key("lk_fused_chain", {"LK_S": s})].log
+        for key, use in cs._ptxas_usage(log).items():
+            regs[f"s{s} {key}"] = list(use)
+    print(json.dumps({"rows": out, "registers": regs,
                       "package": str(Path(mtf_tpu_torch.__file__).parent),
                       "card": card}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(*(int(a) for a in sys.argv[1:5])))
+    sys.exit(main(*sys.argv[1:]))

@@ -11,6 +11,8 @@ no coarse phase) to keep the JAX compiles short; the card runs the
 benchmark's 6 + 3 + 1 (`chip_smoke.py`), and the coarse phases are held
 against the JAX package in `test_torch_fleet.py` and the slice files.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm.composite import (CascadeSM, CompositeState,
                                         ParallelSM, PyramidalSM, where_state)
 from mtf_tpu_torch.sm.grid import GridTracker
-from test_torch_fleet import CORNER_TOL, CORNERS, _scene
+from test_torch_fleet import CORNER_TOL, CORNERS, _scene, side_by_side
 from test_torch_grid import GRID_CORNERS, jax_fit_indices, use_indices
 
 LK_CFG = dict(resx=50, resy=50, max_iters=4, epsilon=0.0,
@@ -61,32 +63,40 @@ def _grids(sm):
     return [m for m in sm.modules() if isinstance(m, GridTracker)]
 
 
+def _jax_ref(name):
+    """Two JAX updates of case `name` on a 3-frame synthetic sequence,
+    with its initial state."""
+    key, cfg, corners, pallas = CASES[name]
+    fl = JFleet(jcreate(key, "ssd", "8", use_pallas=pallas, **cfg))
+    frames, gt = jsynth.synthetic_sequence(
+        _scene(0), corners, fl.sm.ssm, n_frames=3, sigma_scale=0.004,
+        seed=SEQ_SEED)
+    frames = np.asarray(frames)
+    st = fl.initialize(frames[0], corners)
+    out = {"frames": frames, "gt": gt, "corners": [],
+           "state0": jax.tree.map(np.asarray, st)}
+    if key == "rklt":
+        # RKLT.update never reads the final-corner slot: a placeholder
+        # keeps one compiled step for both updates
+        st = JCompositeState(st.members, (jnp.zeros(corners.shape),))
+    for t in (1, 2):
+        st = fl.update(st, frames[t])
+        out["corners"].append(np.asarray(fl.corners(st)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def ref():
-    """Two JAX updates per case on a 3-frame synthetic sequence, on first
-    use; with each case's initial state."""
+    """Every case's JAX reference (`_jax_ref`), computed once, the four
+    compiles side by side on first use."""
     cache = {}
 
+    def fill(name):
+        cache[name] = _jax_ref(name)
+
     def get(name):
-        if name not in cache:
-            key, cfg, corners, pallas = CASES[name]
-            fl = JFleet(jcreate(key, "ssd", "8", use_pallas=pallas, **cfg))
-            frames, gt = jsynth.synthetic_sequence(
-                _scene(0), corners, fl.sm.ssm, n_frames=3, sigma_scale=0.004,
-                seed=SEQ_SEED)
-            frames = np.asarray(frames)
-            st = fl.initialize(frames[0], corners)
-            out = {"frames": frames, "gt": gt, "corners": [],
-                   "state0": jax.tree.map(np.asarray, st)}
-            if key == "rklt":
-                # RKLT.update never reads the final-corner slot: a
-                # placeholder keeps one compiled step for both updates
-                st = JCompositeState(st.members,
-                                     (jnp.zeros(corners.shape),))
-            for t in (1, 2):
-                st = fl.update(st, frames[t])
-                out["corners"].append(np.asarray(fl.corners(st)))
-            cache[name] = out
+        if not cache:
+            side_by_side([functools.partial(fill, n) for n in CASES])
         return cache[name]
     return get
 

@@ -21,7 +21,8 @@ from mtf_tpu_torch import create_tracker as tcreate
 from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.ssm import get_ssm as tget_ssm
-from test_torch_fleet import CFG, CORNER_TOL, CORNERS, _scene, jax_init
+from test_torch_fleet import (CFG, CORNER_TOL, CORNERS, _scene, jax_init,
+                              side_by_side)
 
 # the configurations of tests/test_r5_features.py:36-50 (no coarse phases
 # unless given: 10 full-resolution iterations)
@@ -79,22 +80,30 @@ def test_one_update_matches_jax(case, jax_path):
 def lm_ref():
     """eslm/ncc in the benchmark's configuration (coarse phases 6 + 3 + 1,
     LM on), computed once: its initial state and a 4-frame synthetic GT
-    leg on the generic JAX path, and the first update on the Pallas path."""
+    leg on the generic JAX path, and the first update on the Pallas path,
+    the two compiles side by side."""
     frame = _scene()
     fl = JFleet(jcreate("eslm", "ncc", "8", **CFG))
     frames, gt = jsynth.synthetic_sequence(
         frame, CORNERS, fl.sm.ssm, n_frames=4, sigma_scale=0.004, seed=3)
     frames = np.asarray(frames)
-    st = jax_init(fl, frames[0], CORNERS)
-    out = {"frames": frames, "gt": gt, "state0": jax.tree.map(np.asarray, st)}
-    leg = []
-    for t in range(1, len(frames)):
-        st = fl.update(st, frames[t])
-        leg.append(np.asarray(fl.corners(st)))
-    out["leg"] = np.stack(leg)
-    pfl = JFleet(jcreate("eslm", "ncc", "8", use_pallas=True, **CFG))
-    out["pallas"] = np.asarray(pfl.corners(pfl.update(
-        jax_init(fl, frames[0], CORNERS), frames[1])))
+    st0 = jax_init(fl, frames[0], CORNERS)
+    out = {"frames": frames, "gt": gt,
+           "state0": jax.tree.map(np.asarray, st0)}
+
+    def leg():
+        st, corners = st0, []
+        for t in range(1, len(frames)):
+            st = fl.update(st, frames[t])
+            corners.append(np.asarray(fl.corners(st)))
+        out["leg"] = np.stack(corners)
+
+    def pallas():
+        pfl = JFleet(jcreate("eslm", "ncc", "8", use_pallas=True, **CFG))
+        out["pallas"] = np.asarray(pfl.corners(pfl.update(
+            jax_init(fl, frames[0], CORNERS), frames[1])))
+
+    side_by_side([leg, pallas])
     return out
 
 

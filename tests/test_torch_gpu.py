@@ -501,3 +501,109 @@ def test_cuda_k6_and_blur_reject_bad_inputs(cuda_device):
         tk.lk_fused_chain(*args, kind="cubic", blur=8)
     with pytest.raises(ValueError, match="blur"):
         tk.lk_fused_chain(*args, blur=9)
+
+
+# -- the redesigned layouts -----------------------------------------------
+def k5_layout_cases():
+    """(lanes, points per lane) -> the smallest and the largest (n,
+    iterations) that `grid_flow.layout` maps to it, over every n the
+    kernel takes at 1 and 3 iterations (the layout's two regimes)."""
+    cases = {}
+    for n in range(1, gf.N_MAX + 1):
+        for iters in (1, 3):
+            cases.setdefault(gf.layout(n, iters), []).append((n, iters))
+    return {lay: sorted({c[0], c[-1]}) for lay, c in sorted(cases.items())}
+
+
+def k5_any_inputs(n, b=3, p=7, hw=96, scale=30.0, seed=9):
+    """K5 numpy operands for any n: b smooth windows, p patch centres in
+    the window's middle, each with n points at random offsets inside a
+    `scale`-px square, templates sampled at the points moved by up to
+    1.5 px and standardised per patch (a single point's is 0). b x p = 21
+    patches fill no block of any layout."""
+    rng = np.random.default_rng(seed)
+    win = np.stack([_window(rng, hw) for _ in range(b)])
+    ctr = rng.uniform(hw * 0.35, hw * 0.65, (b, p, 1, 2))
+    pts = (ctr + rng.uniform(-0.45, 0.45, (b, p, n, 2)) * scale).reshape(
+        b, p * n, 2)
+    shift = np.repeat(rng.uniform(-1.5, 1.5, (b, p, 2)), n, axis=1)
+    moved = torch.tensor(pts + shift, dtype=torch.float32)
+    val = interp.sample_windows(torch.tensor(win), moved[..., 0],
+                                moved[..., 1]).numpy().reshape(b, p, n)
+    templ = (val - val.mean(-1, keepdims=True)) / (
+        val.std(-1, keepdims=True) + 1e-6)
+    return (win, np.ascontiguousarray(pts.transpose(0, 2, 1), np.float32),
+            templ.reshape(b, -1).astype(np.float32),
+            np.full((b,), scale / 2, np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lay", list(k5_layout_cases()),
+                         ids=lambda lay: f"{lay[0]}x{lay[1]}")
+def test_cuda_k5_every_layout(cuda_device, lay):
+    """Every layout `grid_flow.layout` returns, at the smallest and the
+    largest n it takes (n = 1 and 1024 among them, most of them not a
+    power of two), B x P = 21 patches: each tap kind against the plain
+    form within 1e-4 template units, and the same bits as the kernel
+    launched at that layout directly."""
+    for n, iters in k5_layout_cases()[lay]:
+        assert gf.layout(n, iters) == lay
+        args = _on(cuda_device, k5_any_inputs(n))
+        for kind in gf.KINDS:
+            got = gf.grid_flow(*args, n, iters, kind=kind)
+            torch.cuda.synchronize()
+            want = gf.grid_flow_ref(*args, n, iters, kind=kind)
+            assert float((got - want).abs().max()) <= 1e-4, (n, kind)
+            assert torch.equal(got, gf.launch(*args, n, iters, True, kind,
+                                              *lay))
+
+
+def _chain_at(n, s, am, esm, c, b=8):
+    """`ssm_inputs` at any N: the first n points of the next square grid
+    (NCC's template centred and normalised again over them)."""
+    side = int(np.ceil(np.sqrt(n)))
+    (win, M0, gens, ph, templ), j0 = ssm_inputs(side * side, s, am, esm, c,
+                                                b=b)
+    ph = np.ascontiguousarray(ph[..., :n])
+    templ = np.ascontiguousarray(templ[..., :n])
+    if am == "ncc":
+        cen = templ - templ.mean(-1, keepdims=True)
+        templ = (cen / (np.linalg.norm(cen, axis=-1, keepdims=True)
+                        + 1e-8)).astype(np.float32)
+    if j0 is not None:
+        j0 = np.ascontiguousarray(j0[..., :n])
+    return (win, M0, gens, ph, templ), j0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("am,esm,c", ALL_MODES)
+@pytest.mark.parametrize("s", [2, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 169, 2500])
+def test_cuda_chain_every_mode_at_any_n(cuda_device, n, s, am, esm, c):
+    """Each mode at S = 2 and 8 with every tap kind at N = 1, 31, 33 (a
+    warp's 32 points and one past), 169 and 2500, against the plain form
+    on the card: val within 1e-3, every raw sum within 1e-4 of its norm
+    (with the rounding floor at S != 8, `assert_raw_close`), NCC's live
+    count N, and for NCC the combined g and H within
+    `chip_smoke.NCC_COMBINED_REL` (from N = 31: the combine divides by
+    the sampled values' variance, which one point does not have)."""
+    arrays, j0 = _chain_at(n, s, am, esm, c)
+    args = _on(cuda_device, arrays)
+    j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+    for kind in gf.KINDS:
+        got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind)
+        torch.cuda.synchronize()
+        want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind)
+        assert float((got[0] - want[0]).abs().max()) <= 1e-3, kind
+        scales = None if s == 8 else cs.chain_sum_scales(torch, tk, args, am,
+                                                         j0, kind)
+        assert_raw_close(got[1:], want[1:], scales)
+        if am == "ncc":
+            assert got[4][:, 3].eq(n).all(), "NCC's live count is N"
+        if am == "ncc" and n > 1:
+            for k, p in zip(tk.ncc_combine(*got[1:]),
+                            tk.ncc_combine(*want[1:])):
+                dims = tuple(range(1, p.dim()))
+                err = (k - p).abs().amax(dims)
+                assert (err <= cs.NCC_COMBINED_REL * torch.linalg
+                        .vector_norm(p, dim=dims)).all(), kind

@@ -7,6 +7,8 @@ The random minimal samples cannot match (threefry against a
 `torch.Generator`), so the port's fits are handed the JAX package's
 index draw wherever the two are compared.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm import grid as tgrid
 from mtf_tpu_torch.ssm import get_ssm
-from test_torch_fleet import _scene
+from test_torch_fleet import _scene, side_by_side
 from test_torch_gpu import k5_inputs
 
 # the bench row's grid (bench_extra.py:363-379) without the refiner
@@ -275,6 +277,24 @@ def test_k5_recovers_the_shift():
     assert np.isfinite(err).all() and np.mean(err < 0.05) >= 0.85, err
 
 
+@pytest.mark.parametrize("n_iters", [1, 2, 20])
+def test_k5_layout_covers_every_n(n_iters):
+    """The CUDA kernel's layout for every n it takes: lanes a power of two
+    up to 32 (a patch never straddles a warp), points per lane an
+    instantiated count, the two covering n with no lane idle (half the
+    lanes would not), and 8 points a lane for a patch of more than 16
+    points run several iterations."""
+    for n in range(1, gf.N_MAX + 1):
+        lanes, k = gf.layout(n, n_iters)
+        assert lanes in (1, 2, 4, 8, 16, 32), (n, lanes)
+        assert any(i == (k, "linear") for i in gf.INSTANTIATIONS), (n, k)
+        assert lanes * k >= n and (lanes == 1 or lanes // 2 * k < n), n
+        if n > 16 and n_iters > 1 and lanes < gf.MAX_LANES:
+            assert k == gf.PER_LANE, n
+    with pytest.raises(ValueError):
+        gf.layout(gf.N_MAX + 1, n_iters)
+
+
 def test_grid_flow_dispatches_on_device():
     """CPU tensors take the plain form and count no launch; other
     devices raise (no fallback)."""
@@ -291,15 +311,20 @@ def test_grid_flow_dispatches_on_device():
 @pytest.fixture(scope="module")
 def grid_ref():
     """One JAX grid update on both paths (XLA, and the Pallas kernel in
-    interpret mode) from the bench row's grid configuration."""
+    interpret mode) from the bench row's grid configuration, the two
+    compiles side by side."""
     frame = _scene(0)
     f2 = np.roll(frame, (3, 2), (0, 1))
     out = {"frame": frame, "f2": f2}
-    for name, up in (("xla", False), ("pallas", True)):
+
+    def run(name, up):
         fl = JFleet(jcreate("grid", "ssd", "8", use_pallas=up, **GRID_CFG))
         st = fl.update(fl.initialize(frame, GRID_CORNERS), f2)
         out[name] = np.asarray(fl.corners(st))
         out[name, "inl"] = np.asarray(st.extra.inlier_mask)
+
+    side_by_side([functools.partial(run, "xla", False),
+                  functools.partial(run, "pallas", True)])
     return out
 
 

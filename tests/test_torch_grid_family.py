@@ -37,7 +37,7 @@ from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.ssm import get_ssm
 from mtf_tpu_torch.utils import pyramid
-from test_torch_fleet import _scene
+from test_torch_fleet import _scene, side_by_side
 from test_torch_gpu import k5_inputs
 from test_torch_grid import (GRID_CFG, GRID_CORNERS, GRID_TOL_PX,
                              jax_fit_indices, use_indices)
@@ -258,20 +258,24 @@ def _frames(case):
 
 @pytest.fixture(scope="module")
 def update_ref():
-    """One JAX grid update (XLA path) per case, computed on first use:
-    (corners, fit weights, the initial state as numpy arrays)."""
+    """One JAX grid update (XLA path) per case, every case's compile side
+    by side on first use: (corners, fit weights, the initial state as
+    numpy arrays)."""
     cache = {}
 
+    def fill(case):
+        key, cfg = UPDATE_CASES[case]
+        frame, f2 = _frames(case)
+        fl = JFleet(jcreate(key, "ssd", "8", use_pallas=False, **cfg))
+        st0 = fl.initialize(frame, GRID_CORNERS)
+        st = fl.update(st0, f2)
+        cache[case] = (np.asarray(fl.corners(st)),
+                       np.asarray(st.extra.inlier_mask),
+                       jax.tree.map(np.asarray, st0))
+
     def get(case):
-        if case not in cache:
-            key, cfg = UPDATE_CASES[case]
-            frame, f2 = _frames(case)
-            fl = JFleet(jcreate(key, "ssd", "8", use_pallas=False, **cfg))
-            st0 = fl.initialize(frame, GRID_CORNERS)
-            st = fl.update(st0, f2)
-            cache[case] = (np.asarray(fl.corners(st)),
-                           np.asarray(st.extra.inlier_mask),
-                           jax.tree.map(np.asarray, st0))
+        if not cache:
+            side_by_side([functools.partial(fill, c) for c in UPDATE_CASES])
         return cache[case]
     return get
 

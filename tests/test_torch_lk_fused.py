@@ -101,3 +101,16 @@ def test_wrapper_takes_plain_form_on_cpu():
     assert tk.lk_fused_chain_raw.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_block_warps_cover_every_n():
+    """The CUDA chain kernel's block size: 1 to 8 warps, more points more
+    warps, each warp at least one 32-point chunk where N has them, and
+    every warp of a full block busy at the headline's N = 2500."""
+    prev = 1
+    for n in range(1, 5001):
+        w = tk.block_warps(n)
+        assert 1 <= w <= tk.MAX_WARPS and w >= prev, n
+        assert w == 1 or 32 * (w - 1) < n, n
+        prev = w
+    assert tk.block_warps(2500) == tk.MAX_WARPS
