@@ -10,18 +10,21 @@ Idiom: plain functions on tensors with an explicit leading batch axis B
 `device="cpu"` runs on the CPU), and `NamedTuple`s of tensors for tracker
 state.
 
-Slices covered: FCLK and ESM, each optionally with Levenberg-Marquardt
-(`fclm`, `eslm`), with the SSD or NCC appearance model (and SSD on
-(H, W, C) frames) on the 8-DOF homography, dense sampling with linear or
-cubic taps from a hoisted crop and coarse-to-fine point decimation,
-batched as a tracker fleet; the grid tracker (pyramidal patch flow in
-the `warped`, `rigid` or `f2f` geometry, optionally forward-backward
-masked, fused by RANSAC, LMedS, least squares or the median-flow
-similarity: Median Flow), RKLT (the grid refined by ESM-LM), and the
-Cascade, Parallel and Pyramidal composites. Two TPU kernels are on those
-paths, each a CUDA kernel: the chain-fused LK iteration
-(`csrc/lk_fused_chain.cu`) in all its modes and tap kinds, and the grid
-flow (`csrc/grid_flow.cu`), all iterations of a pyramid level for every
+Slices covered: every LK search method of the JAX package (FCLK, ICLK,
+ESM, AESM, FALK, IALK, FCSD, each optionally with Levenberg-Marquardt)
+with the SSD or NCC appearance model on any number of channels, every
+SSM (the matrix SSMs, spline and TPS), every Hessian flavour, SPI masks
+and done masks; the chain-fused path where the JAX package's `_fused_ok`
+takes its kernel, the generic `torch.func` path elsewhere; batched as a
+tracker fleet; the grid tracker (pyramidal patch flow in the `warped`,
+`rigid` or `f2f` geometry, optionally forward-backward masked, fused by
+RANSAC, LMedS, least squares or the median-flow similarity: Median
+Flow), the sub-tracker grid, RKLT (the grid refined by ESM-LM, with SPI
+feedback), and the Cascade, Parallel and Pyramidal composites. Every
+TPU kernel is a CUDA kernel: the chain-fused LK iteration
+(`csrc/lk_fused_chain.cu`) in all its modes and tap kinds, its
+precomputed-Jacobian form (`csrc/lk_fused_gn.cu`), and the grid flow
+(`csrc/grid_flow.cu`), all iterations of a pyramid level for every
 patch in one launch, with linear or cubic taps.
 """
 import torch

@@ -1,6 +1,7 @@
 from dataclasses import replace
 
 from mtf_tpu_torch.am.base import AM, AMParams, AMState, IlluminationModel  # noqa: F401
+from mtf_tpu_torch.am.base import gn_hessian, jacobian, self_hessian  # noqa: F401
 from mtf_tpu_torch.am.ncc import NCC
 from mtf_tpu_torch.am.ssd import SSD
 
@@ -8,27 +9,22 @@ AM_REGISTRY = {"ssd": SSD, "ncc": NCC}
 
 
 def get_am(key: str, params: AMParams | None = None, ilm=None) -> AM:
-    """Construct an AM from its reference factory key."""
+    """Construct an AM from its reference factory key; `mc<key>` and
+    `<key>3` select 3-channel input, as in the JAX package (the
+    reference's MC* classes)."""
     k = key.lower()
     params = params or AMParams()
-    # `mc<key>` / `<key>3` select 3-channel input, as in the JAX package
-    # (the reference's MC* classes); the port runs them for SSD only
     base = (k[2:] if k.startswith("mc") else k[:-1] if k.endswith("3")
             else None)
     if base is not None and base in AM_REGISTRY:
-        if base != "ssd":
-            raise NotImplementedError(
-                f"AM {key!r} (multi-channel {base}) is not ported yet: the "
-                "JAX package runs it on its generic AD path, which comes "
-                "with ROADMAP Queue 1b")
         params = replace(params, n_channels=3)
         k = base
     if k not in AM_REGISTRY:
         raise NotImplementedError(
-            f"AM {key!r} is not ported yet: the remaining AMs come with "
-            "ROADMAP Queue 1, slice 4")
+            f"AM {key!r} is not ported yet: SSIM and MI come next, then the "
+            "other AMs (ROADMAP Queue 1, slice 4, item 3)")
     if ilm is not None:
         raise NotImplementedError(
             "illumination models are not ported yet: they come with "
-            "ROADMAP Queue 1, slice 4")
+            "ROADMAP Queue 1, slice 4 (item 4)")
     return AM_REGISTRY[k](params)

@@ -1,13 +1,25 @@
-"""Appearance-model base (port of `mtf_tpu/am/base.py`).
+"""Appearance-model base (port of `mtf_tpu/am/base.py`), over B trackers.
 
-The JAX package derives every AM derivative by AD. The ported slices
-need none: for SSD the patch gradient is the residual and the self
-Hessian is exactly -J^T J; for NCC the chain kernel's moments give the
-gradient and self Hessian in closed form (`ops/kernels/lk_fused.py`).
+An AM is one similarity f(state, patch) per tracker, higher is better,
+on patches (B, N, C). Its derivatives come from `torch.func`, as the JAX
+package takes them from `jax.grad` and `jax.jvp`: the trackers are
+independent, so the gradient of the sum of f over the batch is each
+tracker's own gradient, and one Hessian-vector product per Jacobian
+column (vmapped over the columns) gives J^T (d2f/dI2) J for all of them.
+
+    grad / grad_corrected   df/dIt (raw / illumination-corrected patch)
+    grad_template           df/dI0, through `init` (NCC: through the
+                            centred unit template re-derived from the raw
+                            template)
+    gn_hessian              J^T (d2f/dI2 at the current patch) J
+    self_hessian            the same at a perfect match (template = patch)
+
+The chain kernel's SSD and NCC modes form the same gradient and self
+Hessians in closed form (`ops/kernels/lk_fused.py`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import torch
@@ -28,10 +40,18 @@ class AMState(NamedTuple):
 
 @dataclass(frozen=True)
 class AMParams:
-    """Shared AM configuration (the fields the ported slices read)."""
+    """Shared AM configuration (reference AMParams.h:13-40)."""
     resx: int = 50
     resy: int = 50
-    n_channels: int = 1     # 3 for the multi-channel keys (mcssd, ssd3)
+    n_channels: int = 1        # 3 for the multi-channel keys (mcssd, ncc3)
+    likelihood_alpha: float = 50.0
+    likelihood_beta: float = 0.0
+    pix_min: float = 0.0
+    pix_max: float = 255.0
+    n_bins: int = 8            # MI/CCRE/KLD/SCV histograms
+    pre_seed: float = 1.0
+    learning_rate: float = 0.0  # template forgetting (0 = no update)
+    extra: dict = field(default_factory=dict)
 
 
 class IlluminationModel:
@@ -48,10 +68,13 @@ class IlluminationModel:
         return torch.zeros(tuple(batch) + (self.n_params,), dtype=dtype,
                            device=device)
 
+    def invert_params(self, p: torch.Tensor) -> torch.Tensor:
+        return -p
+
 
 class AM:
     """Base appearance model; subclasses implement `_similarity` on
-    illumination-corrected patches."""
+    illumination-corrected patches, (B,) from (B, N, C)."""
 
     name = "base"
 
@@ -77,8 +100,86 @@ class AM:
         """Similarity of candidate patches vs state (higher = better)."""
         return self._similarity(state, self.ilm.apply(patch, state.p_am))
 
+    def f_with_pam(self, state: AMState, patch: torch.Tensor,
+                   p_am: torch.Tensor) -> torch.Tensor:
+        return self._similarity(state, self.ilm.apply(patch, p_am))
+
     def f_corrected(self, state: AMState, corrected: torch.Tensor
                     ) -> torch.Tensor:
         """Similarity on an already illumination-corrected patch (the LM
         objective of the LK path)."""
         return self._similarity(state, corrected)
+
+    def grad(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
+        """df/dIt, the shape of patch (reference `updateCurrGrad`)."""
+        return torch.func.grad(lambda p: self.f(state, p).sum())(patch)
+
+    def grad_corrected(self, state: AMState,
+                       corrected: torch.Tensor) -> torch.Tensor:
+        return torch.func.grad(
+            lambda p: self._similarity(state, p).sum())(corrected)
+
+    def grad_template(self, state: AMState,
+                      corrected: torch.Tensor) -> torch.Tensor:
+        """df/dI0 w.r.t. the raw template, re-deriving the AM's processed
+        template through `init` (reference `updateInitGrad`)."""
+        def f_of_t(t):
+            st = self.init(t)._replace(p_am=state.p_am)
+            return self._similarity(st, corrected).sum()
+        return torch.func.grad(f_of_t)(state.template)
+
+    def update_state(self, state: AMState, dp_am: torch.Tensor) -> AMState:
+        """p_am <- p_am + dp_am (reference `updateState`)."""
+        if self.ilm.n_params == 0:
+            return state
+        return state._replace(p_am=state.p_am + dp_am)
+
+    @property
+    def needs_update_model(self) -> bool:
+        """False when `update_model` is a no-op, so the LK update can skip
+        sampling the final patch."""
+        return self.prm.learning_rate > 0.0
+
+    def update_model(self, state: AMState, patch: torch.Tensor) -> AMState:
+        """Online template learning: exponential forgetting of the raw
+        template at `learning_rate` (reference `updateModel`)."""
+        lr = self.prm.learning_rate
+        if lr <= 0.0:
+            return state
+        return state._replace(
+            template=(1.0 - lr) * state.template + lr * patch)
+
+    def self_state(self, patch: torch.Tensor, p_am: torch.Tensor) -> AMState:
+        """The state that takes `patch` as its template (current-self
+        Hessians), through `init`."""
+        return self.init(patch)._replace(p_am=p_am)
+
+
+def jacobian(am: AM, state: AMState, patch: torch.Tensor,
+             J_pix: torch.Tensor) -> torch.Tensor:
+    """(B, S) similarity Jacobian (df/dIt) . dIt/dp, J_pix (B, N·C, S)
+    (`cmptCurrJacobian`)."""
+    g = am.grad(state, patch).flatten(1)
+    return (g[:, None] @ J_pix)[:, 0]
+
+
+def gn_hessian(am: AM, state: AMState, patch: torch.Tensor,
+               J_pix: torch.Tensor) -> torch.Tensor:
+    """(B, S, S) J^T (d2f/dI2) J at the current patch, J_pix (B, N·C, S):
+    one Hessian-vector product per column (`cmptCurrHessian`)."""
+    shape = patch.shape
+
+    def g(p_flat):
+        return am.grad(state, p_flat.reshape(shape)).flatten(1)
+
+    p0 = patch.flatten(1)
+    cols = torch.func.vmap(lambda v: torch.func.jvp(g, (p0,), (v,))[1],
+                           in_dims=-1, out_dims=-1)(J_pix)
+    return J_pix.transpose(1, 2) @ cols
+
+
+def self_hessian(am: AM, patch: torch.Tensor, p_am: torch.Tensor,
+                 J_pix: torch.Tensor) -> torch.Tensor:
+    """(B, S, S) self Hessian: d2f/dI2 at a perfect match (template ==
+    patch) contracted with J (`cmptSelfHessian`)."""
+    return gn_hessian(am, am.self_state(patch, p_am), patch, J_pix)

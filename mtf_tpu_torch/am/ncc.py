@@ -25,3 +25,9 @@ class NCC(AM):
     def _similarity(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
         n0 = state.extra[0]
         return (n0 * self._center_norm(patch)).sum(dim=-2).mean(dim=-1)
+
+    def update_model(self, state: AMState, patch: torch.Tensor) -> AMState:
+        st = super().update_model(state, patch)
+        if self.prm.learning_rate > 0.0:
+            st = st._replace(extra=(self._center_norm(st.template),))
+        return st

@@ -224,7 +224,7 @@ __device__ __forceinline__ void chain_iteration(
     float* __restrict__ val, float* __restrict__ g_out,
     float* __restrict__ h_out, float* __restrict__ mom_out,
     float* __restrict__ scal_out, int hc, int wc, int n, int channels,
-    int blur) {
+    int blur, int win_b) {
   constexpr bool kLin = kKind == kLinear;
   // rows 0..2: M0; rows 3 + 3 s + r: row r of M0 G_s
   __shared__ float a_rows[3 + 3 * kS][3];
@@ -279,7 +279,8 @@ __device__ __forceinline__ void chain_iteration(
   const size_t plane = (size_t)hc * wc;
   const float* phb = ph + (size_t)b * 3 * n;
   const float* tb = templ + (size_t)b * nch * n;
-  const float* wb = win + (size_t)b * nch * plane;
+  // win_b 0: one window (the shared frame) read by every tracker
+  const float* wb = win + (size_t)(b * win_b) * nch * plane;
   const float* j0b = kEsm ? j0 + (size_t)b * kS * n : nullptr;
   float* vb = val + (size_t)b * nch * n;
   // clamp bounds rounded from double, as the plain form's scalars are;
@@ -492,10 +493,10 @@ __device__ __forceinline__ void chain_iteration(
       float* __restrict__ val, float* __restrict__ g_out,                   \
       float* __restrict__ h_out, float* __restrict__ mom_out,               \
       float* __restrict__ scal_out, int hc, int wc, int n, int channels,    \
-      int blur
+      int blur, int win_b
 #define CHAIN_ARGS                                                          \
   win, m0, gens, ph, templ, j0, val, g_out, h_out, mom_out, scal_out, hc,   \
-      wc, n, channels, blur
+      wc, n, channels, blur, win_b
 
 // Register budgets of the plain taps, by class (ptxas's own budget took
 // 64 or 80 registers and spilled a few bytes in the classes below it,
@@ -546,7 +547,7 @@ lk_fused_chain_blur_kernel(CHAIN_PARAMS) {
 struct Args {
   const float *win, *m0, *gens, *ph, *templ, *j0;
   float *val, *g, *h, *mom, *scal;
-  int batch, hc, wc, n, channels, blur, warps;
+  int batch, hc, wc, n, channels, blur, warps, win_b;
   cudaStream_t stream;
 };
 
@@ -557,7 +558,7 @@ void launch(const Args& a) {
 #define CHAIN_LAUNCH(kernel)                                                \
   kernel<kNcc, kEsm, kMc, kKind><<<a.batch, threads, smem, a.stream>>>(     \
       a.win, a.m0, a.gens, a.ph, a.templ, a.j0, a.val, a.g, a.h, a.mom,     \
-      a.scal, a.hc, a.wc, a.n, a.channels, a.blur)
+      a.scal, a.hc, a.wc, a.n, a.channels, a.blur, a.win_b)
   // only the kernel that runs is instantiated
   constexpr int kMin = min_blocks<kNcc, kEsm, kKind>();
   if constexpr (kBlur)
@@ -605,7 +606,8 @@ bool launch_kind(const Args& a, int ncc, int esm, int mc) {
 // `blur` 0 or 1 samples with plain taps, 2-8 with the binomially blurred
 // ones (the window must hold their 2 blur or 2 blur + 2 taps per axis);
 // `warps` (1-8) the warps of each tracker's block
-// (ops/kernels/lk_fused.py:block_warps picks it). `stream` is the
+// (ops/kernels/lk_fused.py:block_warps picks it); `shared` != 0 reads one
+// window (C, Hc, Wc) for every tracker in place of B. `stream` is the
 // caller's CUDA stream. Returns cudaErrorInvalidValue, launching nothing,
 // for a combination without an instantiation or a block size out of
 // range, else cudaGetLastError() after the launch.
@@ -616,12 +618,12 @@ extern "C" int lk_fused_chain_launch(const void* win, const void* m0,
                                      void* scal, int batch, int hc, int wc,
                                      int n, int channels, int ncc, int esm,
                                      int mc, int kind, int blur, int warps,
-                                     void* stream) {
+                                     int shared, void* stream) {
   const Args a{(const float*)win, (const float*)m0, (const float*)gens,
                (const float*)ph, (const float*)templ, (const float*)j0,
                (float*)val, (float*)g, (float*)h, (float*)mom,
                (float*)scal, batch, hc, wc, n, mc ? channels : 1, blur,
-               warps, (cudaStream_t)stream};
+               warps, shared ? 0 : 1, (cudaStream_t)stream};
   if (channels < 1 || channels > 4 || blur < 0 || blur > kMaxBlur ||
       warps < 1 || warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;

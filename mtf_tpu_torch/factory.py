@@ -16,24 +16,30 @@
     create_tracker("fclk", "ssd", "6", ...)       # any SSM key, e.g. affine
     create_tracker("grid", "ssd", "8", grid_sm="fclk", crop=32, ...)
 
-Every SSM key of the JAX package's `SSM_REGISTRY` is ported (2-8 DOF:
-translation to homography, the Lie SSMs, SL3 and CBH); the LK keys run
-the chain kernel at S = the SSM's DOF. `grid_sm` other than "flow" /
-"cv" builds a `SubTrackerGrid` of `grid_sm` sub-trackers on `grid_am`
-(default "ssd") and `grid_ssm` (default "2") at `grid_patch_res`
-(default 8), which take the configuration's other options, its `crop`
-too (the port's LK needs one). The LK keys take `interp` "linear_mm",
-"cubic_mm" (Catmull-Rom) or "cubic_bspl_mm" (cubic B-spline); the grid
-keys take those and the
-gather kinds "linear", "cubic" and "cubic_bspl", on (H, W) or (H, W, C)
-frames. The AM keys "mcssd" and "ssd3" are SSD over (H, W, 3) frames
-(FCLK and its LM variant fclm only, as in the JAX package's fused path).
-The composites (`casc`, `prl`, `pyr` and their aliases, the shorthands
-`grfc` and `gres`) build their members with this function, from the same
-options. The tracker lives on the card unless `device` says otherwise
-(`device="cpu"` for a CPU run); without a card and without `device` it
-raises. Keys and options outside the ported slices raise
-`NotImplementedError` naming the ROADMAP queue that brings them.
+    create_tracker("eslm", "ncc", "8", resx=16, resy=16, max_iters=10)
+    create_tracker("fclk", "ssd", "spline", resx=32, resy=32, ...)
+
+Every SSM key of the JAX package (2-8 DOF: translation to homography,
+the Lie SSMs, SL3 and CBH; and the 50-DOF spline and 32-DOF TPS) and
+every LK key of its `SM_LK_REGISTRY`, with `haclk`, are ported; each LK
+update takes the chain kernel (at S = the SSM's DOF) where the JAX
+package's `_fused_ok` takes its Pallas kernel, else the generic path
+(`sm/lk.py`). ICLK defaults to the self0 Hessian, as the JAX factory
+sets it. `grid_sm` other than "flow" / "cv" builds a `SubTrackerGrid` of
+`grid_sm` sub-trackers on `grid_am` (default "ssd") and `grid_ssm`
+(default "2") at `grid_patch_res` (default 8), which take the
+configuration's other options (a crop is required). The LK keys take
+`interp` "linear_mm", "cubic_mm" (Catmull-Rom), "cubic_bspl_mm" (cubic
+B-spline) or the gather kinds "nearest", "linear", "cubic" and
+"cubic_bspl"; the grid keys the dense and gather kinds but "nearest";
+frames are (H, W) or (H, W, C). The AM keys "mc<am>" and "<am>3" take
+(H, W, 3) frames. The composites (`casc`, `prl`, `pyr` and their
+aliases, the shorthands `grfc`, `gres` and `gric`) build their members
+with this function, from the same options. The tracker lives on the card
+unless `device` says otherwise (`device="cpu"` for a CPU run); without a
+card and without `device` it raises. Keys and options outside the ported
+slices raise `NotImplementedError` naming the ROADMAP queue that brings
+them.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ from mtf_tpu_torch.ssm import get_ssm
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "border", "crop", "coarse_pt_iters", "hess_type", "jac_type",
-              "enable_lm",
+              "enable_lm", "use_pallas", "spi_type", "spi_thresh",
+              "sd_learning_rate", "learning_rate",
               # grid and RKLT (`_grid_params`)
               "grid_res", "grid_patch_res", "grid_sub_iters",
               "grid_coarse_stride", "grid_estimator", "grid_n_hyps",
@@ -70,26 +77,24 @@ CASC_KEYS = {"casc", "casm", "cascade"}
 PRL_KEYS = {"prl", "prlt", "prls", "prsm", "parallel"}
 PYR_KEYS = {"pyr", "pyrt", "pysm", "pyrs"}
 # the cascade shorthands whose members are all ported: <first><second>
-CASCADE_SHORTHAND = {"grfc": ("grid", "fclk"), "gres": ("grid", "esm")}
-_PORTED_SM = (set(SM_LK_REGISTRY) | set(GRID_KEYS) | RKLT_KEYS | MF_KEYS
-              | CASC_KEYS | PRL_KEYS | PYR_KEYS | set(CASCADE_SHORTHAND))
+CASCADE_SHORTHAND = {"grfc": ("grid", "fclk"), "gres": ("grid", "esm"),
+                     "gric": ("grid", "iclk")}
+_PORTED_SM = (set(SM_LK_REGISTRY) | {"haclk"} | set(GRID_KEYS) | RKLT_KEYS
+              | MF_KEYS | CASC_KEYS | PRL_KEYS | PYR_KEYS
+              | set(CASCADE_SHORTHAND))
 
-# where each unported SM key is queued: "1b" is the rest of slice 2, "1c"
-# the rest of slice 3
+# where each unported SM key is queued: "1c" is the rest of slice 3
 _SLICE_OF_SM = {
-    "iclk": "1b", "ic": "1b", "iclm": "1b", "aesm": "1, slice 4",
     "hrch": "1c (unblocked: its low-DOF SSMs are ported)",
     "hesm": "1c (unblocked: its low-DOF SSMs are ported)",
     "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
-    "gric": "1c (ICLK: Queue 1b)", "pfrk": "1c (PF: Queue 1, slice 5)",
+    "pfrk": "1c (PF: Queue 1, slice 5)",
     "nnrk": "1c (NN: Queue 1, slice 5)", "pfic": "1c (PF: Queue 1, slice 5)",
     "pffc": "1c (PF: Queue 1, slice 5)", "pfes": "1c (PF: Queue 1, slice 5)",
     "nnic": "1c (NN: Queue 1, slice 5)", "nnfc": "1c (NN: Queue 1, slice 5)",
-    "nnes": "1c (NN: Queue 1, slice 5)", "falk": "1, slice 4",
-    "fa": "1, slice 4", "ialk": "1, slice 4", "ia": "1, slice 4",
-    "fcsd": "1, slice 4", "falm": "1, slice 4", "ialm": "1, slice 4",
-    "aelm": "1, slice 4", "pf": "1, slice 5", "nn": "1, slice 5",
-    "gnn": "1, slice 5", "regnet": "1, slice 5", "lp": "1, slice 5",
+    "nnes": "1c (NN: Queue 1, slice 5)", "pf": "1, slice 5",
+    "nn": "1, slice 5", "gnn": "1, slice 5", "regnet": "1, slice 5",
+    "lp": "1, slice 5",
 }
 
 
@@ -160,8 +165,10 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     unknown = sorted(set(cfg) - _KNOWN_CFG)
     if unknown:
         raise NotImplementedError(
-            f"options {unknown} are not ported yet: the LK options beyond "
-            "slices 1 and 2 come with ROADMAP Queue 1b")
+            f"options {unknown} are not ported yet: the PF, NN and other "
+            "trackers' options, and the likelihood and histogram options "
+            "of the AMs that read them (SSIM, MI, PF), come with their "
+            "slices (ROADMAP Queue 1)")
 
     # a composite's members take its options, but not its own member
     # list or pyramid SM (a member of the same kind would recurse)
@@ -196,9 +203,15 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         hess_type=str(cfg.get("hess_type", "selft")),
         jac_type=str(cfg.get("jac_type", "original")),
         enable_lm=bool(cfg.get("enable_lm", False)),
+        use_pallas=(None if cfg.get("use_pallas") is None
+                    else bool(cfg.get("use_pallas"))),
+        spi_type=cfg.get("spi_type") or None,
+        spi_thresh=float(cfg.get("spi_thresh", 0.2)),
+        sd_learning_rate=float(cfg.get("sd_learning_rate", 0.1)),
     )
     am_prm = AMParams(resx=int(cfg.get("resx", cfg.get("mtf_res", 50))),
-                      resy=int(cfg.get("resy", cfg.get("mtf_res", 50))))
+                      resy=int(cfg.get("resy", cfg.get("mtf_res", 50))),
+                      learning_rate=float(cfg.get("learning_rate", 0.0)))
 
     def make_am(key=am, params=am_prm):
         return get_am(key, params, ilm=ilm)
@@ -248,6 +261,13 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
             failure_thresh_px=float(cfg.get("rklt_failure_thresh", 15.0)),
             enable_feedback=bool(cfg.get("rklt_feedback", True)),
             enable_spi=bool(cfg.get("enable_spi", False))))
+    if sm_key == "haclk":
+        # FCLK whose Hessian is held at the template's (HACLK.cc): self0
+        return SM_LK_REGISTRY["fclk"](make_am(), make_ssm(),
+                                      replace(prm, hess_type="self0"))
+    if sm_key in ("iclk", "ic", "iclm") and "hess_type" not in cfg:
+        # the reference ships ic_hess_type 0 = InitialSelf (modules.cfg:98)
+        prm = replace(prm, hess_type="self0")
     if sm_key in LM_KEYS:
         prm = replace(prm, enable_lm=True)
     return SM_LK_REGISTRY[sm_key](make_am(), make_ssm(), prm)

@@ -5,11 +5,22 @@ Images are (H, W) or (H, W, C) float tensors; points are (..., N, 2) in
 Border handling is 'replicate' (the slice's only border mode).
 
 `sample_val_grad` (and `sample`, `sample_grad`) is the gather form of
-the JAX package's `sample`: linear, Catmull-Rom (`cubic`) and cubic
-B-spline taps at floor(x) + {-1..2}, indices clamped into the image,
-the derivative of the interpolant itself (linear: one-sided at an
-integer coordinate); a dense kind ("*_mm") goes to `sample_dense` on the
-whole image.
+the JAX package's `sample`: nearest (the pixel at round(x), derivative
+0), linear, Catmull-Rom (`cubic`) and cubic B-spline taps at
+floor(x) + {-1..2}, indices clamped into the image, the derivative of the
+interpolant itself (linear: one-sided at an integer coordinate); a dense
+kind ("*_mm") goes to `sample_dense` on the whole image.
+
+Every sampler is differentiable in the points by autograd and
+`torch.func`, and its first derivative is the one it returns: the JAX
+package's custom JVP rule (`mtf_tpu/ops/interp.py:166`). The gather
+forms are plain tap arithmetic in the fractional offsets (floor and round
+have derivative 0). The dense forms pass the derivative through their
+coordinate clamp (`_clamp_st`) and zero it along an axis at an exactly
+integer coordinate (the dense linear rule), so their values are
+unchanged. Second derivatives are those of the tap arithmetic, as in the
+JAX package, except at a clamped coordinate, where the JAX package's is
+0 and these are the interpolant's.
 
 `sample_dense` and `sample_windows` keep the JAX dense ("*_mm")
 conventions exactly, while reading the taps by gather instead of the
@@ -30,6 +41,7 @@ import torch
 
 from mtf_tpu_torch.ops.kernels.dense_sample import KINDS, _weights_dense
 
+NEAREST = "nearest"
 LINEAR = "linear"
 CUBIC = "cubic"            # Catmull-Rom
 LINEAR_MM = "linear_mm"
@@ -85,13 +97,16 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     if kind.endswith(MM_SUFFIX):
         return sample_dense(img, pts, kind[:-len(MM_SUFFIX)],
                             need_grad=need_grad)
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"interp {kind!r} is not ported yet: ROADMAP Queue 1, slice 4")
+    if kind not in KINDS + (NEAREST,):
+        raise ValueError(f"unknown interp {kind!r}")
     img = _as_hwc(img)
     h, w, c = img.shape
     img_flat = img.reshape(h * w, c)
     x, y = pts[..., 0], pts[..., 1]
+    if kind == NEAREST:
+        val = _gather(img_flat, h, w, torch.round(x).long(),
+                      torch.round(y).long())
+        return val, (val.new_zeros(val.shape + (2,)) if need_grad else None)
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx = (x - x0f)[..., None]
     fy = (y - y0f)[..., None]
@@ -138,9 +153,24 @@ def sample_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
 def crop_origin(pts: torch.Tensor, size: int, full: int,
                 margin: float) -> torch.Tensor:
     """Window start per batch element along one axis: floor(min) - margin,
-    clipped to [0, full - size]. pts: (..., N) coordinates -> (...,)."""
-    return torch.clamp(torch.floor(pts.amin(dim=-1)) - margin, 0.0,
-                       float(full - size))
+    clipped to [0, full - size] (a NaN start, a diverged tracker's, to 0,
+    as `jax.lax.dynamic_slice` clamps it). pts: (..., N) coordinates ->
+    (...,)."""
+    return torch.clamp(torch.nan_to_num(
+        torch.floor(pts.amin(dim=-1)) - margin, nan=0.0), 0.0,
+        float(full - size))
+
+
+def _clamp_st(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clamp(v, lo, hi) in value, with derivative 1 everywhere: the dense
+    rule differentiates the interpolant at the clamped coordinate."""
+    return torch.clamp(v, lo, hi) + (v - v.detach())
+
+
+def _frac_dense(f: torch.Tensor) -> torch.Tensor:
+    """A linear tap fraction whose derivative is 0 where it is exactly 0
+    (the dense linear rule at an integer coordinate); same value."""
+    return torch.where(f > 0, f, f.detach())
 
 
 def _clamp_margins(kind: str):
@@ -191,13 +221,16 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if gray:
         win = win[:, None]
     b, c, hc, wc = win.shape
-    cx = torch.clamp(x, lo, wc - hi)
-    cy = torch.clamp(y, lo, hc - hi)
+    cx = _clamp_st(x, lo, wc - hi)
+    cy = _clamp_st(y, lo, hc - hi)
     flat = win.reshape(b, c, hc * wc)
     if kind == LINEAR:
         fxs, fys = torch.floor(cx), torch.floor(cy)
-        fx, fy = (cx - fxs)[:, None], (cy - fys)[:, None]
-        i00 = fys.long() * wc + fxs.long()
+        fx = _frac_dense(cx - fxs)[:, None]
+        fy = _frac_dense(cy - fys)[:, None]
+        # (the clamp keeps a NaN coordinate's taps inside: its value is
+        # NaN, as the JAX package's, not an out-of-bounds read)
+        i00 = (fys.long() * wc + fxs.long()).clamp(0, (hc - 1) * wc - 2)
         idx = torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1], dim=-1)
         taps = flat.gather(2, idx[:, None].expand(b, c, idx.shape[-1]))
         v00, v01, v10, v11 = taps.chunk(4, dim=-1)
@@ -212,7 +245,8 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     else:
         x0, wx, dwx = _cubic_axis(cx, kind)
         y0, wy, dwy = _cubic_axis(cy, kind)
-        base = y0.long() * wc + x0.long()                   # (B, N)
+        base = (y0.long() * wc + x0.long()).clamp(
+            0, (hc - 4) * wc + wc - 4)                      # (B, N)
         n = base.shape[-1]
         idx = torch.cat([base + (r * wc + j) for r in range(4)
                          for j in range(4)], dim=-1)        # (B, 16 N)
@@ -249,8 +283,8 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     else:
         hc, wc = h, w
         ox = oy = torch.zeros((), dtype=x.dtype, device=x.device)
-    cx = torch.clamp(x - ox, lo, wc - hi)
-    cy = torch.clamp(y - oy, lo, hc - hi)
+    cx = _clamp_st(x - ox, lo, wc - hi)
+    cy = _clamp_st(y - oy, lo, hc - hi)
     img_flat = img.reshape(h * w, c)
     if kind != LINEAR:
         x0, wx, dwx = _cubic_axis(cx, kind)
@@ -262,7 +296,8 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
             need_grad=need_grad)
         return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
     fxs, fys = torch.floor(cx), torch.floor(cy)
-    fx, fy = (cx - fxs)[..., None], (cy - fys)[..., None]
+    fx = _frac_dense(cx - fxs)[..., None]
+    fy = _frac_dense(cy - fys)[..., None]
     xi = (fxs + ox).long()
     yi = (fys + oy).long()
     v00 = _gather(img_flat, h, w, xi, yi)

@@ -237,16 +237,24 @@ def lk_fused_chain_ref(window: torch.Tensor, M0: torch.Tensor,
     return val, g, Jm @ Jm.transpose(1, 2)
 
 
+def shared_window(window: torch.Tensor) -> bool:
+    """True for one window read by every tracker: a batch stride of 0
+    (`expand` of the shared frame) over a contiguous window."""
+    return (window.dim() >= 3 and window.shape[0] > 1
+            and window.stride(0) == 0 and window[0].is_contiguous())
+
+
 def _check_tensors(who: str, named) -> None:
-    """Every tensor on the first one's device, float32 and contiguous."""
+    """Every tensor on the first one's device, float32 and contiguous (the
+    first, the window, may be a shared one, `shared_window`)."""
     dev = named[0][1].device
-    for name, t in named:
+    for i, (name, t) in enumerate(named):
         if t.device != dev:
             raise ValueError(f"{who}: {name} on {t.device}, "
                              f"{named[0][0]} on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
+        if not (t.is_contiguous() or (i == 0 and shared_window(t))):
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
@@ -304,7 +312,7 @@ def _kernel_fn(s: int):
     """The chain kernels' C entry point of state size `s`, built (one
     library per S, `-DLK_S=<s>`) and bound on first use."""
     fn = _build.load("lk_fused_chain", {"LK_S": s}).lib.lk_fused_chain_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -325,7 +333,9 @@ def lk_fused_chain_raw(window: torch.Tensor, M0: torch.Tensor,
                        blur: int = 0):
     """One chain-fused iteration's raw per-tracker sums for B trackers
     (contract of `lk_fused_chain_ref`). CPU tensors run the plain form;
-    CUDA tensors launch the CUDA kernel on the current stream."""
+    CUDA tensors launch the CUDA kernel on the current stream. The window
+    may be one shared by every tracker (`shared_window`: the frame
+    expanded with batch stride 0), which the kernel reads in place."""
     inst = _instantiation(window, am, j0, kind, gens.shape[0], blur)
     if window.device.type == "cpu":
         return lk_fused_chain_ref(window, M0, gens, ph, templ, am, j0, kind,
@@ -350,7 +360,8 @@ def lk_fused_chain_raw(window: torch.Tensor, M0: torch.Tensor,
                             val.data_ptr(), g.data_ptr(), h.data_ptr(),
                             _ptr(mom), _ptr(scal), b, hc, wc, n, c, int(ncc),
                             int(esm), int(mc), KINDS.index(kind), blur,
-                            block_warps(n), stream)
+                            block_warps(n), int(shared_window(window)),
+                            stream)
     if err != 0:
         raise RuntimeError(f"lk_fused_chain: kernel launch failed with CUDA "
                            f"error {err}")

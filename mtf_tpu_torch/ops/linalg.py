@@ -11,12 +11,10 @@ from __future__ import annotations
 import torch
 
 
-def chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for SPD A (..., S, S), b (..., S) by a left-looking
-    Cholesky with pivots clamped at sqrt(max(s, 1e-30)), so a matrix that
-    is not positive definite gives finite steps instead of an error. S is
-    small (Gauss-Newton state dims): each column is one vector step over
-    the batch, and the two triangular solves are batched."""
+def _chol_clamped(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (..., S, S) by a left-looking column loop
+    with pivots clamped at sqrt(max(s, 1e-30)): each column is one vector
+    step over the batch."""
     S = A.shape[-1]
     L = torch.zeros_like(A)
     for j in range(S):
@@ -24,13 +22,70 @@ def chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         d = torch.sqrt(torch.clamp(c[..., :1], min=1e-30))
         L[..., j:, j] = c / d
         L[..., j, j] = d[..., 0]
+    return L
+
+
+def _chol_subst(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x of L Lᵀ x = b by the two batched triangular solves."""
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     return torch.linalg.solve_triangular(L.transpose(-1, -2), y,
                                          upper=True)[..., 0]
 
 
+def chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for SPD A (..., S, S), b (..., S) by a Cholesky with
+    pivots clamped at sqrt(max(s, 1e-30)), so a matrix that is not
+    positive definite gives finite steps instead of an error. S is small
+    (Gauss-Newton state dims)."""
+    return _chol_subst(_chol_clamped(A), b)
+
+
+def chol_solve_blocked(A: torch.Tensor, b: torch.Tensor,
+                       nb: int = 8) -> torch.Tensor:
+    """Blocked right-looking Cholesky solve for SPD A (..., S, S) with
+    S > 12 (the spline and TPS systems, 50 DOF), with the JAX package's
+    pivot semantics (`mtf_tpu/ops/linalg.py:chol_solve_blocked`): S is
+    padded to a multiple of `nb` with an identity block, each diagonal
+    block is factored with clamped pivots after its Schur update, and each
+    panel is solved against it. The Schur products are float32 matmuls
+    (the package turns TF32 off)."""
+    S = A.shape[-1]
+    nblk = -(-S // nb)
+    Sp = nblk * nb
+    if Sp != S:
+        pad = Sp - S
+        A = torch.nn.functional.pad(A, (0, pad, 0, pad))
+        A = A + torch.diag_embed(torch.cat([
+            A.new_zeros(S), A.new_ones(pad)])).expand_as(A)
+        b = torch.nn.functional.pad(b, (0, pad))
+
+    def blk(i, j):
+        return A[..., i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+
+    Lb = {}
+    for k in range(nblk):
+        Akk = blk(k, k)
+        for j in range(k):
+            Akk = Akk - Lb[k, j] @ Lb[k, j].transpose(-1, -2)
+        Lb[k, k] = _chol_clamped(Akk)
+        for i in range(k + 1, nblk):
+            P = blk(i, k)
+            for j in range(k):
+                P = P - Lb[i, j] @ Lb[k, j].transpose(-1, -2)
+            # X Lkkᵀ = P
+            Lb[i, k] = torch.linalg.solve_triangular(
+                Lb[k, k].transpose(-1, -2), P, upper=True, left=False)
+    zero = A.new_zeros(A.shape[:-2] + (nb, nb))
+    L = torch.cat([torch.cat([Lb.get((i, j), zero) for j in range(nblk)],
+                             dim=-1) for i in range(nblk)], dim=-2)
+    return _chol_subst(L, b)[..., :S]
+
+
 def neg_def_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """x = -H^{-1} g for negative-definite H (GN Hessian at a maximum)."""
+    """x = -H^{-1} g for negative-definite H (GN Hessian at a maximum);
+    S > 12 takes the blocked solve, as in the JAX package."""
+    if H.shape[-1] > 12:
+        return chol_solve_blocked(-H, g)
     return chol_solve_small(-H, g)
 
 

@@ -234,10 +234,6 @@ class RKLT(nn.Module):
     def __init__(self, grid_sm, templ_sm, prm: RKLTParams | None = None):
         super().__init__()
         self.prm = prm or RKLTParams()
-        if self.prm.enable_spi:
-            raise NotImplementedError(
-                "RKLT's enable_spi is not ported yet: it needs the LK "
-                "refiner's SPI mask, which comes with ROADMAP Queue 1b")
         self.grid_sm = grid_sm
         self.templ_sm = templ_sm
         self.ssm = templ_sm.ssm
@@ -261,7 +257,14 @@ class RKLT(nn.Module):
         grid_corners = image_corners(self.grid_sm.ssm, grid_st)
         templ_st = self.templ_sm.set_region(templ_st, grid_corners)
         reseated = templ_st.ssm_state
+        if self.prm.enable_spi:
+            # grid inlier mask -> per-pixel SPI weights of the refiner: each
+            # template pixel takes the flag of the grid cell it falls in
+            # (NT/RKLT.cc:100); the refiner then runs its generic path
+            templ_st = templ_st._replace(spi_mask=self._spi_mask(grid_st))
         templ_st = self.templ_sm.update(templ_st, frame)
+        if self.prm.enable_spi:
+            templ_st = templ_st._replace(spi_mask=None)
         templ_corners = image_corners(self.templ_sm.ssm, templ_st)
         # failure detection (NT/RKLT.cc:105-111), per tracker
         diverged = torch.linalg.vector_norm(
@@ -276,6 +279,18 @@ class RKLT(nn.Module):
         if self.prm.enable_feedback:  # NT/RKLT.cc:113-114
             grid_st = self.grid_sm.set_region(grid_st, final)
         return CompositeState((grid_st, templ_st), extra=(final,))
+
+    def _spi_mask(self, grid_st) -> torch.Tensor:
+        """(B, resy·resx) inlier flags of the grid cell of each template
+        pixel."""
+        inl = grid_st.extra.inlier_mask                     # (B, R·R)
+        r = self.grid_sm.grid.grid_res
+        resy, resx = self.templ_sm.am.prm.resy, self.templ_sm.am.prm.resx
+        dev = inl.device
+        ri = torch.arange(resy, device=dev) * r // resy
+        ci = torch.arange(resx, device=dev) * r // resx
+        pix = inl.reshape(-1, r, r)[:, ri[:, None], ci[None, :]]
+        return pix.flatten(1)
 
     def corners(self, state: CompositeState) -> torch.Tensor:
         """(B, 2, 4) corner matrices of the final estimate."""

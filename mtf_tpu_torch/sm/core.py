@@ -37,23 +37,31 @@ class TrackerState(NamedTuple):
     am_state: AMState
     region: RegionState
     extra: Any = ()             # SM-specific cache (LKCache for LK)
+    spi_mask: Any = None        # optional external (B, N) pixel weights
+                                # (RKLT feeds the grid's inlier mask here)
 
 
 @dataclass(frozen=True)
 class SMParams:
-    """Search-method configuration (the fields the ported slice reads)."""
+    """Search-method configuration (reference per-SM param structs)."""
     max_iters: int = 30
     epsilon: float = 0.01          # corner-change convergence threshold (px)
-    interp: str = "linear"
+    interp: str = "linear"         # + "<kind>_mm": dense sampling
     border: str = "replicate"
     crop: int | None = None        # window size for dense sampling
+    use_pallas: bool | None = None  # None or True: the chain kernel where
+                                   # the configuration fits it (`LKBase.
+                                   # _fused_ok`); False: the generic path
     coarse_pt_iters: tuple = ()    # ((stride, n_iters), ...) coarse phases
-    hess_type: str = "self0"
+    hess_type: str = "self0"       # self0 | selft | std | std2
     jac_type: str = "original"     # original | diff_of_jacs (ESM)
     enable_lm: bool = False        # Levenberg-Marquardt damping w/ rollback
+    spi_type: str | None = None    # SPI mask: pix_diff | gradient | gftt
+    spi_thresh: float = 0.2
     lm_delta0: float = 1e-3
     lm_up: float = 10.0
     lm_down: float = 0.1
+    sd_learning_rate: float = 0.1  # FCSD step size
 
 
 def make_region(corners_img: torch.Tensor, resx: int,
@@ -97,7 +105,7 @@ class SearchMethod(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.ssm.generators.device
+        return self.ssm.device
 
     def _init_extra(self, state: TrackerState, frame: torch.Tensor):
         return ()

@@ -1,13 +1,14 @@
 from mtf_tpu_torch.ssm.base import SSM  # noqa: F401
 from mtf_tpu_torch.ssm.projective import SSM_REGISTRY
+from mtf_tpu_torch.ssm.spline import SPLINE_REGISTRY
 
 
-def get_ssm(key: str, device=None) -> SSM:
+def get_ssm(key: str, device=None, **kwargs):
     """Construct an SSM from its reference factory key, on `device`
-    (None: the card)."""
+    (None: the card). kwargs go to the constructor (the spline's control
+    grid, overlap and interp_type, the TPS anchors)."""
     k = key.lower()
-    if k not in SSM_REGISTRY:
-        raise NotImplementedError(
-            f"SSM {key!r} is not ported yet: the spline and TPS SSMs come "
-            "with ROADMAP Queue 1, slice 4 (item 2)")
-    return SSM_REGISTRY[k](device=device)
+    reg = {**SSM_REGISTRY, **SPLINE_REGISTRY}
+    if k not in reg:
+        raise ValueError(f"unknown SSM {key!r}; known: {sorted(reg)}")
+    return reg[k](device=device, **kwargs)

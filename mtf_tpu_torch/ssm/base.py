@@ -60,6 +60,10 @@ class SSM(nn.Module):
     def _generators(self):  # (dof, 3, 3)
         raise NotImplementedError
 
+    @property
+    def device(self) -> torch.device:
+        return self.generators.device
+
     def to_matrix(self, state: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

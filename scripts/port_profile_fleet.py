@@ -10,9 +10,13 @@ Each argument triple (default: "fclk ssd 1280", "esm ncc 1024",
 slice 6's "fclk/6 ssd 1280", "rklt/6 ssd 384" and "subgrid ssd 384") is
 one fleet in `chip_smoke.py`'s configuration for its key (`sm@interp`
 picks the taps, `sm/ssm` any SSM key, the homography "8" by default; a
-name of `chip_smoke.grid_family` or `chip_smoke.ssm_family` takes that
-fleet's key, SSM and configuration), on its scene (the 3-channel one for
-the multi-channel AM keys) and corners. Per fleet: 3 warm-up updates,
+name of `chip_smoke.grid_family`, `chip_smoke.ssm_family` or
+`chip_smoke.generic_family` takes that fleet's key, SSM and
+configuration), on its scene (the 3-channel one for the multi-channel AM
+keys) and corners. A fleet of the generic family steps on the scene and
+the scene shifted by (1, 1) px in turns, so that its done masks
+(`epsilon > 0`) see motion; the others on the scene. Per fleet: 3 warm-up
+updates,
 the wall time of 20 updates by the host clock (ending in a synchronize),
 then 5 updates under `torch.profiler` (CPU and CUDA): the device time of
 all kernels per update, the busy share (that time over the unprofiled
@@ -51,25 +55,30 @@ def profile(key: str, am: str, b: int, card: str) -> dict:
     ssm_family = cs.ssm_family()
     if key in ssm_family:
         key, _, ssm, _, cfg, _, _ = ssm_family[key]
+    generic = cs.generic_family()
+    moving = key in generic
+    if moving:
+        key, _, ssm, _, cfg, _ = generic[key]
     mc = am.startswith("mc") or am.endswith("3")
     frame = torch.as_tensor(cs._scene3(0) if mc else cs._scene(0), device=dev)
+    frames = [frame, torch.roll(frame, (1, 1), (0, 1)) if moving else frame]
     fleet = TrackerFleet(create_tracker(key, am, ssm, device=dev, **cfg),
                          donate=True)
     st = fleet.initialize(frame, cs._corners(b))
-    for _ in range(3):
-        st = fleet.update(st, frame)
+    for i in range(3):
+        st = fleet.update(st, frames[i % 2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED):
-        st = fleet.update(st, frame)
+    for i in range(TIMED):
+        st = fleet.update(st, frames[(i + 1) % 2])
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - t0) / TIMED * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED):
-            st = fleet.update(st, frame)
+        for i in range(PROFILED):
+            st = fleet.update(st, frames[(i + 1) % 2])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()

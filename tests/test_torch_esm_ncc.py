@@ -21,8 +21,8 @@ from mtf_tpu_torch import create_tracker as tcreate
 from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.ssm import get_ssm as tget_ssm
-from test_torch_fleet import (CFG, CORNER_TOL, CORNERS, _scene, jax_init,
-                              side_by_side)
+from test_torch_fleet import (CFG, CORNER_TOL, CORNERS, _scene,
+                              builds_like_jax, jax_init, side_by_side)
 
 # the configurations of tests/test_r5_features.py:36-50 (no coarse phases
 # unless given: 10 full-resolution iterations)
@@ -213,8 +213,12 @@ def test_factory_keys(key):
     (("esm", "ncc", "8"), {"interp": "linear"}),
 ])
 def test_factory_rejects_rest_of_slice_2(args, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1b"):
-        tcreate(*args, device="cpu", **{**CFG, **kw})
+    """The rest of slice 2 (diff_of_jacs, done masks, ICLK, the gather
+    interps) builds as the JAX package builds it, each on the path the
+    JAX package's `_fused_ok` names (`test_torch_fleet.builds_like_jax`);
+    the generic path's parity is `test_torch_generic_lk.py`'s and
+    `test_torch_generic_fleet.py`'s."""
+    builds_like_jax(args, {**CFG, **kw})
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

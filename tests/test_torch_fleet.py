@@ -5,6 +5,7 @@ iterations as 6 + 3 + 1 coarse-to-fine, dense linear sampling from a
 same frames. Corners must agree within 0.05 px, the chain kernel's
 parity tolerance in the JAX package's own tests."""
 import concurrent.futures
+import types
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import mtf_tpu_torch.sm.lk as lk_mod
+import jax.numpy as jnp
 from mtf_tpu import create_tracker as jcreate
 from mtf_tpu.parallel.fleet import TrackerFleet as JFleet
 from mtf_tpu.utils import synth as jsynth
@@ -202,6 +204,52 @@ def test_donate_updates_state_in_place(ref):
     assert torch.equal(out.ssm_state, want.ssm_state)
 
 
+def _lk_members(sm):
+    """The LK trackers of a tracker or composite, in member order."""
+    for name in ("templ_sm", "sm"):
+        if hasattr(sm, name):
+            return _lk_members(getattr(sm, name))
+    if hasattr(sm, "members"):
+        return [m for x in sm.members for m in _lk_members(x)]
+    return [sm] if hasattr(sm, "_fused_ok") else []
+
+
+def builds_like_jax(args, kw, channels=0):
+    """The port builds the configuration `args`, `kw` as the JAX package
+    does: the same class, and in every LK member the same LM, Hessian,
+    Jacobian, interp, epsilon and SPI settings, and the chain kernel
+    exactly where the JAX package's `_fused_ok` takes its kernel (asked
+    with `use_pallas=True`, as on the TPU; the port's default takes it
+    where it fits) on an (H, W) frame or, `channels` > 0, an
+    (H, W, channels) one; then one update of two trackers at 12x12
+    templates and 2 iterations gives finite corners."""
+    t = tcreate(*args, device="cpu", **kw)
+    j = jcreate(*args, **{**kw, "use_pallas": kw.get("use_pallas", True)})
+    assert type(t).__name__ == type(j).__name__
+    shape = (240, 320) + ((channels,) if channels else ())
+    st = types.SimpleNamespace(spi_mask=None)
+    tl, jl = _lk_members(t), [m for m in (
+        [getattr(j, "templ_sm", None)] + list(getattr(j, "members", [j])))
+        if m is not None and hasattr(m, "_fused_ok")]
+    assert len(tl) == len(jl) >= 1
+    for a, b in zip(tl, jl):
+        assert type(a).__name__ == type(b).__name__
+        for f in ("enable_lm", "hess_type", "jac_type", "interp", "epsilon",
+                  "spi_type", "max_iters", "crop"):
+            assert getattr(a.prm, f) == getattr(b.prm, f), f
+        assert a._fused_ok(st, torch.zeros(shape)) == b._fused_ok(
+            st, jnp.zeros(shape))
+    small = tcreate(*args, device="cpu",
+                    **{**kw, "resx": 12, "resy": 12, "max_iters": 2})
+    frame = _scene()
+    if channels:
+        frame = np.stack([np.roll(frame, k, 1) for k in range(channels)], -1)
+    fl = TrackerFleet(small)
+    st = fl.update(fl.initialize(frame, CORNERS[:2]),
+                   np.roll(frame, (1, 1), (0, 1)))
+    assert torch.isfinite(fl.corners(st)).all()
+
+
 @pytest.mark.parametrize("args,kw", [
     (("esm", "ncc", "8"), {}),
     (("fclk", "ncc", "8"), {}),
@@ -212,7 +260,23 @@ def test_donate_updates_state_in_place(ref):
     (("fclk", "ssd", "8"), {**CFG, "hess_type": "self0"}),
     (("fclk", "ssd", "8"), {**CFG, "border": "constant"}),
     (("fclk", "ssd", "8"), {**CFG, "use_pallas": True}),
+    (("fclk", "ssd", "8"), {**CFG, "likelihood_alpha": 10.0}),
+    (("fclk", "ssd", "8"), {**CFG, "n_bins": 16}),
 ])
 def test_factory_rejects_unported(args, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcreate(*args, device="cpu", **kw)
+    """What this slice ported (the bare esm/fclk configurations, which
+    default to `interp="linear"` and `epsilon=0.01`; rklt's enable_spi;
+    the gather interps; done masks; self0; use_pallas) builds as the JAX
+    package builds it (`builds_like_jax`); non-replicate borders and the
+    options that only unported AMs read (the likelihood and histogram
+    ones) stay unported and raise naming their queue."""
+    if kw.get("border", "replicate") != "replicate":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, "
+                                                      "slice 8"):
+            tcreate(*args, device="cpu", **kw)
+        return
+    if {"likelihood_alpha", "n_bins"} & set(kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            tcreate(*args, device="cpu", **kw)
+        return
+    builds_like_jax(args, kw)

@@ -607,3 +607,32 @@ def test_cuda_chain_every_mode_at_any_n(cuda_device, n, s, am, esm, c):
                 err = (k - p).abs().amax(dims)
                 assert (err <= cs.NCC_COMBINED_REL * torch.linalg
                         .vector_norm(p, dim=dims)).all(), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,am,kw", [
+    ("eslm", "ncc", {}),                                   # entry()'s
+    ("fclk", "ssd", {"interp": "linear_mm", "epsilon": 0.0}),  # no crop
+])
+def test_cuda_generic_and_shared_window_updates_match_cpu(cuda_device, key,
+                                                          am, kw):
+    """One update on the card against the same update on the CPU: the
+    generic path (entry()'s configuration, eslm/ncc with gather taps and
+    done masks) and the chain kernel reading one shared frame (no crop,
+    batch stride 0), within 0.05 px."""
+    from mtf_tpu_torch import create_tracker
+    rng = np.random.default_rng(0)
+    frame = _window(rng, 96)
+    f2 = np.roll(frame, (1, 1), (0, 1))
+    corners = np.array([[[20.3, 16.2], [60.3, 16.2], [60.3, 48.2],
+                         [20.3, 48.2]],
+                        [[30.1, 30.4], [70.1, 28.4], [72.1, 70.4],
+                         [28.1, 68.4]]], np.float32)
+    cfg = dict(resx=16, resy=16, max_iters=10, **kw)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        sm = create_tracker(key, am, "8", device=dev, **cfg)
+        st = sm.update(sm.initialize(frame, corners), f2)
+        out.append(sm.corners(st).cpu().numpy())
+    assert np.isfinite(out[0]).all()
+    assert np.abs(out[0] - out[1]).max() < 0.05

@@ -29,7 +29,8 @@ from mtf_tpu_torch.ops.kernels import grid_flow as gf
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm import grid as tgrid
 from mtf_tpu_torch.ssm import get_ssm
-from test_torch_fleet import _scene, side_by_side
+from mtf_tpu_torch.factory import CASCADE_SHORTHAND
+from test_torch_fleet import _scene, builds_like_jax, side_by_side
 from test_torch_gpu import k5_inputs
 
 # the bench row's grid (bench_extra.py:363-379) without the refiner
@@ -391,9 +392,15 @@ def test_grid_factory_keys(key, est, levels):
 def test_grid_rejects_unported(key, kw, queue):
     """What stays unported raises naming its queue: a grid of sub-trackers
     that are not ported (the grid of ported sub-trackers is held against
-    the JAX package in `test_torch_ssm_fleet.py`), the shorthands with
-    ICLK or PF members, composites from a multi.cfg file. (The rigid and
-    f2f flows, forward-backward masking and the gather kinds are held
-    against the JAX package in `test_torch_grid_family.py`.)"""
+    the JAX package in `test_torch_ssm_fleet.py`), the shorthands with PF
+    members, composites from a multi.cfg file. gric (grid, then ICLK) is
+    ported with ICLK: it builds as the JAX package builds it
+    (`test_torch_fleet.builds_like_jax`; its fleet is held against the JAX
+    package in `test_torch_generic_fleet.py`). (The rigid and f2f flows,
+    forward-backward masking and the gather kinds are held against the
+    JAX package in `test_torch_grid_family.py`.)"""
+    if key in CASCADE_SHORTHAND:
+        builds_like_jax((key, "ssd", "8"), {**GRID_CFG, **kw})
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
         tcreate(key, "ssd", "8", device="cpu", **{**GRID_CFG, **kw})

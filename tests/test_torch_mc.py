@@ -32,7 +32,8 @@ from mtf_tpu_torch.ops.kernels.lk_fused import lk_fused_chain
 from mtf_tpu_torch.parallel import TrackerFleet
 from mtf_tpu_torch.sm.lk import _blur2
 from mtf_tpu_torch.utils import synth as tsynth
-from test_torch_fleet import CFG, CORNER_TOL, CORNERS, jax_init
+from test_torch_fleet import (CFG, CORNER_TOL, CORNERS, builds_like_jax,
+                              jax_init)
 from test_torch_gpu import assert_norm_close, mc_inputs
 
 # off the integer grid, so no base point sits exactly on an integer
@@ -347,23 +348,38 @@ def test_factory_mc_keys(key):
     ("rklt", "mcssd", "8"),         # its refiner is ESM
 ])
 def test_factory_rejects_mc_outside_the_fused_path(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1b"):
-        tcreate(*args, device="cpu", **CFG)
+    """Multi-channel configurations off the chain kernel (ESM or NCC on
+    (H, W, 3) frames, rklt's ESM refiner) build as the JAX package builds
+    them and take its generic path (`test_torch_fleet.builds_like_jax`)."""
+    builds_like_jax(args, CFG, channels=3)
 
 
 def test_frames_outside_the_fused_path_raise():
-    """Five channels, or ESM on a multi-channel frame, raise as the JAX
-    package's generic path would take them; a gray frame still runs on
-    an mcssd tracker, and an (H, W, 1) frame is a gray frame; the grid
-    runs on (H, W, C) frames, its patch flow as the JAX package's."""
-    frame = np.random.default_rng(0).uniform(0, 255, (120, 160, 5)).astype(
-        np.float32)
+    """Five channels, or ESM on a multi-channel frame, take the generic
+    path, as the JAX package's `_fused_ok` sends them there: a 5-channel
+    SSD update within 0.05 px of the JAX package's (16x16 templates, 3
+    iterations), and ESM on 3 channels with no chain-kernel call; a gray
+    frame still runs on an mcssd tracker, and an (H, W, 1) frame is a gray
+    frame; the grid runs on (H, W, C) frames, its patch flow as the JAX
+    package's."""
+    rng = np.random.default_rng(0)
+    frame = np.stack([np.roll(_scene3(0)[..., k % 3], k, 1)
+                      for k in range(5)], -1)[:120, :160]
+    corners = CORNERS[:2] * 0.5 + np.float32([0.31, 0.27])
+    f2 = np.roll(frame, (1, 1), (0, 1))
+    small = dict(CFG, resx=16, resy=16, max_iters=3)
+    jfl = JFleet(jcreate("fclk", "mcssd", "8", **small))
+    want = np.asarray(jfl.corners(jfl.update(jax_init(jfl, frame, corners),
+                                             f2)))
+    fl5 = TrackerFleet(tcreate("fclk", "mcssd", "8", device="cpu", **small))
+    got = fl5.corners(fl5.update(fl5.initialize(frame, corners), f2))
+    assert np.abs(got.numpy() - want).max() < CORNER_TOL
+    esm = TrackerFleet(tcreate("esm", "ssd", "8", device="cpu", **small))
+    st = esm.update(esm.initialize(frame[..., :3], corners), f2[..., :3])
+    assert torch.isfinite(esm.corners(st)).all()
+    assert not esm.sm._fused_ok(st, torch.tensor(frame[..., :3]))
+    frame = rng.uniform(0, 255, (120, 160, 5)).astype(np.float32)
     corners = CORNERS[:1] * 0.5
-    with pytest.raises(NotImplementedError, match="Queue 1b"):
-        _fleet().initialize(frame, corners)
-    with pytest.raises(NotImplementedError, match="Queue 1b"):
-        TrackerFleet(tcreate("esm", "ssd", "8", device="cpu", **CFG)
-                     ).initialize(frame[..., :3], corners)
     fl = _fleet()
     one = fl.update(fl.initialize(frame[..., :1], corners), frame[..., :1])
     gray = fl.update(fl.initialize(frame[..., 0], corners), frame[..., 0])

@@ -203,8 +203,14 @@ def test_logm_inverts_matrix_exp_in_float32():
 
 
 def test_get_ssm_rejects_the_spline_ssms():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tget_ssm("spline", device="cpu")
+    """The spline SSMs are ported (`test_torch_spline.py` holds them
+    against the JAX package): the keys build the JAX package's 50- and
+    32-DOF SSMs; an unknown key raises."""
+    for key, dof in (("spline", 50), ("spl", 50), ("tps", 32)):
+        t, j = tget_ssm(key, device="cpu"), jget_ssm(key)
+        assert (t.name, t.dof) == (j.name, j.dof) and t.dof == dof
+    with pytest.raises(ValueError, match="unknown SSM"):
+        tget_ssm("nope", device="cpu")
 
 
 # -- factory coverage --------------------------------------------------------
