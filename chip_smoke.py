@@ -18,7 +18,9 @@ SSMs other than the homography on the chain kernel at S = 2-6, the
 sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
 (`lk_fused_gn_t`), and of slice 8: the generic LK path (no chain kernel)
 and every other LK key and option on the path the JAX package's
-`_fused_ok` names:
+`_fused_ok` names, and of slice 9: the particle filter and nearest-
+neighbour search (the pf500 and nn1k rows) with SSIM, MI and the other
+histogram AMs:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernel libraries from `mtf_tpu_torch/csrc/`, one nvcc per
@@ -155,6 +157,22 @@ and every other LK key and option on the path the JAX package's
      3 updates each of every other key and option (`routing_family`,
      B = 256), each launching exactly the chain-kernel mode the JAX
      package's `_fused_ok` names, or nothing on the generic path.
+ 16. slice 9 (`_stochastic_phase`): the pf500 row (pffc/ssim/8, 25x25,
+     500 particles ranked on the blurred stride-4 downsampled frame, the
+     top 64 rescored in a 160-px window, then FCLK-LM on SSIM; B = 128)
+     and the nn1k row (nnic/mi/8, 25x25, 1,000 samples searched on raw
+     pixels, then ICLK-LM on MI at 32 bins; B = 256) at their
+     bench_extra.py configurations: 3 warm-ups and STOCH_WINDOWS windows
+     of 20 updates on the scene, no kernel of the port launched; 3
+     updates under the profiler (device ms, busy share, launches per
+     update; every state tensor on the card); the GT leg at each of
+     GT_SEEDS, held by its median and the trackers it loses to the JAX
+     package's worst seed on the CPU (STOCH_GT_LOST); then 3 updates of
+     every other PF and NN option and key and of SPSS, CCRE, KLD and LKLD
+     on FCLK with LM (`stochastic_routing`, B = 16, MI's binned features
+     at 8),
+     pfrk and nnrk launching K5 2 and ssd_esm 10 times per update,
+     pfsl3's FCLK the ncc chain kernel until its done masks stop it.
  The plain-path checks (4, 5, 9-11, 13-15) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
@@ -527,6 +545,120 @@ def routing_family():
     for spi in ("pix_diff", "gradient", "gftt"):
         out[f"esm_ssd_spi_{spi}"] = ("esm", "ssd", "8",
                                      dict(base, spi_type=spi), "gray", gen)
+    return out
+
+
+# slice 9: the particle filter and nearest-neighbour search, each at its
+# bench_extra.py row (pf500: `bench_pf500`, :297-332; nn1k: `bench_nn1k`,
+# :335-360); the GT legs run at GT_SEEDS (the `seed` option: PF's and
+# NN's draws)
+B_PF = 128
+B_NN = 256
+GT_SEEDS = (0, 1, 2)
+STOCH_WINDOWS = 1        # timed windows of STEPS updates (host-bound)
+B_STOCH_ROUTING = 16     # the 3-update routing runs of the other options
+B_NN_AM_FEAT = 8         # nn_dist_feat="am" with MI: 80 KB per sample
+PF500_CFG = dict(resx=25, resy=25, pf_n_particles=500, enable_lm=True,
+                 max_iters=10, interp="linear_mm", crop=256,
+                 pf_score_stride=4, pf_score_blur=True, pf_rescore_top_k=64,
+                 pf_pix_sigma=2.0, pf_score_downsample=True,
+                 pf_rescore_crop=160, coarse_pt_iters=((4, 3), (2, 3)))
+NN1K_CFG = dict(resx=25, resy=25, nn_n_samples=1000, enable_lm=True,
+                max_iters=10, interp="linear_mm", crop=224, n_bins=32,
+                coarse_pt_iters=((2, 5),), nn_dist_feat="raw")
+
+
+# GT readings of the slice-9 legs: the JAX package on the CPU over the
+# same legs and the whole fleet, at each of GT_SEEDS
+# (scripts/port_stochastic_reference_leg.py). Both rows lose trackers
+# (beyond LOST_PX on some frame) in the JAX package, so each is held by
+# the median of its per-frame corner errors and the number it loses, as
+# GENERIC_GT_LOST holds iclk_ssd, each to its worst seed. pf500 seeds
+# 0/1/2: mean 0.1758, 0.1865, 0.1789 px; median 0.1163, 0.1159, 0.1160;
+# lost 8, 9, 7 of 128 (trackers 3, 46, 56, 84 in all three). nn1k: mean
+# 1.2261, 1.3612, 1.5378 px; median 0.4287, 0.4431, 0.4891; lost 145,
+# 150, 159 of 256 (the smooth small targets where MI's refiner stalls,
+# `bench_extra.py:341-354`)
+STOCH_GT_LOST = {"pf500": (0.1163, 9), "nn1k": (0.4891, 159)}
+STOCH_GT_MEAN_PX = {"pf500": (0.1758, 0.1865, 0.1789),
+                    "nn1k": (1.2261, 1.3612, 1.5378)}
+PROFILED_UPDATES = 3
+
+
+def stochastic_family():
+    """The slice-9 rows: {name: (SM key, AM, SSM key, B, configuration)}."""
+    return {"pf500": ("pffc", "ssim", "8", B_PF, PF500_CFG),
+            "nn1k": ("nnic", "mi", "8", B_NN, NN1K_CFG)}
+
+
+def stochastic_routing():
+    """Every other slice-9 key and option, 3 updates each: {name: (SM
+    key, AM, SSM key, B, configuration, launches per update by
+    kernel)}. The PF options on pf500's PF alone, the NN options on nn1k's
+    NN alone, the keys at pf500's or nn1k's options (pfrk and nnrk on the
+    rklt row's grid and refiner, which launch K5 twice and the ssd_esm
+    chain kernel 10 times per update), the AMs on FCLK's generic path."""
+    pf = {k: v for k, v in PF500_CFG.items()
+          if k not in ("enable_lm", "coarse_pt_iters")}
+    nn = {k: v for k, v in NN1K_CFG.items()
+          if k not in ("enable_lm", "coarse_pt_iters")}
+    b = B_STOCH_ROUTING
+    # the PF options three or two to a run (each run 3 updates: the
+    # phase's time goes to the runs' count, not their B)
+    out = {f"pf_{n}": ("pf", "ssim", "8", b, dict(pf, **o), {})
+           for n, o in (("ar1_additive_corner", dict(
+                            pf_dynamic_model="ar1",
+                            pf_update_type="additive",
+                            pf_mean_type="corner")),
+                        ("lik_am_resampling_none_best", dict(
+                            pf_likelihood="am", pf_resampling="none",
+                            pf_mean_type="best")),
+                        ("lik_reciprocal_ssm_sigmas", dict(
+                            pf_likelihood="reciprocal", pf_ssm_sigmas=(
+                                (0.02,) * 8, (0.005,) * 8, (0.01,) * 8))),
+                        ("jacobian_as_sigma",
+                         dict(pf_jacobian_as_sigma=True)))}
+    out.update({
+        # the online additions on both graph keys
+        "gnn_add_samples": ("gnn", "mi", "8", b,
+                            dict(nn, nn_add_samples_gap=1), {}),
+        "fgnn_add_samples": ("fgnn", "mi", "8", b,
+                             dict(nn, nn_add_samples_gap=2), {}),
+        # MI's binned features, the exact search's online additions
+        "nn_am_feat_add_samples": ("nn", "mi", "8", B_NN_AM_FEAT,
+                                   dict(nn, nn_dist_feat="am",
+                                        nn_add_samples_gap=1), {}),
+        "pfsl3": ("pfsl3", "ncc", "8", b, dict(
+            interp="linear_mm", crop=256, pf_score_stride=4,
+            pf_score_blur=True, pf_rescore_top_k=64),
+            {"ncc": (1, MAX_ITERS)}),
+        "pfk": ("pfk", "ssim", "8", b, pf, {}),
+        "pfkfc": ("pfkfc", "ssim", "8", b, PF500_CFG, {}),
+        "nnk": ("nnk", "mi", "8", b, nn, {}),
+        "nnkic": ("nnkic", "mi", "8", b, NN1K_CFG, {}),
+        "pfrk": ("pfrk", "ssd", "8", b, dict(
+            rklt_cfg(), pf_n_particles=500, pf_score_stride=4,
+            pf_score_blur=True, pf_rescore_top_k=64, pf_pix_sigma=2.0,
+            pf_score_downsample=True),
+            {"ssd_esm": MAX_ITERS, "grid_flow@linear": 2}),
+        "nnrk": ("nnrk", "ssd", "8", b, dict(
+            rklt_cfg(), nn_n_samples=1000, nn_dist_feat="raw"),
+            {"ssd_esm": MAX_ITERS, "grid_flow@linear": 2}),
+    })
+    # the four AMs on FCLK with LM on: plain Gauss-Newton on them sends
+    # some trackers to NaN within 3 updates in the JAX package too (3
+    # updates on the scene at B = 32: KLD 1, CCRE 18 of 32 trackers; none
+    # with LM). LKLD's blocks need the full grid, so LKLD and CCRE take
+    # no coarse phases (LKLD's raise in the JAX package too)
+    lm = dict(slice_cfg(), enable_lm=True)
+    out.update({
+        "fclk_spss": ("fclk", "spss", "8", b, lm, {}),
+        "fclk_kld": ("fclk", "kld", "8", b, lm, {}),
+        "fclk_lkld": ("fclk", "lkld", "8", b,
+                      dict(lm, coarse_pt_iters=()), {}),
+        "fclk_ccre": ("fclk", "ccre", "8", b,
+                      dict(lm, coarse_pt_iters=()), {}),
+    })
     return out
 
 
@@ -1992,6 +2124,96 @@ def _generic_phase(torch, tk, gf, card, dev, frame0, frame_d, frame3_d):
     return out
 
 
+def _profile_updates(torch, fleet, states, frame, n=PROFILED_UPDATES):
+    """`n` updates under `torch.profiler`: (device ms of all kernels per
+    update, kernel launches per update, the states)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            states = fleet.update(states, frame)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    return device_ms, sum(e.count for e in kernels) / n, states
+
+
+def _stochastic_phase(torch, tk, gf, card, dev, frame0, frame_d):
+    """Slice 9: the pf500 and nn1k rows (`stochastic_family`) through the
+    entry points at their bench_extra.py configurations: WARMUP updates
+    and STOCH_WINDOWS timed windows of STEPS updates on the scene (as
+    `bench_extra._fleet_fps`), no kernel of the port launched; then
+    PROFILED_UPDATES updates under the profiler (device ms, busy share,
+    kernel launches per update; every state tensor must be on the card);
+    then the GT leg at each of GT_SEEDS, held by its median and the
+    trackers it loses (`_gt_leg_lost`, STOCH_GT_LOST); then 3 updates of
+    every other key and option (`stochastic_routing`) with their exact
+    launch counts."""
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.parallel import TrackerFleet
+    out = {}
+    for name, (key, am, ssm, b, cfg) in stochastic_family().items():
+        crn = _corners(b)
+        label = f"{name} ({key}/{am}/{ssm})"
+        t0 = time.perf_counter()
+        sm, fps, _ = _fleet(torch, key, am, b, card, crn, frame_d, dev, tk,
+                            gf, {}, windows=STOCH_WINDOWS, cfg=cfg,
+                            label=label, ssm=ssm)
+        stage_s = {"timed": time.perf_counter() - t0}
+        fleet = TrackerFleet(sm, donate=True)
+        states = fleet.initialize(frame_d, crn)
+        states = fleet.update(states, frame_d)
+        dev_ms, launches, states = _profile_updates(torch, fleet, states,
+                                                    frame_d)
+        on_card = [x.is_cuda for x in torch.utils._pytree.tree_leaves(
+            states) if isinstance(x, torch.Tensor) and x.dim() > 0]
+        _check(all(on_card) and launches > 0,
+               f"{label}: a state tensor off the card, or no launch")
+        stage_s["profiled"] = time.perf_counter() - t0 - stage_s["timed"]
+        update_ms = 1e3 * b / fps
+        row = {"B": b, "fps": fps, "update_ms": update_ms,
+               "device_ms_per_update": dev_ms,
+               "busy_share": dev_ms / update_ms,
+               "launches_per_update": launches}
+        print(f"{label}: update {update_ms:.2f} ms, {fps:.1f} frames/s, "
+              f"device {dev_ms:.2f} ms per update (busy share "
+              f"{dev_ms / update_ms:.3f}), {launches:.0f} launches per "
+              f"update ({card})")
+        del fleet, states
+        med_ref, lost_ref = STOCH_GT_LOST[name]
+        row.update(gt_median_limit_px=gt_limit(med_ref),
+                   lost_limit=lost_ref + int(np.ceil(LOST_MARGIN * b)),
+                   jax_cpu_median_px=med_ref, jax_cpu_lost=lost_ref,
+                   jax_cpu_mean_px=STOCH_GT_MEAN_PX[name], seeds={})
+        for seed in GT_SEEDS:
+            sm = create_tracker(key, am, ssm, device=dev,
+                                **dict(cfg, seed=seed))
+            med, lost, gt, _ = _gt_leg_lost(sm, frame0, crn,
+                                            STOCH_GT_LOST[name],
+                                            f"{label} seed {seed}")
+            row["seeds"][seed] = {"gt_median_px": med, "lost": lost,
+                                  "gt_px": gt}
+        stage_s["gt_legs"] = (time.perf_counter() - t0 - stage_s["timed"]
+                              - stage_s["profiled"])
+        row["stage_s"] = stage_s
+        print(f"{label}: stage seconds " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stage_s.items()))
+        out[name] = row
+        del sm
+        torch.cuda.empty_cache()
+
+    for name, (key, am, ssm, b, cfg, expect) in stochastic_routing().items():
+        t0 = time.perf_counter()
+        _, _, got = _fleet(torch, key, am, b, card, _corners(b), frame_d,
+                           dev, tk, gf, expect, windows=0, cfg=cfg,
+                           label=f"{name} ({key}/{am}/{ssm})", ssm=ssm)
+        out[name] = {"B": b, "launches": got,
+                     "wall_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2276,6 +2498,20 @@ def main() -> int:
                              frame3_d)
     torch.cuda.empty_cache()
 
+    # -- slice 9: the particle filter and nearest-neighbour search ---------
+    t9 = time.perf_counter()
+    stochastic = _stochastic_phase(torch, tk, gf, card, dev, frame0, frame_d)
+    slice9_s = time.perf_counter() - t9
+    print(f"slice 9 phase: {slice9_s:.1f} s")
+    torch.cuda.empty_cache()
+    # the routing runs that reach the grid flow (gric, rklt_ssd_spi, pfrk,
+    # nnrk) count in K5's main-path launches too
+    for row_set in (generic, stochastic):
+        for name, row in row_set.items():
+            for k, v in row.get("launches", {}).items():
+                if k.startswith("grid_flow@"):
+                    k5_launches[k.split("@")[1]][name] = v
+
     kernels = []
     for am, esm, mc, kind in tk.INSTANTIATIONS:
         label = _label(am, esm, mc, kind)
@@ -2348,9 +2584,10 @@ def main() -> int:
                                   "launches": launches_fclm},
                    "fclk_ssd_cubic": cubic["cubic"],
                    "fclk_ssd_cubic_bspl": cubic["cubic_bspl"],
-                   **family, **ssm_fleets, **generic},
+                   **family, **ssm_fleets, **generic, **stochastic},
         "raw_sum_rule": rule,
         "build_s": {k: v.seconds for k, v in libs.items()},
+        "slice9_phase_s": slice9_s,
         "wall_s": time.perf_counter() - t_start,
         "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ state.
 
 Slices covered: every LK search method of the JAX package (FCLK, ICLK,
 ESM, AESM, FALK, IALK, FCSD, each optionally with Levenberg-Marquardt)
-with the SSD or NCC appearance model on any number of channels, every
+with the SSD, NCC, SSIM, SPSS, MI, CCRE, KLD or LKLD appearance model on
+any number of channels, the particle filter and the nearest-neighbour
+search (exact or by kNN-graph descent) and their cascades, every
 SSM (the matrix SSMs, spline and TPS), every Hessian flavour, SPI masks
 and done masks; the chain-fused path where the JAX package's `_fused_ok`
 takes its kernel, the generic `torch.func` path elsewhere; batched as a

@@ -2,10 +2,13 @@ from dataclasses import replace
 
 from mtf_tpu_torch.am.base import AM, AMParams, AMState, IlluminationModel  # noqa: F401
 from mtf_tpu_torch.am.base import gn_hessian, jacobian, self_hessian  # noqa: F401
+from mtf_tpu_torch.am.info import CCRE, KLD, LKLD, MI
 from mtf_tpu_torch.am.ncc import NCC
 from mtf_tpu_torch.am.ssd import SSD
+from mtf_tpu_torch.am.ssim import SPSS, SSIM
 
-AM_REGISTRY = {"ssd": SSD, "ncc": NCC}
+AM_REGISTRY = {"ssd": SSD, "ncc": NCC, "ssim": SSIM, "spss": SPSS,
+               "mi": MI, "ccre": CCRE, "kld": KLD, "lkld": LKLD}
 
 
 def get_am(key: str, params: AMParams | None = None, ilm=None) -> AM:
@@ -21,8 +24,9 @@ def get_am(key: str, params: AMParams | None = None, ilm=None) -> AM:
         k = base
     if k not in AM_REGISTRY:
         raise NotImplementedError(
-            f"AM {key!r} is not ported yet: SSIM and MI come next, then the "
-            "other AMs (ROADMAP Queue 1, slice 4, item 3)")
+            f"AM {key!r} is not ported yet: SAD, NSSD, ZNCC, the SCV family, "
+            "RIU, NGF, PCA, DFM and the sum of AMs come next (ROADMAP Queue "
+            "1, slice 4, item 3)")
     if ilm is not None:
         raise NotImplementedError(
             "illumination models are not ported yet: they come with "

@@ -1,7 +1,9 @@
 """Appearance-model base (port of `mtf_tpu/am/base.py`), over B trackers.
 
 An AM is one similarity f(state, patch) per tracker, higher is better,
-on patches (B, N, C). Its derivatives come from `torch.func`, as the JAX
+on patches (B, N, C); any leading dims broadcast against the state's
+(the particle filter scores (B, P, N, C) particle patches against
+states whose leaves carry a particle axis of 1). Its derivatives come from `torch.func`, as the JAX
 package takes them from `jax.grad` and `jax.jvp`: the trackers are
 independent, so the gradient of the sum of f over the batch is each
 tracker's own gradient, and one Hessian-vector product per Jacobian
@@ -10,7 +12,8 @@ column (vmapped over the columns) gives J^T (d2f/dI2) J for all of them.
     grad / grad_corrected   df/dIt (raw / illumination-corrected patch)
     grad_template           df/dI0, through `init` (NCC: through the
                             centred unit template re-derived from the raw
-                            template)
+                            template; MI, CCRE: through the template's
+                            Parzen weights)
     gn_hessian              J^T (d2f/dI2 at the current patch) J
     self_hessian            the same at a perfect match (template = patch)
 
@@ -30,8 +33,11 @@ class AMState(NamedTuple):
 
     template: raw template patch (B, N, C), C >= 1 channels
     p_am:     photometric params (B, P); empty for plain AMs
-    extra:    per-AM extras (SSD: none; NCC: (n0,), the centred unit
-              template (B, N, C))
+    extra:    per-AM extras (SSD, SSIM, SPSS: none; NCC: (n0,), the
+              centred unit template (B, N, C); MI, CCRE: (w0,), the
+              template's Parzen weights (B, C, N, n_bins); KLD: (p0,),
+              its marginals (B, C, n_bins); LKLD: per block
+              (B, k·k, C, n_bins))
     """
     template: torch.Tensor
     p_am: torch.Tensor
@@ -148,6 +154,17 @@ class AM:
             return state
         return state._replace(
             template=(1.0 - lr) * state.template + lr * patch)
+
+    def likelihood(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
+        """Sampler-facing likelihood (`getLikelihood`): exp(alpha f) by
+        default; SSIM, SPSS, MI and CCRE override it."""
+        return torch.exp(self.prm.likelihood_alpha * self.f(state, patch))
+
+    def dist_feat(self, patch: torch.Tensor) -> torch.Tensor:
+        """Feature vector (..., D) of patches (..., N, C) for the NN
+        search's distance (`updateDistFeat`): the flat raw patch (n·C + c)
+        by default."""
+        return patch.flatten(-2)
 
     def self_state(self, patch: torch.Tensor, p_am: torch.Tensor) -> AMState:
         """The state that takes `patch` as its template (current-self

@@ -26,6 +26,11 @@ class NCC(AM):
         n0 = state.extra[0]
         return (n0 * self._center_norm(patch)).sum(dim=-2).mean(dim=-1)
 
+    def likelihood(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
+        """exp(-alpha (1 - f))."""
+        return torch.exp(-self.prm.likelihood_alpha
+                         * (1.0 - self.f(state, patch)))
+
     def update_model(self, state: AMState, patch: torch.Tensor) -> AMState:
         st = super().update_model(state, patch)
         if self.prm.learning_rate > 0.0:

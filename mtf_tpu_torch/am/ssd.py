@@ -15,3 +15,10 @@ class SSD(AM):
     def _similarity(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
         r = patch - state.template
         return -0.5 * (r * r).sum(dim=(-2, -1))
+
+    def likelihood(self, state: AMState, patch: torch.Tensor) -> torch.Tensor:
+        """exp(-alpha * the RMS residual) (SSDBase.cc:64)."""
+        f = self.f(state, patch)
+        n = state.template.shape[-2] * state.template.shape[-1]
+        return torch.exp(-self.prm.likelihood_alpha
+                         * torch.sqrt(torch.clamp(-2.0 * f / n, min=0.0)))

@@ -2,8 +2,8 @@
 
 `to_torch` takes the JAX package's FCLK, ESM, grid (any flow, Median
 Flow included), sub-tracker grid, RKLT, cascade, parallel or pyramidal
-tracker state (SSD or NCC, any matrix SSM; composites nested in
-composites too) as a pytree of numpy arrays
+tracker state (any ported AM and matrix SSM; PF and NN; composites
+nested in composites too) as a pytree of numpy arrays
 (for example `jax.tree.map(np.asarray, state)` or a loaded checkpoint)
 for one tracker or a vmapped batch, and returns the port's batched state
 on a device (None: the card). `to_numpy` goes back: it returns the port's
@@ -14,8 +14,10 @@ read by name; nothing of JAX is imported.
 Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
 3 for mcssd; the tap kind of `interp` changes none of them):
   ssm_state (S,) -> (B, S); am_state.template (N, C) -> (B, N, C);
-  am_state.p_am (0,) -> (B, 0); am_state.extra () for SSD, (n0 (N, 1),)
-  for NCC -> batched; region.norm_mat (3, 3), base_pts (N, 2),
+  am_state.p_am (0,) -> (B, 0); am_state.extra () for SSD, SSIM and
+  SPSS, (n0 (N, 1),) for NCC, (w0 (C, N, n_bins),) for MI and CCRE,
+  (p0 (C, n_bins),) for KLD, (p0 (k·k, C, n_bins),) for LKLD -> batched;
+  region.norm_mat (3, 3), base_pts (N, 2),
   base_corners (4, 2) -> batched;
   LK extra: J0 (N·C, S) with rows interleaved n·C + c, H0 (S, S) and
   each coarse pack (templ_s (n_s,) for gray or (n_s, C), H0_s (S, S),
@@ -42,7 +44,13 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   the mean of the members'), each through its member's SSM. Which
   composite a state belongs to is read from `sm`, the port's tracker;
   without it a composite is taken for RKLT, and its corners are filled
-  only for an 8-DOF refiner, taken for the homography.
+  only for an 8-DOF refiner, taken for the homography;
+  PF extra (`PFState`): particles, prev_particles (P, S), log_weights
+  (P,), distr_log_w (D,), am_particles (P, 0) and score_am (an AM state
+  of the decimated grid, or None) -> batched; NN extra (`NNState`): feats
+  (K, D), feats_sq (K,), dps (K, S) -> batched, ptr and frame_idx ()
+  int32 -> (B,) int32, graph (K, k) int32 (or None) -> (B, K, k) int64.
+  Their `key` becomes `step` as the grid's does.
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
 from mtf_tpu_torch.sm.grid import GridState, SubGridState
 from mtf_tpu_torch.sm.lk import LKCache
+from mtf_tpu_torch.sm.nn import NNState
+from mtf_tpu_torch.sm.pf import PFState
 from mtf_tpu_torch.ssm.projective import Homography
 
 
@@ -111,7 +121,33 @@ def to_torch(jstate, device=None, sm=None):
             a = a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
         return torch.tensor(a, device=device)
 
+    def ints(x, dtype):
+        a = np.asarray(x)
+        return torch.tensor(a[None] if single else a, dtype=dtype,
+                            device=device)
+
+    def am_state(am, f=t):
+        return AMState(template=f(am.template), p_am=f(am.p_am),
+                       extra=tuple(f(x) for x in am.extra))
+
     def extra_of(ex, f=t):
+        if hasattr(ex, "particles"):
+            return PFState(
+                particles=t(ex.particles), prev_particles=t(ex.prev_particles),
+                log_weights=t(ex.log_weights),
+                step=torch.zeros((), dtype=torch.int64),
+                distr_log_w=t(ex.distr_log_w),
+                am_particles=t(ex.am_particles),
+                score_am=(None if ex.score_am is None
+                          else am_state(ex.score_am)))
+        if hasattr(ex, "feats"):
+            return NNState(
+                feats=t(ex.feats), feats_sq=t(ex.feats_sq), dps=t(ex.dps),
+                ptr=ints(ex.ptr, torch.int32),
+                frame_idx=ints(ex.frame_idx, torch.int32),
+                step=torch.zeros((), dtype=torch.int64),
+                graph=(None if ex.graph is None
+                       else ints(ex.graph, torch.int64)))
         if hasattr(ex, "sub_states"):
             return SubGridState(
                 sub_states=tracker(ex.sub_states, flat),
@@ -132,11 +168,10 @@ def to_torch(jstate, device=None, sm=None):
                                     for pack in ex.coarse))
 
     def tracker(js, f=t):
-        am, rg = js.am_state, js.region
+        rg = js.region
         return TrackerState(
             ssm_state=f(js.ssm_state),
-            am_state=AMState(template=f(am.template), p_am=f(am.p_am),
-                             extra=tuple(f(x) for x in am.extra)),
+            am_state=am_state(js.am_state, f),
             region=RegionState(norm_mat=f(rg.norm_mat),
                                base_pts=f(rg.base_pts),
                                base_corners=f(rg.base_corners)),
@@ -174,7 +209,21 @@ def to_numpy(state, squeeze: bool = False):
         a = x.detach().cpu().numpy()
         return a[0] if squeeze else a
 
+    def am_state(am, f=n):
+        return AMState(template=f(am.template), p_am=f(am.p_am),
+                       extra=tuple(f(x) for x in am.extra))
+
     def extra_of(ex, f=n):
+        if isinstance(ex, PFState):
+            return ex._replace(**{k: (am_state(v) if isinstance(v, AMState)
+                                      else v.numpy() if k == "step"
+                                      else n(v))
+                                  for k, v in ex._asdict().items()
+                                  if v is not None})
+        if isinstance(ex, NNState):
+            return ex._replace(**{k: v.numpy() if k == "step" else n(v)
+                                  for k, v in ex._asdict().items()
+                                  if v is not None})
         if isinstance(ex, SubGridState):
             b = ex.centers0.shape[0]
 
@@ -204,11 +253,10 @@ def to_numpy(state, squeeze: bool = False):
         if isinstance(st, CompositeState):
             return CompositeState(tuple(tracker(m) for m in st.members),
                                   extra=tuple(n(x) for x in st.extra))
-        am, rg = st.am_state, st.region
+        rg = st.region
         return TrackerState(
             ssm_state=f(st.ssm_state),
-            am_state=AMState(template=f(am.template), p_am=f(am.p_am),
-                             extra=tuple(f(x) for x in am.extra)),
+            am_state=am_state(st.am_state, f),
             region=RegionState(norm_mat=f(rg.norm_mat),
                                base_pts=f(rg.base_pts),
                                base_corners=f(rg.base_corners)),

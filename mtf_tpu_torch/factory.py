@@ -19,6 +19,17 @@
     create_tracker("eslm", "ncc", "8", resx=16, resy=16, max_iters=10)
     create_tracker("fclk", "ssd", "spline", resx=32, resy=32, ...)
 
+    create_tracker("pffc", "ssim", "8", resx=25, resy=25,
+                   pf_n_particles=500, enable_lm=True, max_iters=10,
+                   interp="linear_mm", crop=256, pf_score_stride=4,
+                   pf_score_blur=True, pf_rescore_top_k=64,
+                   pf_pix_sigma=2.0, pf_score_downsample=True,
+                   pf_rescore_crop=160, coarse_pt_iters=((4, 3), (2, 3)))
+    create_tracker("nnic", "mi", "8", resx=25, resy=25, nn_n_samples=1000,
+                   enable_lm=True, max_iters=10, interp="linear_mm",
+                   crop=224, n_bins=32, coarse_pt_iters=((2, 5),),
+                   nn_dist_feat="raw")
+
 Every SSM key of the JAX package (2-8 DOF: translation to homography,
 the Lie SSMs, SL3 and CBH; and the 50-DOF spline and 32-DOF TPS) and
 every LK key of its `SM_LK_REGISTRY`, with `haclk`, are ported; each LK
@@ -40,6 +51,14 @@ unless `device` says otherwise (`device="cpu"` for a CPU run); without a
 card and without `device` it raises. Keys and options outside the ported
 slices raise `NotImplementedError` naming the ROADMAP queue that brings
 them.
+
+The AMs are SSD, NCC, SSIM, SPSS, MI, CCRE, KLD and LKLD (each also as
+`mc<am>` / `<am>3`). The particle filter (`pf`, `pf100` to `pf5k`), the
+nearest-neighbour search (`nn`, `nn1k` to `nn100k`, `gnn`, `fgnn`, and
+`nnkdt`, `kdt`, `nnkmn`, `kmn`: the exact search), their cascades with an
+LK refiner (`pfic pffc pfes nnic nnfc nnes`) or RKLT (`pfrk nnrk`), the
+multi-layer `pfk*` / `nnk*` cascades and `pfsl3` (a PF on SL3 refined by
+FCLK) are built as the JAX factory builds them (`mtf_tpu/factory.py`).
 """
 from __future__ import annotations
 
@@ -52,6 +71,8 @@ from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
 from mtf_tpu_torch.sm.core import SMParams
 from mtf_tpu_torch.sm.grid import GridParams, GridTracker, SubTrackerGrid
 from mtf_tpu_torch.sm.lk import LM_KEYS, SM_LK_REGISTRY
+from mtf_tpu_torch.sm.nn import NN, NNParams
+from mtf_tpu_torch.sm.pf import PF, PFParams
 from mtf_tpu_torch.ssm import get_ssm
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
@@ -67,7 +88,25 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "seed", "rklt_failure_thresh", "rklt_feedback", "enable_spi",
               # composites
               "members", "casc_reinit_thresh", "pyr_sm", "pyr_n_levels",
-              "multi_cfg"}
+              "multi_cfg",
+              # the AMs' likelihood and histograms
+              "likelihood_alpha", "n_bins",
+              # PF and NN (`_pf_params`, `_nn_params`), their sigma
+              # presets, the multi-layer cascades and pfsl3
+              "pf_ssm_sigmas", "pf_ssm_sigma_ids", "pf_adapt_distr",
+              "pf_n_particles", "pf_dynamic_model", "pf_update_type",
+              "pf_likelihood", "pf_resampling", "pf_mean_type",
+              "pf_pix_sigma", "pf_ssm_sigma", "pf_measurement_sigma",
+              "pf_jacobian_as_sigma", "pf_am_sigma", "pf_score_stride",
+              "pf_score_blur", "pf_score_downsample", "pf_rescore_top_k",
+              "pf_rescore_crop", "nn_n_samples", "nn_max_iters",
+              "nn_pix_sigma", "nn_ssm_sigma", "nn_ssm_sigma_ids",
+              "nn_dist_feat", "nn_add_samples_gap", "nn_n_samples_to_add",
+              "nn_use_gnn", "gnn_k", "gnn_max_steps", "_presets",
+              "pfk_n_layers", "nnk_n_layers", "pfk_ssm_sigma_ids",
+              "nnk_ssm_sigma_ids", "pfsl3_p_x", "pfsl3_p_y", "pfsl3_n",
+              "pfsl3_n_c", "pfsl3_ncc_std", "pfsl3_state_std",
+              "pfsl3_n_iter", "pfsl3_am"}
 
 GRID_KEYS = {"grid": None, "lms": "lmeds", "ransac": "ransac",
              "rnsc": "ransac"}
@@ -76,25 +115,33 @@ MF_KEYS = {"mf", "mflow", "medianflow"}
 CASC_KEYS = {"casc", "casm", "cascade"}
 PRL_KEYS = {"prl", "prlt", "prls", "prsm", "parallel"}
 PYR_KEYS = {"pyr", "pyrt", "pysm", "pyrs"}
-# the cascade shorthands whose members are all ported: <first><second>
+# the cascade shorthands: <first><second> (mtf.h:344-478)
 CASCADE_SHORTHAND = {"grfc": ("grid", "fclk"), "gres": ("grid", "esm"),
-                     "gric": ("grid", "iclk")}
+                     "gric": ("grid", "iclk"),
+                     "pfic": ("pf", "iclk"), "pffc": ("pf", "fclk"),
+                     "pfes": ("pf", "esm"), "nnic": ("nn", "iclk"),
+                     "nnfc": ("nn", "fclk"), "nnes": ("nn", "esm"),
+                     "pfrk": ("pf", "rklt"), "nnrk": ("nn", "rklt")}
+PF_SIZES = {"pf": None, "pf100": 100, "pf250": 250, "pf500": 500,
+            "pf1k": 1000, "pf2k": 2000, "pf5k": 5000}
+NN_SIZES = {"nn": None, "nn1k": 1000, "nn2k": 2000, "nn5k": 5000,
+            "nn10k": 10000, "nn100k": 100000}
+# the exact search stands in for FLANN's KD-tree and k-means indices;
+# gnn / fgnn descend a kNN graph
+NN_KEYS = set(NN_SIZES) | {"gnn", "fgnn", "nnkdt", "kdt", "nnkmn", "kmn"}
+STOCH_CASC_KEYS = {"pfk", "pfkic", "pfkfc", "pfkes",
+                   "nnk", "nnkic", "nnkfc", "nnkes"}
 _PORTED_SM = (set(SM_LK_REGISTRY) | {"haclk"} | set(GRID_KEYS) | RKLT_KEYS
               | MF_KEYS | CASC_KEYS | PRL_KEYS | PYR_KEYS
-              | set(CASCADE_SHORTHAND))
+              | set(CASCADE_SHORTHAND) | set(PF_SIZES) | NN_KEYS
+              | STOCH_CASC_KEYS | {"pfsl3"})
 
 # where each unported SM key is queued: "1c" is the rest of slice 3
 _SLICE_OF_SM = {
     "hrch": "1c (unblocked: its low-DOF SSMs are ported)",
     "hesm": "1c (unblocked: its low-DOF SSMs are ported)",
     "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
-    "pfrk": "1c (PF: Queue 1, slice 5)",
-    "nnrk": "1c (NN: Queue 1, slice 5)", "pfic": "1c (PF: Queue 1, slice 5)",
-    "pffc": "1c (PF: Queue 1, slice 5)", "pfes": "1c (PF: Queue 1, slice 5)",
-    "nnic": "1c (NN: Queue 1, slice 5)", "nnfc": "1c (NN: Queue 1, slice 5)",
-    "nnes": "1c (NN: Queue 1, slice 5)", "pf": "1, slice 5",
-    "nn": "1, slice 5", "gnn": "1, slice 5", "regnet": "1, slice 5",
-    "lp": "1, slice 5",
+    "regnet": "1, slice 5", "lp": "1, slice 5",
 }
 
 
@@ -131,6 +178,99 @@ def _grid_params(cfg: dict, estimator: str | None = None) -> GridParams:
         flow=str(cfg.get("grid_flow", "warped")).lower(),
         seed=int(cfg.get("seed", 0)),
     )
+
+
+def _resolve_sigma_presets(cfg: dict, ids) -> list:
+    """Preset ids -> sigma vectors from `cfg["_presets"]["ssm_sigma"]`
+    (the sigma.cfg registry, mtf.h:268-309; `mtf_tpu/utils/config.py`)."""
+    presets = cfg.get("_presets", {}).get("ssm_sigma", {})
+    if isinstance(ids, (int, float)):
+        ids = [int(ids)]
+    out = []
+    for i in ids:
+        if int(i) not in presets:
+            raise KeyError(f"ssm_sigma preset {i} not in sigma.cfg")
+        v = presets[int(i)]
+        out.append(v if isinstance(v, list) else [v])
+    return out
+
+
+def _sigma_from_ids(cfg: dict, ids_key: str) -> tuple:
+    """The sigma vector of an id-indexed preset selection (the first id
+    wins, as the reference's primary sampler)."""
+    ids = cfg.get(ids_key)
+    if ids is None or "_presets" not in cfg:
+        return ()
+    vecs = _resolve_sigma_presets(cfg, ids)
+    return tuple(vecs[0]) if vecs else ()
+
+
+def _pf_params(cfg: dict, n_particles: int | None = None) -> PFParams:
+    # several presets selected: the multi-distribution sampler
+    sigmas = tuple(tuple(v) for v in cfg.get("pf_ssm_sigmas", ()))
+    ids = cfg.get("pf_ssm_sigma_ids")
+    if not sigmas and ids is not None and "_presets" in cfg:
+        vecs = _resolve_sigma_presets(cfg, ids)
+        if len(vecs) > 1:
+            sigmas = tuple(tuple(v) for v in vecs)
+    return PFParams(
+        ssm_sigmas=sigmas,
+        adapt_distr=bool(cfg.get("pf_adapt_distr", True)),
+        n_particles=int(n_particles or cfg.get("pf_n_particles", 200)),
+        dynamic_model=str(cfg.get("pf_dynamic_model", "rw")),
+        update_type=str(cfg.get("pf_update_type", "compositional")),
+        likelihood=str(cfg.get("pf_likelihood", "gaussian")),
+        resampling=str(cfg.get("pf_resampling", "systematic")),
+        mean_type=str(cfg.get("pf_mean_type", "weighted")),
+        pix_sigma=float(cfg.get("pf_pix_sigma", 3.0)),
+        ssm_sigma=tuple(cfg.get("pf_ssm_sigma", ())) or
+        _sigma_from_ids(cfg, "pf_ssm_sigma_ids"),
+        measurement_sigma=float(cfg.get("pf_measurement_sigma", 0.1)),
+        jacobian_as_sigma=bool(cfg.get("pf_jacobian_as_sigma", False)),
+        am_sigma=tuple(cfg.get("pf_am_sigma", ())),
+        score_stride=int(cfg.get("pf_score_stride", 1)),
+        score_blur=bool(cfg.get("pf_score_blur", False)),
+        score_downsample=bool(cfg.get("pf_score_downsample", False)),
+        rescore_top_k=int(cfg.get("pf_rescore_top_k", 0)),
+        rescore_crop=int(cfg.get("pf_rescore_crop", 0)),
+        seed=int(cfg.get("seed", 0)),
+    )
+
+
+def _nn_params(cfg: dict, n_samples: int | None = None) -> NNParams:
+    return NNParams(
+        n_samples=int(n_samples or cfg.get("nn_n_samples", 1000)),
+        max_iters=int(cfg.get("nn_max_iters", 3)),
+        pix_sigma=float(cfg.get("nn_pix_sigma", 4.0)),
+        ssm_sigma=tuple(cfg.get("nn_ssm_sigma", ())) or
+        _sigma_from_ids(cfg, "nn_ssm_sigma_ids"),
+        dist_feat=str(cfg.get("nn_dist_feat", "am")),
+        add_samples_gap=int(cfg.get("nn_add_samples_gap", 0)),
+        n_samples_to_add=int(cfg.get("nn_n_samples_to_add", 8)),
+        seed=int(cfg.get("seed", 0)),
+    )
+
+
+def _pfsl3_cfg(cfg: dict) -> dict:
+    """PFSL3 (the reference's bundled ThirdParty/PFSL3, defaults
+    PFSL3.cc:14-33 and thirdparty.cfg:59-68) as the JAX package builds it:
+    a PF on SL3 (N x N_c particles, AR(1), a Gaussian NCC likelihood)
+    whose mean is refined by FCLK on the same group (`pffc`)."""
+    ncfg = dict(cfg)
+    ncfg.setdefault("resx", int(cfg.get("pfsl3_p_x", 40)))
+    ncfg.setdefault("resy", int(cfg.get("pfsl3_p_y", 40)))
+    ncfg.setdefault("pf_n_particles", int(cfg.get("pfsl3_n", 50))
+                    * int(cfg.get("pfsl3_n_c", 10)))
+    ncfg.setdefault("pf_dynamic_model", "ar1")
+    ncfg.setdefault("pf_likelihood", "gaussian")
+    ncfg.setdefault("pf_measurement_sigma",
+                    float(cfg.get("pfsl3_ncc_std", 0.05)))
+    if "pfsl3_state_std" in cfg:
+        ncfg.setdefault("pf_ssm_sigma", tuple(cfg["pfsl3_state_std"]))
+    else:
+        ncfg.setdefault("pf_pix_sigma", 3.5)
+    ncfg.setdefault("max_iters", int(cfg.get("pfsl3_n_iter", 5)) * 2)
+    return ncfg
 
 
 def _casc_thresh(cfg: dict):
@@ -179,9 +319,37 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         return create_tracker(key, m_am, m_ssm, ilm, device=device,
                               **sub_cfg)
 
+    if sm_key == "pfsl3":
+        return create_tracker("pffc", str(cfg.get("pfsl3_am", "ncc")),
+                              "sl3", ilm, device=device, **_pfsl3_cfg(cfg))
     if sm_key in CASCADE_SHORTHAND:
         first, second = CASCADE_SHORTHAND[sm_key]
         return CascadeSM([sub(first), sub(second)], _casc_thresh(cfg))
+    if sm_key in STOCH_CASC_KEYS:
+        # k stochastic layers (getPFk mtf.h:268-288, getNNk :290-309),
+        # each with its sigma presets or half the previous layer's pixel
+        # sigma, then optionally an LK refiner
+        stoch = "pf" if sm_key.startswith("pf") else "nn"
+        n_layers = int(cfg.get(f"{stoch}k_n_layers",
+                               3 if stoch == "pf" else 5))
+        layer_ids = cfg.get(f"{stoch}k_ssm_sigma_ids")
+        members = []
+        for layer in range(n_layers):
+            layer_cfg = dict(sub_cfg)
+            if layer_ids:
+                layer_cfg[f"{stoch}_ssm_sigma_ids"] = (
+                    list(layer_ids)[-n_layers:][layer])
+            else:
+                px_key = f"{stoch}_pix_sigma"
+                base_px = float(cfg.get(px_key,
+                                        3.0 if stoch == "pf" else 4.0))
+                layer_cfg[px_key] = base_px * (0.5 ** layer)
+            members.append(create_tracker(stoch, am, ssm, ilm,
+                                          device=device, **layer_cfg))
+        refiner = {"ic": "iclk", "fc": "fclk", "es": "esm"}.get(sm_key[3:])
+        if refiner:
+            members.append(sub(refiner))
+        return CascadeSM(members, _casc_thresh(cfg))
     if sm_key in CASC_KEYS:
         return CascadeSM([sub(*m) for m in _members(sm_key, cfg)],
                          _casc_thresh(cfg))
@@ -211,6 +379,9 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     )
     am_prm = AMParams(resx=int(cfg.get("resx", cfg.get("mtf_res", 50))),
                       resy=int(cfg.get("resy", cfg.get("mtf_res", 50))),
+                      likelihood_alpha=float(cfg.get("likelihood_alpha",
+                                                     50.0)),
+                      n_bins=int(cfg.get("n_bins", 8)),
                       learning_rate=float(cfg.get("learning_rate", 0.0)))
 
     def make_am(key=am, params=am_prm):
@@ -219,6 +390,16 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     def make_ssm():
         return get_ssm(ssm, device=device)
 
+    if sm_key in PF_SIZES:
+        return PF(make_am(), make_ssm(), prm,
+                  _pf_params(cfg, PF_SIZES[sm_key]))
+    if sm_key in NN_KEYS:
+        nn_prm = _nn_params(cfg, NN_SIZES.get(sm_key))
+        if sm_key in ("gnn", "fgnn") or bool(cfg.get("nn_use_gnn", False)):
+            nn_prm = replace(nn_prm, use_gnn=True,
+                             gnn_k=int(cfg.get("gnn_k", 10)),
+                             gnn_max_steps=int(cfg.get("gnn_max_steps", 32)))
+        return NN(make_am(), make_ssm(), prm, nn_prm)
     if sm_key in MF_KEYS:
         # Median Flow (the reference's bundled TLD tracker core):
         # frame-to-frame pyramidal grid flow with forward-backward masking

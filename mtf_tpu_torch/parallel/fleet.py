@@ -15,22 +15,34 @@ from __future__ import annotations
 import torch
 
 
-def _copy_leaves(dst, src) -> None:
-    """Write every tensor of state `src` into the tensor at the same
-    place of `dst` (same structure of tuples and NamedTuples); tensors the
-    update carried over unchanged are skipped."""
+def _leaf_pairs(dst, src, out: list) -> list:
+    """The (old, new) tensor pairs at the same places of states `dst` and
+    `src` (same structure of tuples and NamedTuples)."""
     if isinstance(dst, torch.Tensor):
-        if dst is not src:
-            dst.copy_(src)
+        out.append((dst, src))
     elif isinstance(dst, tuple):
         if not isinstance(src, tuple) or len(src) != len(dst):
             raise ValueError("donate: the update changed the state's "
                              "structure")
         for d, s in zip(dst, src):
-            _copy_leaves(d, s)
+            _leaf_pairs(d, s, out)
     elif dst is not None or src is not None:
         raise ValueError(f"donate: cannot write {type(src).__name__} into "
                          f"{type(dst).__name__}")
+    return out
+
+
+def _copy_leaves(dst, src) -> None:
+    """Write every tensor of state `src` into the tensor at the same
+    place of `dst`; tensors the update carried over unchanged are
+    skipped. A new tensor that is another field's old tensor (a particle
+    filter without resampling keeps its particles as the next
+    `prev_particles`) is copied before any field is written."""
+    pairs = [(d, s) for d, s in _leaf_pairs(dst, src, []) if d is not s]
+    written = {id(d) for d, _ in pairs}
+    pairs = [(d, s.clone() if id(s) in written else s) for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
 
 
 class TrackerFleet:

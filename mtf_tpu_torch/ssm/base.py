@@ -5,6 +5,11 @@ An SSM is an `nn.Module` whose only tensors are its generator basis
 the basis's pseudo-inverse; both live on the card unless `device` says
 otherwise. Its methods are plain functions of batched states (..., S)
 and 3x3 warps (..., 3, 3).
+
+The stochastic samplers (random walk, AR(1)) take a standard-normal draw
+(..., S) in place of the JAX package's key: the caller owns the draw
+(the particle filter makes one per update and shares it across its
+trackers, as every tracker of a JAX fleet draws from the same key).
 """
 from __future__ import annotations
 
@@ -15,6 +20,18 @@ from torch import nn
 from mtf_tpu_torch import _device
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.linalg import inv3x3
+
+
+def dehom_jacobian_from_generators(generators: torch.Tensor,
+                                   pts: torch.Tensor) -> torch.Tensor:
+    """dW/dp at identity for points (..., N, 2) -> (..., N, 2, S): for
+    generators G_i, d/dp_i dehom(W(p) x_h) at 0 is (v_x - x v_w,
+    v_y - y v_w) with v = G_i x_h."""
+    pts_h = W.homogenize(pts)                                # (..., N, 3)
+    gv = torch.einsum("sij,...nj->...nsi", generators, pts_h)
+    dx = gv[..., 0] - pts[..., :1] * gv[..., 2]             # (..., N, S)
+    dy = gv[..., 1] - pts[..., 1:2] * gv[..., 2]
+    return torch.stack([dx, dy], dim=-2)
 
 
 def _sqrtm_db(A: torch.Tensor, iters: int = 10) -> torch.Tensor:
@@ -125,6 +142,56 @@ class SSM(nn.Module):
             M = self.to_matrix(state + dp)
         return W.apply_warp(M, pts)
 
+    def dwdp_identity(self, pts: torch.Tensor) -> torch.Tensor:
+        """(..., N, 2, S) warp Jacobian at identity."""
+        return dehom_jacobian_from_generators(self.generators, pts)
+
+    # ---- stochastic samplers (StateSpaceModel.h:286-338) -------------
+    def random_walk(self, noise: torch.Tensor, state: torch.Tensor,
+                    sigma: torch.Tensor,
+                    compositional: bool = True) -> torch.Tensor:
+        """Random walk by dp = sigma * noise (`noise` standard normal)."""
+        dp = sigma * noise
+        if compositional:
+            return self.compositional_update(state, dp)
+        return state + dp
+
+    def auto_regression1(self, noise: torch.Tensor, state: torch.Tensor,
+                         prev_state: torch.Tensor, sigma: torch.Tensor,
+                         a: float = 0.5,
+                         compositional: bool = True) -> torch.Tensor:
+        """AR(1): extrapolate the last inter-frame motion scaled by `a`,
+        then perturb by sigma * noise."""
+        dp = sigma * noise
+        if compositional:
+            delta = self.compose(self.invert(prev_state), state)
+            pred = self.compose(state, self.scale_state(delta, a))
+            return self.compositional_update(pred, dp)
+        pred = state + a * (state - prev_state)
+        return pred + dp
+
+    def scale_state(self, state: torch.Tensor, a: float) -> torch.Tensor:
+        """Fractional warp: the state scaled linearly (exact for the Lie
+        parameterizations, first order otherwise)."""
+        return state * a
+
+    def mean_of_samples(self, states: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+        """Weighted mean (..., S) of states (..., P, S), weights (..., P):
+        the Euclidean mean (`estimateMeanOfSamples`); the Lie SSMs take the
+        Karcher mean."""
+        return (weights[..., None] * states).sum(dim=-2)
+
+    def state_sigma_from_pixel_sigma(self, pix_sigma,
+                                     pts: torch.Tensor) -> torch.Tensor:
+        """Per-parameter state sigmas (..., S) that move points (..., N, 2)
+        by `pix_sigma` (a number or (...,)) RMS pixels:
+        pix_sigma / rms_n ||dW/dp_i|| (`estimateStateSigma`)."""
+        J = self.dwdp_identity(pts)                          # (..., N, 2, S)
+        rms = torch.sqrt((J * J).sum(dim=-2).mean(dim=-2))   # (..., S)
+        pix = torch.as_tensor(pix_sigma, dtype=rms.dtype, device=rms.device)
+        return pix[..., None] / torch.clamp(rms, min=1e-12)
+
 
 class AdditiveMatrixSSM(SSM):
     """W(p) = I + sum_i p_i G_i."""
@@ -162,3 +229,17 @@ class ExpSSM(SSM):
 
     def _normalize(self, mat: torch.Tensor) -> torch.Tensor:
         return mat / mat[..., 2:3, 2:3]
+
+    def mean_of_samples(self, states: torch.Tensor, weights: torch.Tensor,
+                        iters: int = 4) -> torch.Tensor:
+        """Iterative Karcher mean on the group (SL3.cc's sample mean):
+        mu <- mu o exp(sum_i w_i log(mu^-1 o s_i)), from the Euclidean
+        mean, `iters` times."""
+        mu = (weights[..., None] * states).sum(dim=-2)
+        M = self.to_matrix(states)                           # (..., P, 3, 3)
+        for _ in range(iters):
+            Minv = inv3x3(self.to_matrix(mu))[..., None, :, :]
+            d = self.project_algebra(logm_3x3(self._normalize(Minv @ M)))
+            mu = self.compositional_update(
+                mu, (weights[..., None] * d).sum(dim=-2))
+        return mu

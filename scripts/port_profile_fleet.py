@@ -10,8 +10,9 @@ Each argument triple (default: "fclk ssd 1280", "esm ncc 1024",
 slice 6's "fclk/6 ssd 1280", "rklt/6 ssd 384" and "subgrid ssd 384") is
 one fleet in `chip_smoke.py`'s configuration for its key (`sm@interp`
 picks the taps, `sm/ssm` any SSM key, the homography "8" by default; a
-name of `chip_smoke.grid_family`, `chip_smoke.ssm_family` or
-`chip_smoke.generic_family` takes that fleet's key, SSM and
+name of `chip_smoke.grid_family`, `chip_smoke.ssm_family`,
+`chip_smoke.generic_family` or `chip_smoke.stochastic_family` ("pf500
+ssim 128", "nn1k mi 256") takes that fleet's key, SSM and
 configuration), on its scene (the 3-channel one for the multi-channel AM
 keys) and corners. A fleet of the generic family steps on the scene and
 the scene shifted by (1, 1) px in turns, so that its done masks
@@ -59,6 +60,9 @@ def profile(key: str, am: str, b: int, card: str) -> dict:
     moving = key in generic
     if moving:
         key, _, ssm, _, cfg, _ = generic[key]
+    stochastic = cs.stochastic_family()
+    if key in stochastic:
+        key, _, ssm, _, cfg = stochastic[key]
     mc = am.startswith("mc") or am.endswith("3")
     frame = torch.as_tensor(cs._scene3(0) if mc else cs._scene(0), device=dev)
     frames = [frame, torch.roll(frame, (1, 1), (0, 1)) if moving else frame]

@@ -205,7 +205,8 @@ def test_donate_updates_state_in_place(ref):
 
 
 def _lk_members(sm):
-    """The LK trackers of a tracker or composite, in member order."""
+    """The LK trackers of a tracker or composite (of either package), in
+    member order."""
     for name in ("templ_sm", "sm"):
         if hasattr(sm, name):
             return _lk_members(getattr(sm, name))
@@ -228,9 +229,7 @@ def builds_like_jax(args, kw, channels=0):
     assert type(t).__name__ == type(j).__name__
     shape = (240, 320) + ((channels,) if channels else ())
     st = types.SimpleNamespace(spi_mask=None)
-    tl, jl = _lk_members(t), [m for m in (
-        [getattr(j, "templ_sm", None)] + list(getattr(j, "members", [j])))
-        if m is not None and hasattr(m, "_fused_ok")]
+    tl, jl = _lk_members(t), _lk_members(j)
     assert len(tl) == len(jl) >= 1
     for a, b in zip(tl, jl):
         assert type(a).__name__ == type(b).__name__
@@ -264,19 +263,20 @@ def builds_like_jax(args, kw, channels=0):
     (("fclk", "ssd", "8"), {**CFG, "n_bins": 16}),
 ])
 def test_factory_rejects_unported(args, kw):
-    """What this slice ported (the bare esm/fclk configurations, which
+    """What the slices ported (the bare esm/fclk configurations, which
     default to `interp="linear"` and `epsilon=0.01`; rklt's enable_spi;
-    the gather interps; done masks; self0; use_pallas) builds as the JAX
-    package builds it (`builds_like_jax`); non-replicate borders and the
-    options that only unported AMs read (the likelihood and histogram
-    ones) stay unported and raise naming their queue."""
+    the gather interps; done masks; self0; use_pallas; the likelihood and
+    histogram options that SSIM, MI and PF read) builds as the JAX package
+    builds it (`builds_like_jax`; the AM parameters too); non-replicate
+    borders stay unported and raise naming their queue."""
     if kw.get("border", "replicate") != "replicate":
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, "
                                                       "slice 8"):
             tcreate(*args, device="cpu", **kw)
         return
-    if {"likelihood_alpha", "n_bins"} & set(kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tcreate(*args, device="cpu", **kw)
-        return
     builds_like_jax(args, kw)
+    if {"likelihood_alpha", "n_bins"} & set(kw):
+        t = tcreate(*args, device="cpu", **kw)
+        j = jcreate(*args, **kw)
+        assert (t.am.prm.likelihood_alpha, t.am.prm.n_bins) == (
+            j.am.prm.likelihood_alpha, j.am.prm.n_bins)

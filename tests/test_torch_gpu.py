@@ -636,3 +636,53 @@ def test_cuda_generic_and_shared_window_updates_match_cpu(cuda_device, key,
         out.append(sm.corners(st).cpu().numpy())
     assert np.isfinite(out[0]).all()
     assert np.abs(out[0] - out[1]).max() < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,am,kw", [
+    ("pffc", "ssim", dict(pf_n_particles=64, pf_score_stride=4,
+                          pf_score_blur=True, pf_score_downsample=True,
+                          pf_rescore_top_k=16, pf_rescore_crop=64,
+                          pf_pix_sigma=2.0, enable_lm=True)),
+    ("nnic", "mi", dict(nn_n_samples=128, n_bins=32, nn_dist_feat="raw",
+                        nn_add_samples_gap=1, nn_n_samples_to_add=4,
+                        enable_lm=True)),
+])
+def test_cuda_stochastic_updates_match_cpu(cuda_device, key, am, kw):
+    """One pffc/ssim (pf500's measurement) and one nnic/mi (nn1k's raw
+    search, with online additions) update on the card against the same
+    update on the CPU, both handed the CPU tracker's draws (the two
+    devices' generators give different streams): corners within
+    0.05 px, and every state tensor on the card."""
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.sm.pf import PFDraw
+    rng = np.random.default_rng(0)
+    frame = _window(rng, 128)
+    f2 = np.roll(frame, (1, 1), (0, 1))
+    corners = np.array([[[30.3, 26.2], [70.3, 26.2], [70.3, 68.2],
+                         [30.3, 68.2]],
+                        [[40.1, 40.4], [80.1, 38.4], [82.1, 80.4],
+                         [38.1, 78.4]]], np.float32)
+    cfg = dict(resx=16, resy=16, max_iters=5, interp="linear_mm", crop=96,
+               **kw)
+    cpu = create_tracker(key, am, "8", device="cpu", **cfg)
+    gpu = create_tracker(key, am, "8", device=cuda_device, **cfg)
+    stoch_cpu, stoch_gpu = cpu.members[0], gpu.members[0]
+    if key.startswith("pf"):
+        draw = stoch_cpu._draw(0)
+        stoch_gpu._draw = lambda step: PFDraw(*[x.to(cuda_device)
+                                                for x in draw])
+    else:
+        draws = {None: stoch_cpu._draw(None, 128), 0: stoch_cpu._draw(0, 4)}
+        stoch_cpu._draw = lambda step, n: draws[step]
+        stoch_gpu._draw = lambda step, n: draws[step].to(cuda_device)
+    out = []
+    for sm in (gpu, cpu):
+        st = sm.update(sm.initialize(frame, corners), f2)
+        out.append(sm.corners(st).cpu().numpy())
+        if sm is gpu:
+            leaves = [x for x in torch.utils._pytree.tree_leaves(st)
+                      if isinstance(x, torch.Tensor) and x.dim() > 0]
+            assert all(x.is_cuda for x in leaves)
+    assert np.isfinite(out[0]).all()
+    assert np.abs(out[0] - out[1]).max() < 0.05

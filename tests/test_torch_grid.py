@@ -392,11 +392,12 @@ def test_grid_factory_keys(key, est, levels):
 def test_grid_rejects_unported(key, kw, queue):
     """What stays unported raises naming its queue: a grid of sub-trackers
     that are not ported (the grid of ported sub-trackers is held against
-    the JAX package in `test_torch_ssm_fleet.py`), the shorthands with PF
-    members, composites from a multi.cfg file. gric (grid, then ICLK) is
-    ported with ICLK: it builds as the JAX package builds it
-    (`test_torch_fleet.builds_like_jax`; its fleet is held against the JAX
-    package in `test_torch_generic_fleet.py`). (The rigid and f2f flows,
+    the JAX package in `test_torch_ssm_fleet.py`), composites from a
+    multi.cfg file. gric (grid, then ICLK) is ported with ICLK, pfrk (PF,
+    then RKLT) with the PF: each builds as the JAX package builds it
+    (`test_torch_fleet.builds_like_jax`; gric's fleet is held against the
+    JAX package in `test_torch_generic_fleet.py`, the PF in
+    `test_torch_pf_nn.py`). (The rigid and f2f flows,
     forward-backward masking and the gather kinds are held against the
     JAX package in `test_torch_grid_family.py`.)"""
     if key in CASCADE_SHORTHAND:
