@@ -20,7 +20,9 @@ sub-tracker grid, and the last two TPU kernels, K4b (blurred taps) and K6
 and every other LK key and option on the path the JAX package's
 `_fused_ok` names, and of slice 9: the particle filter and nearest-
 neighbour search (the pf500 and nn1k rows) with SSIM, MI and the other
-histogram AMs:
+histogram AMs, and of slice 10: the hierarchical ESM, the linear
+predictor, the line tracker, RegNet, the SCV family and the illumination
+models:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernel libraries from `mtf_tpu_torch/csrc/`, one nvcc per
@@ -173,7 +175,27 @@ histogram AMs:
      at 8),
      pfrk and nnrk launching K5 2 and ssd_esm 10 times per update,
      pfsl3's FCLK the ncc chain kernel until its done masks stop it.
- The plain-path checks (4, 5, 9-11, 13-15) drive an LM tracker's plain
+ 17. slice 10 (`_slice10_phase`): the fleets of `slice10_family` on the
+     scene, each with its exact launches per update: hesm/ssd/8 (ESM on
+     the translation, then the homography: ssd_esm:s2 10 and ssd_esm 10
+     per update, B = 1024), lpfc/ssd/8 (the 3-stage linear predictor on
+     the translation, then FCLK: ssd 10, B = 1280), line/ssd/8 (the rklt
+     row's grid with line snapping: K5 2, B = 384), esm/rscv/8 and
+     fclk/ssd/8 with PGB (the generic path, B = 1024) and gtrn (RegNet on
+     the similitude, 3,000 samples, hidden 256-128, B = 256): WARMUP
+     updates and one timed window of STEPS updates, the init's seconds
+     apart (LP's and RegNet's training), one update under the profiler
+     for hesm, lpfc and esm/rscv; the GT leg (SLICE10_GT_READING_PX,
+     SLICE10_GT_FIRST_FRAME, SLICE10_GT_LOST; lpfc and gtrn at GT_SEEDS on
+     their first 32 and 16 trackers, SLICE10_LEARNED_GT); the plain-path
+     check of hesm, lpfc (the CPU
+     LP handed the card's training draws) and line; then that NGF, LSCV,
+     LRSCV and DFM raise under coarse phases, and 3 updates of every other
+     slice-10 key and option (`slice10_routing`, B = 16): each new AM and
+     its `mc` key on FCLK, the sums, GB and RBF, PF with GB's photometric
+     walk, lp, lpic, lpes (ssd_esm 10), hrch with FCLK (ssd:s2 10, ssd
+     10), RegNet on the translation, NN on ZNCC's and DFM's features.
+ The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
  must be a tie (`_is_tie`, TIE_K).
@@ -658,6 +680,155 @@ def stochastic_routing():
                       dict(lm, coarse_pt_iters=()), {}),
         "fclk_ccre": ("fclk", "ccre", "8", b,
                       dict(lm, coarse_pt_iters=()), {}),
+    })
+    return out
+
+
+# slice 10: the remaining AMs and ILMs, LP, RegNet, the hierarchical SMs
+# and the line tracker; each fleet at the B of the row its configuration
+# comes from
+B_GTRN = 256             # RegNet (gtrn): 3,000 samples of 2,500 points
+B_SLICE10_ROUTING = 16   # the 3-update routing runs of the other options
+FULL_GRID_AMS = ("ngf", "lscv", "lrscv", "dfm")
+# GT readings of the slice-10 legs: the JAX package on the CPU over the
+# same legs (scripts/port_slice10_reference_leg.py). hesm over its first 8
+# trackers: mean 0.0993 px (per frame 0.1145, 0.1052, 0.1067, 0.081,
+# 0.0893). The others lose trackers in the JAX package too, so each is
+# held by the median of its per-frame errors and the number it loses
+# (`_gt_leg_lost`), over the whole fleet: line 1.1316 px (per frame
+# 1.4764, 1.1679, 0.6861, 0.7339, 1.5938; mean 1.4694), 354 of 384 lost
+# (the line snap moves most centres); fclk/ssd + pgb 0.1003 px (per frame
+# 0.1265, 0.108, 0.1076, 0.0876, 0.0718; mean 0.2161), 154 of 1,024 lost.
+# esm/rscv: the JAX package loses 1,023 of 1,024 trackers (median 75.4563
+# px; per frame 23.9648, 42.9865, 68.7344, 100.0009, 141.5949: RSCV's
+# 8-bin remap biases every ESM step, and the trackers drift off in both
+# packages); from the second frame on they part chaotically between any
+# two summation orders (the port on the CPU against the JAX package, the
+# first 64 trackers: median 17.888 / 17.914 px on frame 1, 102.757 /
+# 56.995 on frame 4), so its leg is held on frame 1, the median there
+# within `gt_limit` of the JAX package's (SLICE10_GT_FIRST_FRAME; with
+# its count non-finite, below). lpfc
+# and gtrn, whose draws differ between the packages, over their first
+# trackers at each of GT_SEEDS (the card runs the same trackers at the
+# same seeds; SLICE10_LEARNED_GT: the trackers, the JAX medians per seed,
+# the most lost; RegNet's JAX reading on the CPU samples its 3,000 views
+# per tracker by dense matmuls over the whole frame, ~40 s and ~6 GB a
+# tracker, so gtrn's leg takes 16): each of the card's seeds is another
+# sample of the same distribution, so its median is held to the worst
+# JAX seed's plus
+# the JAX seeds' spread (`learned_limit`; at least `gt_limit` of it), its
+# count lost to the most the JAX seeds lose plus LOST_MARGIN. lpfc
+# 0.0838, 0.0839, 0.0839 px, none of 32 lost; gtrn (RegNet alone, no
+# refiner, 8-px training motion) 3.7821, 3.3730, 3.8892 px (means
+# 4.7240, 4.1004, 4.5002), all 16 lost at every seed (beyond 1 px on
+# some frame).
+# Trackers whose corners go non-finite: none in any JAX leg above or in
+# an earlier fleet's, but for esm/rscv. Its trackers drift hundreds to
+# thousands of px off the frame, where ESM's Hessian is so ill-conditioned
+# that a float32 Cholesky pivot may go negative: whether it does turns on
+# rounding. The JAX package sends 140 of 1,024 non-finite on its leg,
+# 137 and 149 on the leg's frames 1 and 2 ulps up (57 and 61 trackers
+# flip), and 283 after the timed run's 23 static updates (290 and 300 on
+# the scene 1 and 2 ulps up, 173 and 185 flips). If each tracker's
+# outcome is an independent draw, the flips between two runs estimate
+# the variance of the difference of their counts; the card's count is
+# held to the JAX package's plus 3 standard deviations
+# (`not_finite_limit`: (count, the most flips)). gtrn's timed run (not
+# its legs): RegNet's step, once a tracker has left the frame, can grow
+# its similitude's scale without end until float32 overflows (10^36 px
+# and more before the NaN). Which trackers do turns on the nets, so on
+# the draws, which differ between the packages: from the port's nets
+# trained on the CPU, the JAX package's updates send 3 of 256 trackers
+# non-finite (49, 83, 93), the port's 3 (83, 85, 93). The card trains
+# on its own draws, and for counts of independent draws the variance of
+# the difference is their sum, twice 3.
+SLICE10_GT_READING_PX = {"hesm_ssd": 0.0993}
+SLICE10_GT_LOST = {"line_ssd": (1.1316, 354), "fclk_ssd_pgb": (0.1003, 154)}
+SLICE10_GT_FIRST_FRAME = {"esm_rscv": (23.9648, (140, 61))}
+SLICE10_LEARNED_GT = {
+    "lpfc_ssd": (32, (0.0838, 0.0839, 0.0839), 0, (0, 0)),
+    "gtrn_ssd": (16, (3.7821, 3.3730, 3.8892), 16, (0, 0))}
+SLICE10_PROFILED = ("hesm_ssd", "lpfc_ssd", "esm_rscv")
+# the timed run's non-finite trackers (WARMUP + STEPS static updates;
+# the other fleets: none)
+SLICE10_NOT_FINITE = {"esm_rscv": (283, 185), "gtrn_ssd": (3, 6)}
+# the legs read over the first 8 trackers (the others: the whole fleet)
+SLICE10_FIRST8 = ("hesm_ssd",)
+
+
+def learned_limit(medians) -> float:
+    """The median limit of a fleet whose draws differ between the
+    packages: the worst JAX seed's median plus the JAX seeds' spread, at
+    least `gt_limit` of the worst."""
+    worst = max(medians)
+    return max(gt_limit(worst), 2 * worst - min(medians))
+
+
+def slice10_family():
+    """The slice-10 fleets: {name: (SM key, AM, SSM key, B, configuration,
+    launches per update by kernel)}; an ILM rides in the configuration
+    (`create_tracker`'s `ilm`). hesm runs ESM on the translation, then on
+    the homography (the chain kernel's ssd_esm mode at S = 2, then 8,
+    10 iterations each); lpfc the 3-stage LP on the translation, then
+    FCLK (K1); line the rklt row's grid (K5 on 2 levels); esm/rscv and
+    fclk/ssd with PGB (S + P = 18) the generic path; gtrn RegNet on the
+    similitude (GOTURN's analog: 3,000 samples, hidden 256-128)."""
+    return {
+        "hesm_ssd": ("hesm", "ssd", "8", B_SLICE2, slice_cfg(),
+                     {"ssd_esm:s2": MAX_ITERS, "ssd_esm": MAX_ITERS}),
+        "lpfc_ssd": ("lpfc", "ssd", "8", B, slice_cfg(), {"ssd": MAX_ITERS}),
+        "line_ssd": ("line", "ssd", "8", B_RKLT, rklt_cfg(),
+                     {"grid_flow@linear": K5_PER_UPDATE}),
+        "esm_rscv": ("esm", "rscv", "8", B_SLICE2, slice_cfg(), {}),
+        "fclk_ssd_pgb": ("fclk", "ssd", "8", B_SLICE2,
+                         dict(slice_cfg(), ilm="pgb"), {}),
+        "gtrn_ssd": ("gtrn", "ssd", "8", B_GTRN, slice_cfg(), {}),
+    }
+
+
+def slice10_routing():
+    """Every other slice-10 key and option, 3 updates each at
+    B_SLICE10_ROUTING: {name: (SM key, AM, SSM key, configuration, frame,
+    launches per update by kernel)}, `frame` "gray" or "rgb". Each new AM
+    and its `mc` key on FCLK (plain Gauss-Newton: none sends a tracker to
+    NaN in 3 updates in the JAX package on the CPU,
+    `scripts/port_slice10_reference_leg.py routing`; the full-grid AMs
+    without coarse phases, which they raise under, as in the JAX package),
+    the sums, GB and RBF, PF with GB's photometric walk, the LP keys, hrch
+    with FCLK, RegNet on the translation and NN on ZNCC's and DFM's
+    features."""
+    base = slice_cfg()
+    out = {}
+    for am in ("nssd", "zncc", "sad", "scv", "rscv", "lscv", "lrscv", "riu",
+               "ngf", "pca", "dfm"):
+        cfg = dict(base, coarse_pt_iters=()) if am in FULL_GRID_AMS else base
+        out[f"fclk_{am}"] = ("fclk", am, "8", cfg, "gray", {})
+        out[f"fclk_mc{am}"] = ("fclk", "mc" + am, "8", cfg, "rgb", {})
+    pf = {k: v for k, v in PF500_CFG.items()
+          if k not in ("enable_lm", "coarse_pt_iters")}
+    nn = {k: v for k, v in NN1K_CFG.items()
+          if k not in ("enable_lm", "coarse_pt_iters", "n_bins",
+                       "nn_dist_feat")}
+    out.update({
+        "fclk_sum_ssd_ncc": ("fclk", "sum", "8", base, "gray", {}),
+        "fclk_sum_zncc_scv": ("fclk", "sum", "8",
+                              dict(base, sum_am1="zncc", sum_am2="scv"),
+                              "gray", {}),
+        "fclk_ssd_gb": ("fclk", "ssd", "8", dict(base, ilm="gb"), "gray",
+                        {}),
+        "fclk_ssd_rbf": ("fclk", "ssd", "8", dict(base, ilm="rbf"), "gray",
+                         {}),
+        "pf_ssd_gb_am_sigma": ("pf", "ssd", "8", dict(
+            pf, ilm="gb", pf_am_sigma=(0.01, 1.0)), "gray", {}),
+        "lp_ssd": ("lp", "ssd", "8", base, "gray", {}),
+        "lpic_ssd": ("lpic", "ssd", "8", base, "gray", {}),
+        "lpes_ssd": ("lpes", "ssd", "8", base, "gray",
+                     {"ssd_esm": MAX_ITERS}),
+        "hrch_fclk_ssd": ("hrch", "ssd", "8", dict(base, hrch_sm="fclk"),
+                          "gray", {"ssd:s2": MAX_ITERS, "ssd": MAX_ITERS}),
+        "regnet_ssd_2": ("regnet", "ssd", "2", base, "gray", {}),
+        "nn_zncc_feat": ("nn", "zncc", "8", nn, "gray", {}),
+        "nn_dfm_feat": ("nn", "dfm", "8", nn, "gray", {}),
     })
     return out
 
@@ -1351,14 +1522,20 @@ MAIN_PATH_LAUNCHES = collections.Counter()
 
 def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
            windows=WINDOWS, warmup=WARMUP, interp="linear_mm", cfg=None,
-           label=None, ssm="8", moving=False):
+           label=None, ssm="8", moving=False, timing=None,
+           max_not_finite=0):
     """The fleet's main path: `warmup` updates, then `windows` timed
     windows of STEPS updates; the launch counts are zeroed just before
     and read just after (and added to MAIN_PATH_LAUNCHES), and each kernel
     must have launched exactly `expect[name]` times per update (0 for any
     name not in `expect`). `moving`: the updates alternate between the
     frame and the frame shifted by (1, 1) px, so that done masks
-    (`epsilon > 0`) see motion in every update."""
+    (`epsilon > 0`) see motion in every update. `timing`, a dict, takes
+    the seconds of the fleet's `initialize` (to the card's last kernel)
+    as "init_s", and the number of trackers whose corners are not finite
+    as "not_finite"; at most `max_not_finite` may be (`not_finite_limit`:
+    none, unless the JAX package's run of the fleet has such trackers
+    too)."""
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.parallel import TrackerFleet
     label = label or f"{key}/{am} {interp}"
@@ -1366,7 +1543,11 @@ def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
                         **(cfg if cfg is not None else cfg_of(key, interp)))
     fleet = TrackerFleet(sm, donate=True)
     _zero_counts(tk, gf)
+    t_init = time.perf_counter()
     states = fleet.initialize(frame_d, corners)
+    if timing is not None:
+        torch.cuda.synchronize()
+        timing["init_s"] = time.perf_counter() - t_init
     frames = [frame_d, torch.roll(frame_d, (1, 1), (0, 1)) if moving
               else frame_d]
     for i in range(warmup):
@@ -1388,8 +1569,13 @@ def _fleet(torch, key, am, b, card, corners, frame_d, dev, tk, gf, expect,
         _check(lo * n_updates <= got <= hi * n_updates,
                f"{label}: {name} launched {got} times in {n_updates} updates "
                f"(expected {want} per update)")
-    _check(bool(torch.isfinite(fleet.corners(states)).all()),
-           f"{label}: fleet corners not finite")
+    ok = torch.isfinite(fleet.corners(states)).flatten(1).all(-1)
+    not_finite = int((~ok).sum())
+    if timing is not None:
+        timing["not_finite"] = not_finite
+    _check(not_finite <= max_not_finite,
+           f"{label}: {not_finite} trackers' corners not finite (limit "
+           f"{max_not_finite})")
     fps = sorted(rates)[len(rates) // 2] if rates else None
     print(f"fleet {label} B={b}: "
           + (f"{fps:.1f} frames/s median of {[round(r, 1) for r in rates]}"
@@ -1433,30 +1619,63 @@ def _gt_leg(sm, frame0, corners, limit, label, gt_ssm=None):
     return gt_px, frames
 
 
-def _gt_leg_lost(sm, frame0, corners, reading, label, gt_ssm=None):
+def not_finite_limit(reading=(0, 0)) -> int:
+    """The most trackers of a fleet whose corners may end non-finite,
+    where the JAX package's run of the same fleet on the CPU reads
+    `reading` = (non-finite trackers, v): its count plus 3 standard
+    deviations of the difference between two runs' counts, v the
+    variance (0 where no tracker's outcome turns on rounding: then
+    none beyond the JAX package's, 0 for every fleet but two)."""
+    k, v = reading
+    return k + int(np.ceil(3 * np.sqrt(v)))
+
+
+def _held_errors(e, reading, label):
+    """A leg's errors `e` (B, 5) with its non-finite trackers held to the
+    JAX package's `reading` (`not_finite_limit`) on the same leg, and
+    then taken as lost, their errors infinite: (the errors, the number
+    non-finite)."""
+    bad = int((~np.isfinite(e)).any(1).sum())
+    limit = not_finite_limit(reading)
+    print(f"{label} GT: {bad} of {len(e)} trackers not finite (limit "
+          f"{limit}, the JAX package {reading[0]})")
+    _check(bad <= limit, f"{label} GT: {bad} trackers not finite "
+           f"(limit {limit})")
+    return np.where(np.isfinite(e), e, np.inf), bad
+
+
+def _gt_leg_lost(sm, frame0, corners, reading, label, gt_ssm=None,
+                 limit=None):
     """`_gt_errors`' leg, held by the trackers it keeps and the number it
-    loses, for a fleet that loses some in the JAX package too: a tracker
-    is lost when its error exceeds LOST_PX on some frame. The mean of the
-    per-frame medians is held to `gt_limit` of the JAX reading's
-    (`reading` = (median px, lost)), the number lost to the JAX package's
-    plus LOST_MARGIN of the fleet. Returns (the median reading, the number
-    lost, the mean corner error, the frames)."""
-    med_ref, lost_ref = reading
+    loses, for a fleet that loses some in the JAX package too (`reading`
+    = (median px, lost[, (non-finite, v)]), its reading on the same leg):
+    the trackers whose corners went non-finite are held to the JAX
+    package's count (none where `reading` gives none; `_held_errors`) and
+    count as lost; a tracker is lost when its error exceeds LOST_PX on
+    some frame.
+    The mean of the per-frame medians is held to `gt_limit` of the JAX
+    reading's (`limit`, where given, replaces it), the number lost to the
+    JAX package's plus LOST_MARGIN of the fleet. Returns (the median
+    reading, the number lost, the mean corner error of the trackers that
+    stay finite, the frames)."""
+    med_ref, lost_ref, *nf_ref = reading
+    limit = gt_limit(med_ref) if limit is None else limit
     e, frames = _gt_errors(sm, frame0, corners, gt_ssm)
+    e, _ = _held_errors(e, nf_ref[0] if nf_ref else (0, 0), label)
     med = float(np.median(e, 0).mean())
     lost = np.flatnonzero(e.max(1) > LOST_PX)
     max_lost = lost_ref + int(np.ceil(LOST_MARGIN * len(e)))
+    mean = float(e[np.isfinite(e).all(1)].mean())
     print(f"{label} GT: median corner error {med:.4f} px (per frame "
           f"{[round(float(x), 4) for x in np.median(e, 0)]}), limit "
-          f"{gt_limit(med_ref)}; {len(lost)} of {len(e)} trackers lost "
+          f"{limit}; {len(lost)} of {len(e)} trackers lost "
           f"(> {LOST_PX} px on a frame; limit {max_lost}, the JAX package "
-          f"{lost_ref}): {lost.tolist()}; mean {float(e.mean()):.4f} px")
-    _check(np.isfinite(med) and med <= gt_limit(med_ref),
-           f"{label} GT median corner error {med} px (limit "
-           f"{gt_limit(med_ref)})")
+          f"{lost_ref}): {lost.tolist()}; mean {mean:.4f} px")
+    _check(np.isfinite(med) and med <= limit,
+           f"{label} GT median corner error {med} px (limit {limit})")
     _check(len(lost) <= max_lost, f"{label}: {len(lost)} trackers lost "
            f"(limit {max_lost})")
-    return med, len(lost), float(e.mean()), frames
+    return med, len(lost), mean, frames
 
 
 def _lm_trackers(sm):
@@ -1561,7 +1780,8 @@ def _plain_path_check(sm, key, am, frames, corners, label,
     PLAIN_PATH_TOL_PX; a tracker named in `boundary` {index: why} is held
     to PLAIN_PATH_BOUNDARY_TOL_PX instead. The grid's RANSAC draw comes
     from a generator on each path's device, so each CPU grid is handed its
-    CUDA twin's draws, and an LM tracker's accept/reject decisions are the
+    CUDA twin's draws (each CPU LP stage its training draws), and an LM
+    tracker's accept/reject decisions are the
     CUDA path's (`_teacher_force`): where the plain path would have
     decided otherwise, the change of f must be a tie (`_is_tie`).
     `planted` names a fault (PLAIN_PATH_FAULT: the CUDA path updates on
@@ -1580,6 +1800,12 @@ def _plain_path_check(sm, key, am, frames, corners, label,
     for g_cuda, g_cpu in zip(cuda_grids, cpu_grids):
         g_cpu._hyp_indices = (lambda draw: lambda step, n: draw(step, n).cpu()
                               )(g_cuda._hyp_indices)
+    # the LP stages' training draws, likewise
+    from mtf_tpu_torch.sm.lp import LP
+    for lp_cuda, lp_cpu in zip(
+            [m for m in sm.modules() if isinstance(m, LP)],
+            [m for m in cpu_sm.modules() if isinstance(m, LP)]):
+        lp_cpu._draw = (lambda draw: lambda i: draw(i).cpu())(lp_cuda._draw)
     begin_frame, log, restore = _teacher_force(sm, cpu_sm)
     if planted is not None:
         _check(planted == PLAIN_PATH_FAULT, f"no such fault {planted}")
@@ -2214,6 +2440,143 @@ def _stochastic_phase(torch, tk, gf, card, dev, frame0, frame_d):
     return out
 
 
+def _slice10_phase(torch, tk, gf, card, dev, frame0, frame_d, frame3_d):
+    """Slice 10: the fleets of `slice10_family` through the entry points,
+    each with its exact launches per update: WARMUP updates and one timed
+    window of STEPS updates on the scene, the init's seconds apart (LP's
+    training, RegNet's), one update under the profiler for
+    SLICE10_PROFILED (device ms, busy share, launches; every state tensor
+    on the card); the GT leg, held by its mean (SLICE10_GT_READING_PX),
+    its first frame's median (SLICE10_GT_FIRST_FRAME), or its median and
+    the trackers lost (SLICE10_GT_LOST; lpfc and gtrn on their first
+    trackers at each of GT_SEEDS, SLICE10_LEARNED_GT); the
+    plain-path check of hesm, lpfc and line. Then 3 updates of every other
+    key and option (`slice10_routing`), after checking that each full-grid
+    AM raises under coarse phases."""
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.parallel import TrackerFleet
+    out = {}
+    for name, (key, am, ssm, b, cfg, expect) in slice10_family().items():
+        crn = _corners(b)
+        label = f"{name} ({key}/{am}/{ssm})"
+        t0 = time.perf_counter()
+        timing = {}
+        sm, fps, got = _fleet(torch, key, am, b, card, crn, frame_d, dev, tk,
+                              gf, expect, windows=1, cfg=cfg, label=label,
+                              ssm=ssm, timing=timing,
+                              max_not_finite=not_finite_limit(
+                                  SLICE10_NOT_FINITE.get(name, (0, 0))))
+        update_ms = 1e3 * b / fps
+        row = {"B": b, "fps": fps, "update_ms": update_ms,
+               "init_s": timing["init_s"], "launches": got,
+               "not_finite_after_updates": timing["not_finite"],
+               "not_finite_limit": not_finite_limit(
+                   SLICE10_NOT_FINITE.get(name, (0, 0)))}
+        print(f"{label}: init {timing['init_s']:.2f} s, update "
+              f"{update_ms:.2f} ms ({card})")
+        if name in SLICE10_PROFILED:
+            fleet = TrackerFleet(sm, donate=True)
+            states = fleet.update(fleet.initialize(frame_d, crn), frame_d)
+            dev_ms, launches, states = _profile_updates(torch, fleet, states,
+                                                        frame_d, n=1)
+            on_card = [x.is_cuda for x in torch.utils._pytree.tree_leaves(
+                states) if isinstance(x, torch.Tensor) and x.dim() > 0]
+            _check(all(on_card) and launches > 0,
+                   f"{label}: a state tensor off the card, or no launch")
+            row.update(device_ms_per_update=dev_ms,
+                       busy_share=dev_ms / update_ms,
+                       launches_per_update=launches)
+            print(f"{label}: device {dev_ms:.2f} ms per update (busy share "
+                  f"{dev_ms / update_ms:.3f}), {launches:.0f} launches per "
+                  f"update ({card})")
+            del fleet, states
+        if name in SLICE10_LEARNED_GT:
+            n_gt, meds, lost_ref, nf_ref = SLICE10_LEARNED_GT[name]
+            sub = crn[:n_gt]
+            limit = learned_limit(meds)
+            row.update(gt_median_limit_px=limit,
+                       lost_limit=lost_ref + int(np.ceil(
+                           LOST_MARGIN * len(sub))),
+                       jax_cpu_median_px=list(meds), jax_cpu_lost=lost_ref,
+                       gt_trackers=len(sub), seeds={})
+            for seed in GT_SEEDS:
+                sm_s = create_tracker(key, am, ssm, device=dev,
+                                      **dict(cfg, seed=seed))
+                med, lost, gt, frames = _gt_leg_lost(
+                    sm_s, frame0, sub, (max(meds), lost_ref, nf_ref),
+                    f"{label} seed {seed}", limit=limit)
+                row["seeds"][seed] = {"gt_median_px": med, "lost": lost,
+                                      "gt_px": gt}
+                if seed == GT_SEEDS[0] and key == "lpfc":
+                    row["plain_path_px"] = _plain_path_check(
+                        sm_s, key, am, frames, sub, label, cfg=cfg,
+                        ssm=ssm)[0]
+        elif name in SLICE10_GT_FIRST_FRAME:
+            ref, nf_ref = SLICE10_GT_FIRST_FRAME[name]
+            e, _ = _gt_errors(sm, frame0, crn)
+            e, nf = _held_errors(e, nf_ref, label)
+            med1 = float(np.median(e[:, 0]))
+            lost = int((e.max(1) > LOST_PX).sum())
+            print(f"{label} GT: frame-1 median corner error {med1:.4f} px, "
+                  f"limit {gt_limit(ref):.4f} (the JAX package {ref}); "
+                  f"median per frame {np.median(e, 0).round(4).tolist()}, "
+                  f"{lost} of {b} trackers lost (the JAX package 1,023)")
+            _check(med1 <= gt_limit(ref), f"{label} GT frame-1 median "
+                   f"corner error {med1} px (limit {gt_limit(ref)})")
+            row.update(gt_frame1_median_px=med1,
+                       gt_frame1_limit_px=gt_limit(ref),
+                       jax_cpu_frame1_median_px=ref, lost=lost,
+                       gt_not_finite=nf, jax_cpu_gt_not_finite=nf_ref,
+                       gt_median_px=float(np.median(e, 0).mean()))
+        elif name in SLICE10_GT_LOST:
+            med_ref, lost_ref = SLICE10_GT_LOST[name][:2]
+            med, lost, gt, frames = _gt_leg_lost(sm, frame0, crn,
+                                                 SLICE10_GT_LOST[name], label)
+            row.update(gt_median_px=med, gt_median_limit_px=gt_limit(med_ref),
+                       lost=lost, lost_limit=lost_ref + int(np.ceil(
+                           LOST_MARGIN * b)), gt_px=gt,
+                       jax_cpu_median_px=med_ref, jax_cpu_lost=lost_ref)
+        else:
+            reading = SLICE10_GT_READING_PX[name]
+            gt, frames = _gt_leg(sm, frame0, crn, gt_limit(reading), label)
+            row.update(gt_px=gt, gt_limit_px=gt_limit(reading),
+                       jax_cpu_reading_px=reading)
+        if key in ("hesm", "line"):
+            row["plain_path_px"] = _plain_path_check(
+                sm, key, am, frames, crn, label, cfg=cfg, ssm=ssm)[0]
+        row["wall_s"] = time.perf_counter() - t0
+        print(f"{label}: {timing['not_finite']} of {b} trackers not finite "
+              f"after the timed updates (limit {row['not_finite_limit']}); "
+              f"stage {row['wall_s']:.1f} s")
+        out[name] = row
+        del sm
+        torch.cuda.empty_cache()
+
+    crn = _corners(B_SLICE10_ROUTING)
+    for am in FULL_GRID_AMS:
+        sm = create_tracker("fclk", am, "8", device=dev, **slice_cfg())
+        try:
+            sm.initialize(frame_d, crn)
+            raised = False
+        except RuntimeError:
+            raised = True
+        _check(raised, f"fclk/{am}: no raise under coarse phases (its "
+               "similarity needs the full grid, as in the JAX package)")
+    print(f"{', '.join(FULL_GRID_AMS)} raise under coarse phases, as in the "
+          "JAX package")
+    frames = {"gray": frame_d, "rgb": frame3_d}
+    for name, (key, am, ssm, cfg, frm, expect) in slice10_routing().items():
+        t0 = time.perf_counter()
+        _, _, got = _fleet(torch, key, am, B_SLICE10_ROUTING, card, crn,
+                           frames[frm], dev, tk, gf, expect, windows=0,
+                           cfg=cfg, label=f"{name} ({key}/{am}/{ssm})",
+                           ssm=ssm)
+        out[name] = {"B": B_SLICE10_ROUTING, "launches": got,
+                     "wall_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2504,13 +2867,23 @@ def main() -> int:
     slice9_s = time.perf_counter() - t9
     print(f"slice 9 phase: {slice9_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 10: the other AMs and ILMs, LP, RegNet, hesm, the line ------
+    t10 = time.perf_counter()
+    slice10 = _slice10_phase(torch, tk, gf, card, dev, frame0, frame_d,
+                             frame3_d)
+    slice10_s = time.perf_counter() - t10
+    print(f"slice 10 phase: {slice10_s:.1f} s")
+    torch.cuda.empty_cache()
     # the routing runs that reach the grid flow (gric, rklt_ssd_spi, pfrk,
-    # nnrk) count in K5's main-path launches too
-    for row_set in (generic, stochastic):
+    # nnrk, line) count in K5's main-path launches too, and the slice-10
+    # runs at S = 2 (hesm, hrch) in the chain kernel's
+    for row_set in (generic, stochastic, slice10):
         for name, row in row_set.items():
             for k, v in row.get("launches", {}).items():
                 if k.startswith("grid_flow@"):
                     k5_launches[k.split("@")[1]][name] = v
+                elif row_set is slice10 and ":s2" in k:
+                    launches_s[2][k] = launches_s[2].get(k, 0) + v
 
     kernels = []
     for am, esm, mc, kind in tk.INSTANTIATIONS:
@@ -2584,10 +2957,12 @@ def main() -> int:
                                   "launches": launches_fclm},
                    "fclk_ssd_cubic": cubic["cubic"],
                    "fclk_ssd_cubic_bspl": cubic["cubic_bspl"],
-                   **family, **ssm_fleets, **generic, **stochastic},
+                   **family, **ssm_fleets, **generic, **stochastic,
+                   **slice10},
         "raw_sum_rule": rule,
         "build_s": {k: v.seconds for k, v in libs.items()},
         "slice9_phase_s": slice9_s,
+        "slice10_phase_s": slice10_s,
         "wall_s": time.perf_counter() - t_start,
         "card": card}))
     print(json.dumps({"ok": True, "device": {

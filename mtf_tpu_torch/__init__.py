@@ -12,16 +12,20 @@ state.
 
 Slices covered: every LK search method of the JAX package (FCLK, ICLK,
 ESM, AESM, FALK, IALK, FCSD, each optionally with Levenberg-Marquardt)
-with the SSD, NCC, SSIM, SPSS, MI, CCRE, KLD or LKLD appearance model on
-any number of channels, the particle filter and the nearest-neighbour
-search (exact or by kNN-graph descent) and their cascades, every
+with any appearance model of the JAX package (SSD, NSSD, ZNCC, SAD, NCC,
+SSIM, SPSS, MI, CCRE, KLD, LKLD, the SCV family, RIU, NGF, PCA, DFM and
+the sum of two) on any number of channels, with or without an
+illumination model (GB, PGB, RBF), the particle filter and the
+nearest-neighbour search (exact or by kNN-graph descent) and their
+cascades, the linear predictor, RegNet, the hierarchical SMs, every
 SSM (the matrix SSMs, spline and TPS), every Hessian flavour, SPI masks
 and done masks; the chain-fused path where the JAX package's `_fused_ok`
 takes its kernel, the generic `torch.func` path elsewhere; batched as a
 tracker fleet; the grid tracker (pyramidal patch flow in the `warped`,
 `rigid` or `f2f` geometry, optionally forward-backward masked, fused by
 RANSAC, LMedS, least squares or the median-flow similarity: Median
-Flow), the sub-tracker grid, RKLT (the grid refined by ESM-LM, with SPI
+Flow, or snapped to row and column lines: the line tracker), the
+sub-tracker grid, RKLT (the grid refined by ESM-LM, with SPI
 feedback), and the Cascade, Parallel and Pyramidal composites. Every
 TPU kernel is a CUDA kernel: the chain-fused LK iteration
 (`csrc/lk_fused_chain.cu`) in all its modes and tap kinds, its

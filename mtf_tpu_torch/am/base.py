@@ -25,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -58,6 +59,21 @@ class AMParams:
     pre_seed: float = 1.0
     learning_rate: float = 0.0  # template forgetting (0 = no update)
     extra: dict = field(default_factory=dict)
+
+
+class PerDevice:
+    """A constant numpy array as a tensor on each device it is used on,
+    made once per device."""
+
+    def __init__(self, arr: np.ndarray):
+        self.arr = arr
+        self._on = {}
+
+    def on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.arr, device=device)
+        return self._on[key]
 
 
 class IlluminationModel:

@@ -31,6 +31,10 @@ class NCC(AM):
         return torch.exp(-self.prm.likelihood_alpha
                          * (1.0 - self.f(state, patch)))
 
+    def dist_feat(self, patch: torch.Tensor) -> torch.Tensor:
+        """The centred unit patch (..., N·C), n·C + c."""
+        return self._center_norm(patch).flatten(-2)
+
     def update_model(self, state: AMState, patch: torch.Tensor) -> AMState:
         st = super().update_model(state, patch)
         if self.prm.learning_rate > 0.0:

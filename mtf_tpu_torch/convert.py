@@ -50,7 +50,15 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   of the decimated grid, or None) -> batched; NN extra (`NNState`): feats
   (K, D), feats_sq (K,), dps (K, S) -> batched, ptr and frame_idx ()
   int32 -> (B,) int32, graph (K, k) int32 (or None) -> (B, K, k) int64.
-  Their `key` becomes `step` as the grid's does.
+  Their `key` becomes `step` as the grid's does;
+  the AM extras of slice 10 -> batched, each leaf as above: NGF (g0
+  (N, C, 2),), DFM (f0 (N, F),), PCA (mean (D,), basis (D, K), buffer
+  (batch, D), count () int32 -> (B,) int32), SumOfAMs (its two AM states,
+  converted alike); an ILM's p_am (P,) -> (B, P);
+  LP extra (`LPState`): A (n_stages, S, N·C), patch0 (N, C) -> batched;
+  RegNet extra (`RegNetState`): params, per layer (W (in, out), b (out,)),
+  feat0 (D,), feat_scale () -> batched; the line tracker's extra is a
+  grid's.
 """
 from __future__ import annotations
 
@@ -64,8 +72,10 @@ from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
 from mtf_tpu_torch.sm.grid import GridState, SubGridState
 from mtf_tpu_torch.sm.lk import LKCache
+from mtf_tpu_torch.sm.lp import LPState
 from mtf_tpu_torch.sm.nn import NNState
 from mtf_tpu_torch.sm.pf import PFState
+from mtf_tpu_torch.sm.regnet import RegNetState
 from mtf_tpu_torch.ssm.projective import Homography
 
 
@@ -126,11 +136,24 @@ def to_torch(jstate, device=None, sm=None):
         return torch.tensor(a[None] if single else a, dtype=dtype,
                             device=device)
 
+    def am_leaf(x, f):
+        if hasattr(x, "template"):
+            return am_state(x, f)
+        if np.issubdtype(np.asarray(x).dtype, np.integer):
+            return f(x).to(torch.int32)
+        return f(x)
+
     def am_state(am, f=t):
         return AMState(template=f(am.template), p_am=f(am.p_am),
-                       extra=tuple(f(x) for x in am.extra))
+                       extra=tuple(am_leaf(x, f) for x in am.extra))
 
     def extra_of(ex, f=t):
+        if hasattr(ex, "patch0"):
+            return LPState(A=f(ex.A), patch0=f(ex.patch0))
+        if hasattr(ex, "feat0"):
+            return RegNetState(
+                params=tuple((f(w), f(b)) for w, b in ex.params),
+                feat0=f(ex.feat0), feat_scale=f(ex.feat_scale))
         if hasattr(ex, "particles"):
             return PFState(
                 particles=t(ex.particles), prev_particles=t(ex.prev_particles),
@@ -211,9 +234,16 @@ def to_numpy(state, squeeze: bool = False):
 
     def am_state(am, f=n):
         return AMState(template=f(am.template), p_am=f(am.p_am),
-                       extra=tuple(f(x) for x in am.extra))
+                       extra=tuple(am_state(x, f) if isinstance(x, AMState)
+                                   else f(x) for x in am.extra))
 
     def extra_of(ex, f=n):
+        if isinstance(ex, LPState):
+            return LPState(A=f(ex.A), patch0=f(ex.patch0))
+        if isinstance(ex, RegNetState):
+            return RegNetState(
+                params=tuple((f(w), f(b)) for w, b in ex.params),
+                feat0=f(ex.feat0), feat_scale=f(ex.feat_scale))
         if isinstance(ex, PFState):
             return ex._replace(**{k: (am_state(v) if isinstance(v, AMState)
                                       else v.numpy() if k == "step"

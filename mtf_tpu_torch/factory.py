@@ -29,6 +29,10 @@
                    enable_lm=True, max_iters=10, interp="linear_mm",
                    crop=224, n_bins=32, coarse_pt_iters=((2, 5),),
                    nn_dist_feat="raw")
+    create_tracker("hesm", "ssd", "8", ...)       # ESM on "2", then "8"
+    create_tracker("lpfc", "ssd", "8", ...)       # LP on "2", then FCLK
+    create_tracker("fclk", "ssd", "8", ilm="pgb", ...)
+    create_tracker("fclk", "sum", "8", sum_am1="zncc", sum_am2="scv", ...)
 
 Every SSM key of the JAX package (2-8 DOF: translation to homography,
 the Lie SSMs, SL3 and CBH; and the 50-DOF spline and 32-DOF TPS) and
@@ -52,8 +56,18 @@ card and without `device` it raises. Keys and options outside the ported
 slices raise `NotImplementedError` naming the ROADMAP queue that brings
 them.
 
-The AMs are SSD, NCC, SSIM, SPSS, MI, CCRE, KLD and LKLD (each also as
-`mc<am>` / `<am>3`). The particle filter (`pf`, `pf100` to `pf5k`), the
+The AMs are every key of the JAX package's registry (SSD, NSSD, ZNCC,
+SAD, NCC, SSIM, SPSS, MI, CCRE, KLD, LKLD, SCV, RSCV, LSCV, LRSCV, RIU,
+NGF, PCA, DFM; each also as `mc<am>` / `<am>3`) and `sum` (`sum_am1`,
+`sum_am2`), with their extras in `am_extra`; `ilm` is "gb", "pgb" or
+"rbf". `hrch` / `hesm` cascade `hrch_sm` (default ESM) on `hrch_ssm`
+(default "2") and on the tracker's SSM; `lp` is the linear predictor and
+`lpfc lpic lpes` its cascades with an LK refiner (the LP stage on "2"
+when the SSM has more than 4 DOF, unless `lp_ssm` says otherwise);
+`regnet` is RegNet (`rg_*`), `gtrn` / `goturn` RegNet on "4" with
+GOTURN's defaults; `line` the line tracker (`line_conf_thresh`).
+
+The particle filter (`pf`, `pf100` to `pf5k`), the
 nearest-neighbour search (`nn`, `nn1k` to `nn100k`, `gnn`, `fgnn`, and
 `nnkdt`, `kdt`, `nnkmn`, `kmn`: the exact search), their cascades with an
 LK refiner (`pfic pffc pfes nnic nnfc nnes`) or RKLT (`pfrk nnrk`), the
@@ -70,9 +84,12 @@ from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
                                         PyramidalSM, RKLTParams)
 from mtf_tpu_torch.sm.core import SMParams
 from mtf_tpu_torch.sm.grid import GridParams, GridTracker, SubTrackerGrid
+from mtf_tpu_torch.sm.line import LineParams, LineTracker
 from mtf_tpu_torch.sm.lk import LM_KEYS, SM_LK_REGISTRY
+from mtf_tpu_torch.sm.lp import LP, LPParams
 from mtf_tpu_torch.sm.nn import NN, NNParams
 from mtf_tpu_torch.sm.pf import PF, PFParams
+from mtf_tpu_torch.sm.regnet import RegNet, RegNetParams
 from mtf_tpu_torch.ssm import get_ssm
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
@@ -106,7 +123,15 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "pfk_n_layers", "nnk_n_layers", "pfk_ssm_sigma_ids",
               "nnk_ssm_sigma_ids", "pfsl3_p_x", "pfsl3_p_y", "pfsl3_n",
               "pfsl3_n_c", "pfsl3_ncc_std", "pfsl3_state_std",
-              "pfsl3_n_iter", "pfsl3_am"}
+              "pfsl3_n_iter", "pfsl3_am",
+              # the AMs' extras and the sum of AMs (`_am_params`)
+              "am_extra", "sum_am1", "sum_am2",
+              # the hierarchical SMs, LP, RegNet and the line tracker
+              "hrch_sm", "hrch_ssm", "lp_n_samples", "lp_max_iters",
+              "lp_pix_sigma", "lp_ssm_sigma", "lp_ridge", "lp_n_stages",
+              "lp_epsilon", "lp_ssm", "rg_n_samples", "rg_hidden",
+              "rg_train_steps", "rg_max_iters", "rg_pix_sigma",
+              "rg_ssm_sigma", "line_conf_thresh"}
 
 GRID_KEYS = {"grid": None, "lms": "lmeds", "ransac": "ransac",
              "rnsc": "ransac"}
@@ -131,17 +156,19 @@ NN_SIZES = {"nn": None, "nn1k": 1000, "nn2k": 2000, "nn5k": 5000,
 NN_KEYS = set(NN_SIZES) | {"gnn", "fgnn", "nnkdt", "kdt", "nnkmn", "kmn"}
 STOCH_CASC_KEYS = {"pfk", "pfkic", "pfkfc", "pfkes",
                    "nnk", "nnkic", "nnkfc", "nnkes"}
+HRCH_KEYS = {"hrch", "hesm"}
+# the LP stage alone, or followed by an LK refiner
+LP_KEYS = {"lp": None, "lpfc": "fclk", "lpic": "iclk", "lpes": "esm"}
+GTRN_KEYS = {"gtrn", "goturn"}
 _PORTED_SM = (set(SM_LK_REGISTRY) | {"haclk"} | set(GRID_KEYS) | RKLT_KEYS
               | MF_KEYS | CASC_KEYS | PRL_KEYS | PYR_KEYS
               | set(CASCADE_SHORTHAND) | set(PF_SIZES) | NN_KEYS
-              | STOCH_CASC_KEYS | {"pfsl3"})
+              | STOCH_CASC_KEYS | {"pfsl3"} | HRCH_KEYS | set(LP_KEYS)
+              | GTRN_KEYS | {"regnet", "line"})
 
 # where each unported SM key is queued: "1c" is the rest of slice 3
 _SLICE_OF_SM = {
-    "hrch": "1c (unblocked: its low-DOF SSMs are ported)",
-    "hesm": "1c (unblocked: its low-DOF SSMs are ported)",
     "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
-    "regnet": "1, slice 5", "lp": "1, slice 5",
 }
 
 
@@ -319,6 +346,22 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         return create_tracker(key, m_am, m_ssm, ilm, device=device,
                               **sub_cfg)
 
+    if sm_key in GTRN_KEYS:
+        # GOTURN's weight-free analog in the JAX package: RegNet on the
+        # 4-DOF similitude with GOTURN's wide motion range
+        ncfg = dict(cfg)
+        ncfg.setdefault("rg_n_samples", 3000)
+        ncfg.setdefault("rg_pix_sigma", 8.0)
+        ncfg.setdefault("rg_hidden", (256, 128))
+        ncfg.setdefault("rg_max_iters", 4)
+        return create_tracker("regnet", am or "ssd", "4", ilm, device=device,
+                              **ncfg)
+    if sm_key in HRCH_KEYS:
+        # the low-DOF stage seeds the full-DOF one (HESM.h:61-99): a
+        # cascade of one SM over two SSMs
+        base = str(cfg.get("hrch_sm", "esm"))
+        return CascadeSM([sub(base, am, str(cfg.get("hrch_ssm", "2"))),
+                          sub(base)], _casc_thresh(cfg))
     if sm_key == "pfsl3":
         return create_tracker("pffc", str(cfg.get("pfsl3_am", "ncc")),
                               "sl3", ilm, device=device, **_pfsl3_cfg(cfg))
@@ -382,7 +425,10 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
                       likelihood_alpha=float(cfg.get("likelihood_alpha",
                                                      50.0)),
                       n_bins=int(cfg.get("n_bins", 8)),
-                      learning_rate=float(cfg.get("learning_rate", 0.0)))
+                      learning_rate=float(cfg.get("learning_rate", 0.0)),
+                      extra={**dict(cfg.get("am_extra", {})),
+                             **{k: cfg[k] for k in ("sum_am1", "sum_am2")
+                                if k in cfg}})
 
     def make_am(key=am, params=am_prm):
         return get_am(key, params, ilm=ilm)
@@ -390,6 +436,40 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     def make_ssm():
         return get_ssm(ssm, device=device)
 
+    if sm_key in LP_KEYS:
+        refiner = LP_KEYS[sm_key]
+        lp_prm = LPParams(
+            n_samples=int(cfg.get("lp_n_samples", 512)),
+            max_iters=int(cfg.get("lp_max_iters", 5)),
+            pix_sigma=float(cfg.get("lp_pix_sigma", 4.0)),
+            ssm_sigma=tuple(cfg.get("lp_ssm_sigma", ())),
+            ridge=float(cfg.get("lp_ridge", 1e-3)),
+            n_stages=int(cfg.get("lp_n_stages", 3)),
+            epsilon=float(cfg.get("lp_epsilon", 0.01)),
+            seed=int(cfg.get("seed", 0)))
+        # a cascade's LP stage runs on the 2-DOF SSM when the tracker's
+        # has more than 4 DOF (the JAX package's default: the projective
+        # dims of an 8-DOF predictor are barely observable); the refiner
+        # runs the tracker's SSM
+        lp_ssm = str(cfg.get("lp_ssm", ssm if (
+            not refiner or get_ssm(ssm, device="cpu").dof <= 4) else "2"))
+        lp_sm = LP(make_am(), get_ssm(lp_ssm, device=device), prm, lp_prm)
+        if refiner:
+            return CascadeSM([lp_sm, sub(refiner)], _casc_thresh(cfg))
+        return lp_sm
+    if sm_key == "regnet":
+        return RegNet(make_am(), make_ssm(), prm, RegNetParams(
+            n_samples=int(cfg.get("rg_n_samples", 2000)),
+            hidden=tuple(cfg.get("rg_hidden", (128, 64))),
+            train_steps=int(cfg.get("rg_train_steps", 300)),
+            max_iters=int(cfg.get("rg_max_iters", 5)),
+            pix_sigma=float(cfg.get("rg_pix_sigma", 4.0)),
+            ssm_sigma=tuple(cfg.get("rg_ssm_sigma", ())),
+            seed=int(cfg.get("seed", 0))))
+    if sm_key == "line":
+        return LineTracker(make_am(), make_ssm(), prm, _grid_params(cfg),
+                           LineParams(conf_thresh=float(
+                               cfg.get("line_conf_thresh", 0.05))))
     if sm_key in PF_SIZES:
         return PF(make_am(), make_ssm(), prm,
                   _pf_params(cfg, PF_SIZES[sm_key]))

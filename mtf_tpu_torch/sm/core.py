@@ -85,10 +85,80 @@ def make_region(corners_img: torch.Tensor, resx: int,
                        base_corners=W.apply_warp(Tinv, corners_img))
 
 
+def corners_at(ssm: SSM, region: RegionState,
+               s: torch.Tensor) -> torch.Tensor:
+    """Region corners (B, 4, 2) in image coordinates at states s (B, S)."""
+    return W.apply_warp(region.norm_mat, ssm.warp_pts(s, region.base_corners))
+
+
+def points_at(ssm: SSM, region: RegionState, s: torch.Tensor) -> torch.Tensor:
+    """Image points (B, ..., N, 2) of the sampling grid at states s
+    (B, ..., S), any number of states per tracker."""
+    extra = s.dim() - 2
+    bp = region.base_pts.view(region.base_pts.shape[:1] + (1,) * extra
+                              + region.base_pts.shape[1:])
+    nm = region.norm_mat.view(region.norm_mat.shape[:1] + (1,) * extra
+                              + (3, 3))
+    return W.apply_warp(nm, ssm.warp_pts(s, bp))
+
+
 def image_corners(ssm: SSM, state: TrackerState) -> torch.Tensor:
     """Current region corners (B, 4, 2) in image coordinates."""
-    c_t = ssm.warp_pts(state.ssm_state, state.region.base_corners)
-    return W.apply_warp(state.region.norm_mat, c_t)
+    return corners_at(ssm, state.region, state.ssm_state)
+
+
+def sampler_sigma(ssm: SSM, region: RegionState, ssm_sigma: tuple,
+                  pix_sigma: float) -> torch.Tensor:
+    """(B, S) perturbation sigmas of the stochastic and learned SMs:
+    `ssm_sigma` for every tracker where given, else the state sigmas that
+    move the points by `pix_sigma` image pixels (the base points live in
+    the normalised template frame)."""
+    B = region.norm_mat.shape[0]
+    if ssm_sigma:
+        return torch.as_tensor(ssm_sigma, dtype=torch.float32,
+                               device=region.norm_mat.device).expand(B, -1)
+    return ssm.state_sigma_from_pixel_sigma(
+        pix_sigma / region.norm_mat[:, 0, 0], region.base_pts)
+
+
+def _mix32(x: int) -> int:
+    """splitmix64's finaliser of a 64-bit int, cut to its low 32 bits (0
+    stays 0)."""
+    x &= 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (x ^ (x >> 31)) & 0xFFFFFFFF
+
+
+def seeded_generator(seed: int, step: int, salt: int,
+                     device) -> torch.Generator:
+    """The generator of one update's draws: a function of (seed, step) and
+    the search method's `salt` alone."""
+    gen = torch.Generator(device=device)
+    v = ((seed & 0x7FFFFFFF) << 32) + (salt << 28) + (step & 0xFFFFFFF)
+    if gen.device.type == "cpu":
+        # the CPU generator (mt19937) keeps the seed's low 32 bits only:
+        # fold a hash of the high ones into them (unchanged for seed 0)
+        v = (v & 0xFFFFFFFF) ^ _mix32(v >> 32)
+    gen.manual_seed(v)
+    return gen
+
+
+def converge(ssm: SSM, region: RegionState, s: torch.Tensor, n_iters: int,
+             epsilon: float, dp_of) -> torch.Tensor:
+    """Up to `n_iters` compositional steps s <- s . dp_of(s) (B, S); a
+    tracker whose corners moved less than `epsilon` px freezes for the
+    rest (the JAX package's vmapped `while_loop`: the step that stops it
+    is kept)."""
+    done = torch.zeros((s.shape[0],), dtype=torch.bool, device=s.device)
+    for _ in range(n_iters):
+        s_new = ssm.compositional_update(s, dp_of(s))
+        change = torch.linalg.vector_norm(
+            corners_at(ssm, region, s_new) - corners_at(ssm, region, s),
+            dim=-1).amax(-1)
+        s = torch.where(done[:, None], s, s_new)
+        done = done | (change < epsilon)
+    return s
 
 
 class SearchMethod(nn.Module):

@@ -38,7 +38,8 @@ warp, and re-seats every sub-tracker on the fitted warp.
 The previous frame (f2f, forward-backward) is one (H, W[, C]) copy shared
 by the B trackers, owned by the state (a JAX fleet holds B copies). The
 hypothesis draw is a `torch.Generator` on the tracker's device, seeded
-from `GridParams.seed` and the update counter `GridState.step`; all B
+from `GridParams.seed` and the update counter `GridState.step`
+(`core.seeded_generator`, salt 0); all B
 trackers share one draw per update, as all trackers of a JAX fleet share
 one key. The counter lives on the host (a 0-d CPU tensor), so seeding
 costs no device sync; the draw's bits differ from the JAX package's
@@ -58,7 +59,8 @@ from mtf_tpu_torch.ops import ransac
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.kernels.grid_flow import grid_flow
 from mtf_tpu_torch.ops.linalg import inv3x3, solve2x2
-from mtf_tpu_torch.sm.core import SearchMethod, TrackerState, image_corners
+from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, image_corners,
+                                   seeded_generator)
 
 # the grid window's margin around the point cloud at the start of a level
 _GRID_MARGIN = 4.0
@@ -114,8 +116,7 @@ def _level_norm(norm_mat: torch.Tensor, lvl: int) -> torch.Tensor:
 def _hyp_draw(g: GridParams, ssm, step: int, n_pts: int) -> torch.Tensor:
     """An update's (n_hyps, sample) index draw, shared by the trackers; a
     function of (seed, step) only, on the SSM's device."""
-    gen = torch.Generator(device=ssm.generators.device)
-    gen.manual_seed(((g.seed & 0x7FFFFFFF) << 32) + step)
+    gen = seeded_generator(g.seed, step, 0, ssm.generators.device)
     return ransac.hyp_indices(gen, g.n_hyps, n_pts,
                               ransac.min_sample_size(ssm))
 
@@ -293,32 +294,37 @@ class GridTracker(SearchMethod):
     def _hyp_indices(self, step: int, n_pts: int) -> torch.Tensor:
         return _hyp_draw(self.grid, self.ssm, step, n_pts)
 
+    def _patch_points(self, state: TrackerState):
+        """(the predicted centres (B, P, 2), the patches' template-frame
+        points (B, P, n, 2)) at the current warp."""
+        gs: GridState = state.extra
+        M = self.ssm.to_matrix(state.ssm_state)
+        centers_pred = W.apply_warp(M, gs.centers0)
+        b, P, _ = gs.centers0.shape
+        n = gs.offsets.shape[1]
+        if self.grid.flow == "warped":
+            # chained-warp patches: every point rides the global warp, so
+            # the init templates stay geometrically valid
+            return centers_pred, W.apply_warp(
+                M, (gs.centers0[:, :, None, :] + gs.offsets[:, None]).reshape(
+                    b, P * n, 2)).reshape(b, P, n, 2)
+        return centers_pred, centers_pred[:, :, None, :] + gs.offsets[:, None]
+
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
         g = self.grid
         gs: GridState = state.extra
         region = state.region
-        M = self.ssm.to_matrix(state.ssm_state)
-        centers_pred = W.apply_warp(M, gs.centers0)
-        b, P, _ = gs.centers0.shape
-        n = gs.offsets.shape[1]
+        centers_pred, pts_base = self._patch_points(state)
         prev = gs.prev_frame
         frames = self._pyr_frames(frame)
         prev_frames = None if prev is None else self._pyr_frames(prev)
         templates = gs.templates
-        if g.flow == "warped":
-            # chained-warp patches: every point rides the global warp, so
-            # the init templates stay geometrically valid
-            pts_base = W.apply_warp(
-                M, (gs.centers0[:, :, None, :] + gs.offsets[:, None]).reshape(
-                    b, P * n, 2)).reshape(b, P, n, 2)
-        else:
-            pts_base = centers_pred[:, :, None, :] + gs.offsets[:, None]
-            if g.flow == "f2f" and prev is not None:
-                # templates from the previous frame at the predicted
-                # centres (GridTrackerCV's pyramidal LK, prev -> cur)
-                templates = self._templates_at(prev_frames, region.norm_mat,
-                                               centers_pred, gs.offsets)
+        if g.flow == "f2f" and prev is not None:
+            # templates from the previous frame at the predicted centres
+            # (GridTrackerCV's pyramidal LK, prev -> cur)
+            templates = self._templates_at(prev_frames, region.norm_mat,
+                                           centers_pred, gs.offsets)
         disp = self._track_patches_pyr(frames, region.norm_mat, pts_base,
                                        templates)
         centers_new = centers_pred + disp

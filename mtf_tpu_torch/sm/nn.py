@@ -30,9 +30,8 @@ from typing import NamedTuple
 import torch
 
 from mtf_tpu_torch.ops import interp
-from mtf_tpu_torch.ops import warp as W
-from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
-from mtf_tpu_torch.sm.pf import seeded_generator
+from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, converge,
+                                   points_at, sampler_sigma, seeded_generator)
 
 # samples per chunk of the dataset build with a dense kind (the JAX
 # package's `lax.map` batch size there): bounds the sampler's memory
@@ -116,25 +115,14 @@ class NN(SearchMethod):
 
     def _sigma(self, region) -> torch.Tensor:
         """(B, S) perturbation sigmas."""
-        B = region.norm_mat.shape[0]
-        if self.nn.ssm_sigma:
-            return torch.as_tensor(self.nn.ssm_sigma, dtype=torch.float32,
-                                   device=self.device).expand(B, -1)
-        scale = region.norm_mat[:, 0, 0]
-        return self.ssm.state_sigma_from_pixel_sigma(
-            self.nn.pix_sigma / scale, region.base_pts)
+        return sampler_sigma(self.ssm, region, self.nn.ssm_sigma,
+                             self.nn.pix_sigma)
 
     def _patch_at(self, region, s, frame):
         """Patches (B, ..., N, C) at states s (B, ..., S). A dense kind
         samples a `crop` (default 192) window per state, anchored at its
         own points."""
-        extra = s.dim() - 2
-        bp = region.base_pts.view(
-            region.base_pts.shape[:1] + (1,) * extra
-            + region.base_pts.shape[1:])
-        nm = region.norm_mat.view(
-            region.norm_mat.shape[:1] + (1,) * extra + (3, 3))
-        pts = W.apply_warp(nm, self.ssm.warp_pts(s, bp))
+        pts = points_at(self.ssm, region, s)
         if self.prm.interp.endswith(interp.MM_SUFFIX) and frame.dim() == 2:
             val, _ = interp.sample_dense(
                 frame, pts, self.prm.interp[:-len(interp.MM_SUFFIX)],
@@ -203,25 +191,13 @@ class NN(SearchMethod):
             stop = stop | ~better
         return cur
 
-    def _corners_of(self, state, s):
-        c_t = self.ssm.warp_pts(s, state.region.base_corners)
-        return W.apply_warp(state.region.norm_mat, c_t)
-
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
         ssm, nn = self.ssm, self.nn
         ns: NNState = state.extra
-        s = state.ssm_state
-        done = torch.zeros((s.shape[0],), dtype=torch.bool, device=s.device)
-        for _ in range(nn.max_iters):
-            q = self._feat_at(state.region, s, frame)
-            best = self._best_idx(ns, q)
-            s_new = ssm.compositional_update(s, _rows(ns.dps, best))
-            change = torch.linalg.vector_norm(
-                self._corners_of(state, s_new) - self._corners_of(state, s),
-                dim=-1).amax(-1)
-            s = torch.where(done[:, None], s, s_new)
-            done = done | (change < nn.epsilon)
+        s = converge(ssm, state.region, state.ssm_state, nn.max_iters,
+                     nn.epsilon, lambda s: _rows(ns.dps, self._best_idx(
+                         ns, self._feat_at(state.region, s, frame))))
         new_extra = ns._replace(frame_idx=ns.frame_idx + 1, step=ns.step + 1)
         if nn.add_samples_gap > 0:
             new_extra = self._add_samples(state, ns, new_extra, s, frame)

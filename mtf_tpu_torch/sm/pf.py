@@ -34,7 +34,8 @@ from mtf_tpu_torch.am.base import AMState
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.sm.composite import where_state
-from mtf_tpu_torch.sm.core import SearchMethod, TrackerState
+from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, sampler_sigma,
+                                   seeded_generator)
 from mtf_tpu_torch.sm.lk import _blur2
 
 _NEG = -1e30
@@ -58,8 +59,9 @@ class PFParams:
     n_eff_ratio: float = 0.5            # adaptive resampling threshold
     measurement_sigma: float = 0.1      # gaussian likelihood scale
     jacobian_as_sigma: bool = False     # sigma from one Gauss-Newton step
-    am_sigma: tuple = ()                # photometric random walk (needs
-                                        # an ILM with parameters)
+    am_sigma: tuple = ()                # photometric random walk (only
+                                        # with an ILM that has parameters;
+                                        # ignored otherwise)
     score_stride: int = 1               # > 1: rank on the decimated grid
     score_blur: bool = False            # ... of the binomial-blurred frame
     score_downsample: bool = False      # ... downsampled by the stride
@@ -108,16 +110,6 @@ def _particle_view(st: AMState) -> AMState:
     return up(st)
 
 
-def seeded_generator(seed: int, step: int, salt: int,
-                     device) -> torch.Generator:
-    """The generator of one update's draws: a function of (seed, step) and
-    the search method's `salt` alone."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(((seed & 0x7FFFFFFF) << 32) + (salt << 28)
-                    + (step & 0xFFFFFFF))
-    return gen
-
-
 def systematic_indices(log_w: torch.Tensor, u0: torch.Tensor) -> torch.Tensor:
     """Systematic resampling of log-weights (B, P) at offset u0 (): the
     particle indices (B, P), `searchsorted` (left) of (i + u0) / P in the
@@ -137,11 +129,6 @@ class PF(SearchMethod):
         super().__init__(am, ssm, prm)
         self.pf = pf or PFParams()
         s = self.pf.score_stride
-        if self.pf.am_sigma:
-            raise NotImplementedError(
-                "PFParams.am_sigma samples an illumination model's "
-                "parameters; ILMs are not ported yet: they come with ROADMAP "
-                "Queue 1, slice 4 (item 4)")
         if self.pf.score_downsample and (s <= 1 or not self.pf.score_blur):
             raise ValueError(
                 "PFParams.score_downsample requires score_stride > 1 and "
@@ -165,6 +152,12 @@ class PF(SearchMethod):
             self.score_idx = None
             self._score_am = self.am
 
+    @property
+    def _sample_am(self) -> bool:
+        """The photometric random walk runs only with `am_sigma` and an ILM
+        that has parameters (`mtf_tpu/sm/pf.py:296-298`)."""
+        return bool(self.pf.am_sigma) and self.am.ilm.n_params > 0
+
     # -- helpers -------------------------------------------------------
     def _draw(self, step: int) -> PFDraw:
         """Update `step`'s draws (overridable: the parity tests hand in
@@ -183,15 +176,8 @@ class PF(SearchMethod):
 
     def _sigma(self, region) -> torch.Tensor:
         """(B, S) sampler sigmas."""
-        B = region.norm_mat.shape[0]
-        if self.pf.ssm_sigma:
-            return torch.as_tensor(self.pf.ssm_sigma, dtype=torch.float32,
-                                   device=self.device).expand(B, -1)
-        # pixel sigma is in image pixels; base_pts live in the normalised
-        # template frame
-        scale = region.norm_mat[:, 0, 0]
-        return self.ssm.state_sigma_from_pixel_sigma(
-            self.pf.pix_sigma / scale, region.base_pts)
+        return sampler_sigma(self.ssm, region, self.pf.ssm_sigma,
+                             self.pf.pix_sigma)
 
     def _particle_patches(self, region, states, frame, base_pts=None,
                           pts_scale=None, crop=None):
@@ -255,10 +241,13 @@ class PF(SearchMethod):
                 if self.prm.crop is not None else None)
         return fr_b[::s, ::s].contiguous(), 1.0 / s, crop
 
-    def _log_lik(self, am_state, patch, am=None):
+    def _log_lik(self, am_state, patch, am=None, p_am=None):
         """(B, P) log-likelihoods of patches (B, P, N, C) against the
-        particle view of an AM state."""
+        particle view of an AM state; `p_am` (B, P, P_am), the photometric
+        particles, replaces its parameters where it has any."""
         am = am or self.am
+        if p_am is not None and p_am.shape[-1] > 0:
+            am_state = am_state._replace(p_am=p_am)
         if self.pf.likelihood == "am":
             return torch.log(am.likelihood(am_state, patch) + 1e-30)
         f = am.f(am_state, patch)
@@ -296,7 +285,9 @@ class PF(SearchMethod):
             log_weights=torch.full((B, P), -math.log(P), device=dev),
             step=torch.zeros((), dtype=torch.int64),
             distr_log_w=torch.full((B, D), -math.log(D), device=dev),
-            am_particles=torch.zeros((B, P, 0), device=dev),
+            am_particles=(state.am_state.p_am[:, None].expand(
+                B, P, -1).contiguous() if self._sample_am
+                else torch.zeros((B, P, 0), device=dev)),
             score_am=score)
 
     def _effective_sigma(self, state: TrackerState,
@@ -346,7 +337,7 @@ class PF(SearchMethod):
                 sigma[:, None].expand(B, P, S))
 
     def _propagate_measure(self, state, frame, noise, particles,
-                           prev_particles, sig_p):
+                           prev_particles, sig_p, am_prop=None):
         """Propagate and measure: (prop (B, P, S), log_lik (B, P),
         valid (B, P))."""
         ssm, pf = self.ssm, self.pf
@@ -369,7 +360,8 @@ class PF(SearchMethod):
         patches, valid = self._particle_patches(
             region, prop, frame_sc, base_pts=bp, pts_scale=pscale,
             crop=crop_sc)
-        log_lik = self._log_lik(_particle_view(sc_st), patches, am=sc_am)
+        log_lik = self._log_lik(_particle_view(sc_st), patches, am=sc_am,
+                                p_am=am_prop)
         K = pf.rescore_top_k
         if K > 0 and bp is not None:
             # the coarse pass ranks; the top K are re-scored at full
@@ -381,7 +373,9 @@ class PF(SearchMethod):
             patches_k, valid_k = self._particle_patches(
                 region, _take(prop, topi), frame,
                 crop=pf.rescore_crop or None)
-            ll_k = self._log_lik(_particle_view(state.am_state), patches_k)
+            ll_k = self._log_lik(
+                _particle_view(state.am_state), patches_k,
+                p_am=None if am_prop is None else _take(am_prop, topi))
             log_lik = torch.full_like(log_lik, _NEG).scatter(1, topi, ll_k)
             valid = torch.zeros_like(valid).scatter(1, topi, valid_k)
         return prop, log_lik, valid
@@ -401,17 +395,30 @@ class PF(SearchMethod):
         sigma = self._effective_sigma(state, frame)
         dr = self._draw(int(ps.step))
         d_idx, sig_p = self._draw_sigmas(dr.gumbel, ps.distr_log_w, sigma)
+        am_prop = ps.am_particles
+        if self._sample_am:
+            # the photometric random walk, one draw shared by the trackers
+            am_prop = am_prop + torch.as_tensor(
+                self.pf.am_sigma, dtype=am_prop.dtype,
+                device=am_prop.device) * dr.am[None]
         prop, log_lik, valid = self._propagate_measure(
             state, frame, dr.prop[None], ps.particles, ps.prev_particles,
-            sig_p)
+            sig_p, am_prop)
         log_lik = self._apply_window_mask(log_lik, valid)
         log_w = ps.log_weights + log_lik
         log_w = log_w - torch.logsumexp(log_w, dim=-1, keepdim=True)
         prop, prev_out, am_prop, log_w, new_dlw, mean_state = self._finish(
-            state, prop, ps.particles, ps.am_particles, log_w, d_idx,
+            state, prop, ps.particles, am_prop, log_w, d_idx,
             ps.distr_log_w, dr.u0)
+        am_state = state.am_state
+        if self._sample_am:
+            # the weighted mean of the photometric particles (additive)
+            w = torch.exp(log_w - torch.logsumexp(log_w, dim=-1,
+                                                  keepdim=True))
+            am_state = am_state._replace(
+                p_am=(w[..., None] * am_prop).sum(dim=1))
         new_am, new_score = self._learn_mean_patch(
-            state, state.am_state, mean_state, frame, ps.score_am)
+            state, am_state, mean_state, frame, ps.score_am)
         new_extra = PFState(particles=prop, prev_particles=prev_out,
                             log_weights=log_w, step=ps.step + 1,
                             distr_log_w=new_dlw, am_particles=am_prop,

@@ -686,3 +686,48 @@ def test_cuda_stochastic_updates_match_cpu(cuda_device, key, am, kw):
             assert all(x.is_cuda for x in leaves)
     assert np.isfinite(out[0]).all()
     assert np.abs(out[0] - out[1]).max() < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,kw", [
+    ("hesm", {}),
+    ("lpfc", dict(lp_n_samples=128)),
+    ("line", dict(grid_sub_iters=(1, 8), grid_coarse_stride=2)),
+])
+def test_cuda_slice10_updates_match_cpu(cuda_device, key, kw):
+    """One update of hesm/ssd/8 (the chain kernel's ssd_esm mode at S = 2,
+    then 8), lpfc/ssd/8 (the LP stage on "2", then K1) and line/ssd/8 (K5)
+    on the card against the same update on the CPU, the card handed the
+    CPU tracker's draws (LP's normals, the line fit's RANSAC indices):
+    corners within 0.05 px, and every state tensor on the card."""
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.sm.grid import GridTracker
+    from mtf_tpu_torch.sm.lp import LP
+    rng = np.random.default_rng(0)
+    frame = _window(rng, 128)
+    f2 = np.roll(frame, (1, 1), (0, 1))
+    corners = np.array([[[30.3, 26.2], [70.3, 26.2], [70.3, 68.2],
+                         [30.3, 68.2]],
+                        [[40.1, 40.4], [80.1, 38.4], [82.1, 80.4],
+                         [38.1, 78.4]]], np.float32)
+    cfg = dict(resx=16, resy=16, max_iters=5, epsilon=0.0,
+               interp="linear_mm", crop=96, **kw)
+    cpu = create_tracker(key, "ssd", "8", device="cpu", **cfg)
+    gpu = create_tracker(key, "ssd", "8", device=cuda_device, **cfg)
+    for m_cpu, m_gpu in zip(cpu.modules(), gpu.modules()):
+        if isinstance(m_cpu, LP):
+            draws = [m_cpu._draw(i) for i in range(m_cpu.lp.n_stages)]
+            m_gpu._draw = lambda i, d=draws: d[i].to(cuda_device)
+        elif isinstance(m_cpu, GridTracker):
+            m_gpu._hyp_indices = (lambda draw: lambda step, n: draw(
+                step, n).to(cuda_device))(m_cpu._hyp_indices)
+    out = []
+    for sm in (gpu, cpu):
+        st = sm.update(sm.initialize(frame, corners), f2)
+        out.append(sm.corners(st).cpu().numpy())
+        if sm is gpu:
+            leaves = [x for x in torch.utils._pytree.tree_leaves(st)
+                      if isinstance(x, torch.Tensor) and x.dim() > 0]
+            assert all(x.is_cuda for x in leaves)
+    assert np.isfinite(out[0]).all()
+    assert np.abs(out[0] - out[1]).max() < 0.05

@@ -196,15 +196,16 @@ def test_likelihood_and_dist_feat_match_jax(key, c, nb):
 def test_ssd_ncc_likelihood_matches_jax(key):
     """SSD's likelihood exp(-alpha * the RMS residual) and NCC's
     exp(-alpha (1 - f)), on 3-channel patches; their distance features
-    are the flat raw patch."""
+    (SSD: the flat raw patch; NCC: the centred unit patch)."""
     tam, jam = _tam(key, 3, 8), _jam(key, 3, 8)
     templ, patch, _ = _inputs(3)
-    want = jax.jit(lambda t, p: jam.likelihood(jam.init(t), p))(templ, patch)
+    want, want_feat = jax.jit(lambda t, p: (
+        jam.likelihood(jam.init(t), p), jam.dist_feat(p)))(templ, patch)
     got = tam.likelihood(tam.init(torch.tensor(templ)[None]),
                          torch.tensor(patch)[None])
     assert _rel(got[0].numpy(), want) < VAL_REL
-    assert torch.equal(tam.dist_feat(torch.tensor(patch)),
-                       torch.tensor(patch.reshape(-1)))
+    assert _rel(tam.dist_feat(torch.tensor(patch)).numpy(),
+                want_feat) < VAL_REL
 
 
 @pytest.mark.parametrize("key", AMS + ("ssd", "ncc"))

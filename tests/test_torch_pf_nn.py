@@ -554,24 +554,29 @@ def test_stochastic_keys_update(key, kw):
 
 
 @pytest.mark.parametrize("key,queue", [
-    ("hrch", "Queue 1c"), ("hesm", "Queue 1c"), ("tld", "Queue 1c"),
-    ("regnet", "Queue 1, slice 5"), ("lp", "Queue 1, slice 5")])
+    ("hrch", None), ("hesm", None), ("tld", "Queue 1c"),
+    ("regnet", None), ("lp", None)])
 def test_factory_rejects_the_rest(key, queue):
-    """The SM keys still unported raise naming their queue, and they are
-    the only ones `_SLICE_OF_SM` still names; so do the unported AMs and
-    the ILMs, and PF's photometric sampling (which needs an ILM)."""
+    """Of the SM keys slice 9 left, only tld still raises, naming its
+    queue, and it is the only one `_SLICE_OF_SM` still names; hrch, hesm,
+    regnet and lp (slice 10) build as the JAX factory builds them, and so
+    do the AMs and the ILM once unported there, and PF's photometric
+    sampling (which needs an ILM)."""
     from mtf_tpu_torch import factory
-    assert set(factory._SLICE_OF_SM) == {"hrch", "hesm", "tld", "regnet",
-                                         "lp"}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
-        tcreate(key, "ssd", "8", device="cpu")
+    assert set(factory._SLICE_OF_SM) == {"tld"}
+    if queue is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
+            tcreate(key, "ssd", "8", device="cpu")
+    else:
+        _same_build(tcreate(key, "ssd", "8", device="cpu"),
+                    jcreate(key, "ssd", "8"))
     for am in ("sad", "scv", "riu", "sum"):
-        with pytest.raises(NotImplementedError, match="slice 4, item 3"):
-            tcreate("pf", am, "8", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tcreate("pf", "ssd", "8", ilm="gb", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tcreate("pf", "ssd", "8", pf_am_sigma=(0.1,), device="cpu")
+        _same_build(tcreate("pf", am, "8", device="cpu"),
+                    jcreate("pf", am, "8"))
+    _same_build(tcreate("pf", "ssd", "8", ilm="gb", device="cpu"),
+                jcreate("pf", "ssd", "8", ilm="gb"))
+    _same_build(tcreate("pf", "ssd", "8", pf_am_sigma=(0.1,), device="cpu"),
+                jcreate("pf", "ssd", "8", pf_am_sigma=(0.1,)))
 
 
 @pytest.mark.parametrize("name", list(LEGS))
