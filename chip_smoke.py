@@ -221,6 +221,7 @@ summary of the kernels.
 import collections
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2577,6 +2578,279 @@ def _slice10_phase(torch, tk, gf, card, dev, frame0, frame_d, frame3_d):
     return out
 
 
+# -- slice 11: the parallel layer ----------------------------------------
+B_SCALING = 64           # bench.py's strong-scaling row: 64 trackers
+SCALING_WIDTHS = (1, 2, 4, 8)
+PARALLEL_UPDATES = 2     # updates of each sharded path and its reference
+SCALING_WINDOWS = 5      # calls of the strong-scaling protocol
+PARALLEL_TOL_PX = 1e-4   # a sharded path against the unsharded one
+MULTI_SINGLES = 8        # trackers re-run alone on their own frames
+MULTI_SHIFT_SEED = 11    # the per-tracker sub-pixel offsets
+PARALLEL_AXES = ("tracker", "particle", "sample", "patch", "pixel")
+
+
+def _shifted_stack(torch, img, offs):
+    """(B, H, W) frames: img (H, W) on the card with its content moved
+    by offs (B, 2) px (x, y) each, by bilinear resampling with replicate
+    edges (`grid_sample`, in chunks of 128 frames)."""
+    F = torch.nn.functional
+    h, w = img.shape
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)
+    out = torch.empty((offs.shape[0], h, w), device=img.device)
+    for i in range(0, offs.shape[0], 128):
+        o = offs[i:i + 128]
+        b = o.shape[0]
+        gx = 2.0 * (xs[None, None, :] - o[:, 0, None, None]) / (w - 1) - 1.0
+        gy = 2.0 * (ys[None, :, None] - o[:, 1, None, None]) / (h - 1) - 1.0
+        grid = torch.stack([gx.expand(b, h, w), gy.expand(b, h, w)], -1)
+        out[i:i + b] = F.grid_sample(
+            img[None, None].expand(b, 1, h, w), grid, mode="bilinear",
+            padding_mode="border", align_corners=True)[:, 0]
+    return out
+
+
+def _parallel_checks(rank, world, light=False, device_type="cuda"):
+    """Every check of the parallel phase on a world of `world` ranks,
+    each rank on its card (`init_distributed` done): each sharded path at
+    full width against the port's unsharded path on the same draws, the
+    launches of each sharded path per rank, `update_multi`'s and
+    `track_sequence`'s GT legs, the dry run and the strong-scaling row.
+    `light`: the 2-rank gloo world on one card, which skips the
+    scaling row (its ranks share one card). `device_type` "cpu" runs it
+    on the CPU (a dry run of this script's code, at smaller B). Returns {"diffs", "gt",
+    "launches", "scaling", "seconds"}; raises on any failed check."""
+    import torch
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.ops.kernels import grid_flow as gf
+    from mtf_tpu_torch.ops.kernels import lk_fused as tk
+    from mtf_tpu_torch.parallel import (ShardedGridTracker, ShardedNN,
+                                        ShardedPF, TrackerFleet, make_mesh,
+                                        sharded_gn_step)
+    from mtf_tpu_torch.parallel.dryrun import dryrun
+    from mtf_tpu_torch.parallel.multihost import measure_fleet_scaling
+    from mtf_tpu_torch.sm.composite import RKLT, CascadeSM
+    from mtf_tpu_torch.utils.synth import synthetic_sequence
+    t0 = time.perf_counter()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    meshes = {ax: make_mesh({ax: world}, device_type)
+              for ax in PARALLEL_AXES}
+    one = make_mesh({"pixel": 1}, device_type)
+    frame0 = _scene(0)
+    frame_d = torch.as_tensor(frame0, device=dev)
+    frames = [frame_d, torch.roll(frame_d, (1, 1), (0, 1))]
+    out = {"diffs": {}, "gt": {}, "launches": collections.Counter(),
+           "scaling": None}
+
+    def counted(label, expect, n_updates, fn):
+        """fn() with the launch counts zeroed before and read after; each
+        kernel exactly `expect[name]` times per update on this rank."""
+        _zero_counts(tk, gf)
+        res = fn()
+        counts = _counts(tk, gf)
+        out["launches"].update(counts)
+        for name, got in counts.items():
+            want = expect.get(name, 0) * n_updates
+            _check(got == want, f"parallel {label} (rank {rank}): {name} "
+                   f"launched {got} times in {n_updates} updates "
+                   f"(expected {want})")
+        return res
+
+    def held(label, got, want, tol=PARALLEL_TOL_PX):
+        d = float((torch.as_tensor(got) - torch.as_tensor(want).to(
+            got.device)).abs().max())
+        _check(d <= tol, f"parallel {label}: sharded and unsharded corners "
+               f"{d} px apart (limit {tol})")
+        out["diffs"][label] = d
+
+    def steps(sm_step, st):
+        for i in range(PARALLEL_UPDATES):
+            st = sm_step(st, frames[(i + 1) % 2])
+        return st
+
+    # the headline fleet, tracker-sharded
+    corners = _corners(B)
+    sm = create_tracker("fclk", "ssd", "8", device=dev, **cfg_of("fclk"))
+    fleet = TrackerFleet(sm, meshes["tracker"], donate=True)
+    plain = TrackerFleet(sm, donate=True)
+    st = counted("fleet", {"ssd": MAX_ITERS}, PARALLEL_UPDATES,
+                 lambda: steps(fleet.update, fleet.initialize(
+                     frame_d, corners)))
+    held("fleet", fleet.corners(st), plain.corners(steps(
+        plain.update, plain.initialize(frame_d, corners))))
+
+    # update_multi: one frame per tracker, the scene moved by a sub-pixel
+    # offset each; 8 trackers alone on their own frames
+    offs = np.random.default_rng(MULTI_SHIFT_SEED).uniform(
+        -0.5, 0.5, (B, 2)).astype(np.float32)
+    offs_d = torch.as_tensor(offs, device=dev)
+    stack = _shifted_stack(torch, frames[1], offs_d)
+    st = counted("update_multi", {"ssd": MAX_ITERS}, 1,
+                 lambda: fleet.update_multi(fleet.initialize(
+                     frame_d, corners), stack))
+    got = fleet.corners(st)
+    picks = np.linspace(0, B - 1, MULTI_SINGLES).astype(int)
+    alone = torch.cat([sm.corners(sm.update(sm.initialize(
+        frame_d, corners[b:b + 1]), stack[b])) for b in picks])
+    held("update_multi", got[picks], alone)
+    # the same on whole frames (no crop): the chain kernel reads the
+    # per-tracker stack itself
+    sm_nc = create_tracker("fclk", "ssd", "8", device=dev,
+                           **dict(cfg_of("fclk"), crop=None))
+    fleet_nc = TrackerFleet(sm_nc, meshes["tracker"])
+    st = counted("update_multi_no_crop", {"ssd": MAX_ITERS}, 1,
+                 lambda: fleet_nc.update_multi(fleet_nc.initialize(
+                     frame_d, corners), stack))
+    got = fleet_nc.corners(st)
+    alone = torch.cat([sm_nc.corners(sm_nc.update(sm_nc.initialize(
+        frame_d, corners[b:b + 1]), stack[b])) for b in picks])
+    held("update_multi_no_crop", got[picks], alone)
+    del stack, st, fleet_nc, sm_nc
+    torch.cuda.empty_cache()
+    seq, gt = synthetic_sequence(frame0, corners, sm.ssm, n_frames=6,
+                                 sigma_scale=0.004, seed=3)
+    seq = torch.as_tensor(seq, device=dev)
+    st = fleet.initialize(seq[0], corners)
+    errs = []
+    for t in range(1, len(seq)):
+        st = fleet.update_multi(st, _shifted_stack(torch, seq[t], offs_d))
+        c = fleet.corners(st).cpu().numpy().transpose(0, 2, 1)
+        errs.append(float(np.linalg.norm(c - (gt[t] + offs[:, None]),
+                                         axis=-1).mean()))
+    out["gt"]["update_multi"] = float(np.mean(errs))
+    _check(out["gt"]["update_multi"] <= GT_LIMIT_PX,
+           f"update_multi GT {out['gt']['update_multi']} px")
+
+    # track_sequence over the GT leg: the update loop's corners, and GT
+    _, cs = fleet.track_sequence(fleet.initialize(seq[0], corners), seq[1:])
+    st, loop = fleet.initialize(seq[0], corners), []
+    for t in range(1, len(seq)):
+        st = fleet.update(st, seq[t])
+        loop.append(fleet.corners(st))
+    held("track_sequence", cs, torch.stack(loop), 0.0)
+    e = np.linalg.norm(cs.cpu().numpy().transpose(0, 1, 3, 2) - gt[1:],
+                       axis=-1).mean()
+    out["gt"]["track_sequence"] = float(e)
+    _check(e <= GT_LIMIT_PX, f"track_sequence GT {e} px")
+    del seq, fleet, plain, sm
+    torch.cuda.empty_cache()
+
+    # ShardedNN at nn1k's configuration and ShardedPF at pf500's (no top-K
+    # rescore), each the first stage of its cascade
+    for label, key, am, b, cfg, shard in (
+            ("nn1k", "nnic", "mi", B_NN, NN1K_CFG, lambda m: ShardedNN(
+                m.am, m.ssm, m.prm, m.nn, mesh=meshes["sample"])),
+            ("pf500", "pffc", "ssim", B_PF, dict(PF500_CFG,
+                                                 pf_rescore_top_k=0),
+             lambda m: ShardedPF(m.am, m.ssm, m.prm, m.pf,
+                                 mesh=meshes["particle"]))):
+        sm = create_tracker(key, am, "8", device=dev, **cfg)
+        sharded = CascadeSM([shard(sm.members[0])] + list(sm.members[1:]))
+        crn = _corners(b)
+        st = counted(label, {}, PARALLEL_UPDATES, lambda: steps(
+            sharded.update, sharded.initialize(frame_d, crn)))
+        held(label, sharded.corners(st), sm.corners(steps(
+            sm.update, sm.initialize(frame_d, crn))))
+        del sm, sharded
+        torch.cuda.empty_cache()
+
+    # ShardedGridTracker inside the rklt row
+    crn = _corners(B_RKLT)
+    sm = create_tracker("rklt", "ssd", "8", device=dev, **rklt_cfg())
+    g = sm.grid_sm
+    srk = RKLT(ShardedGridTracker(g.am, g.ssm, g.prm, g.grid,
+                                  mesh=meshes["patch"]), sm.templ_sm, sm.prm)
+    st = counted("rklt", {"ssd_esm": MAX_ITERS,
+                          "grid_flow@linear": K5_PER_UPDATE},
+                 PARALLEL_UPDATES, lambda: steps(
+                     srk.update, srk.initialize(frame_d, crn)))
+    held("rklt", srk.corners(st), sm.corners(steps(
+        sm.update, sm.initialize(frame_d, crn))))
+    del sm, srk
+
+    # sharded_gn_step on the headline's shapes, SSD, local
+    sm = create_tracker("fclk", "ssd", "8", device=dev, **cfg_of("fclk"))
+    st = sm.initialize(frame_d, corners)
+    got = sm.corners(counted("gn_step", {}, 1, lambda: sharded_gn_step(
+        sm, st, frames[1], meshes["pixel"], "pixel", "local")))
+    if rank == 0:
+        held("gn_step", got, sm.corners(sharded_gn_step(
+            sm, st, frames[1], one, "pixel", "local")))
+    del sm, st
+    torch.cuda.empty_cache()
+
+    # the dry run (gather taps: no kernel) and the strong-scaling row
+    # (SCALING_WINDOWS calls; each width a warm-up and STEPS timed updates
+    # on the ranks of its mesh)
+    counted("dryrun", {}, 0, lambda: dryrun(dev))
+    if not light:
+        sm = create_tracker("fclk", "ssd", "8", device=dev, **cfg_of("fclk"))
+        crn = _corners(B_SCALING, seed=2)
+        widths = tuple(n for n in SCALING_WIDTHS if n <= world)
+        runs = counted(
+            "scaling", {"ssd": MAX_ITERS},
+            SCALING_WINDOWS * (STEPS + 1) * sum(rank < n for n in widths),
+            lambda: [measure_fleet_scaling(
+                sm, frame_d, lambda i: crn[i], widths=widths, steps=STEPS,
+                fixed_total=B_SCALING) for _ in range(SCALING_WINDOWS)])
+        out["scaling"] = {n: sorted(r["fps"][n] for r in runs)
+                          for n in runs[0]["fps"]}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(out["launches"])
+    return out if rank == 0 else None
+
+
+def _parallel_report(label, res, card):
+    for name, d in res["diffs"].items():
+        print(f"parallel {label} {name}: sharded vs unsharded corners "
+              f"{d:.3g} px apart (limit {PARALLEL_TOL_PX})")
+    for name, e in res["gt"].items():
+        print(f"parallel {label} {name} GT: mean corner error {e:.4f} px "
+              f"(limit {GT_LIMIT_PX})")
+    print(f"parallel {label} launches per rank: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(res["launches"].items()) if v))
+    if res["scaling"]:
+        sc = res["scaling"]
+        base = statistics.median(next(iter(sc.values())))
+        print(f"parallel {label} strong scaling, {B_SCALING} trackers, "
+              f"{SCALING_WINDOWS} windows of {STEPS} updates: " + ", ".join(
+                  f"{n} rank(s) median {statistics.median(f):.1f} frames/s "
+                  f"(windows {', '.join(f'{x:.1f}' for x in f)}; efficiency "
+                  f"{statistics.median(f) / base:.3f})"
+                  for n, f in sc.items()) + f" ({card})")
+    print(f"parallel {label}: {res['seconds']:.1f} s")
+
+
+def _parallel_phase(torch, card):
+    """Slice 11: the checks of `_parallel_checks` on a world of one rank
+    per card under NCCL, then on 2 ranks sharing card 0 under gloo with
+    CUDA tensors (NCCL takes one rank per card). Any rank's failure in
+    either world fails the phase."""
+    import torch.distributed as dist
+    from mtf_tpu_torch.parallel.multihost import init_distributed, run_world
+    n = torch.cuda.device_count()
+    print(f"parallel world size: {n} (nccl, one rank per card)")
+    if n == 1:
+        init_distributed(backend="nccl", device_type="cuda")
+        try:
+            res = _parallel_checks(0, 1)
+        finally:
+            dist.destroy_process_group()
+    else:
+        res = run_world(_parallel_checks, n, backend="nccl",
+                        device_type="cuda", timeout=600)[0]
+    _parallel_report(f"world {n} nccl", res, card)
+    MAIN_PATH_LAUNCHES.update(res["launches"])
+    print("parallel world size: 2 (gloo, CUDA tensors, both ranks on "
+          "card 0)")
+    res2 = run_world(_parallel_checks, 2, (True,), backend="gloo",
+                     device_type="cuda", timeout=600)[0]
+    _parallel_report("world 2 gloo", res2, card)
+    MAIN_PATH_LAUNCHES.update(res2["launches"])
+    return {"world": n, "nccl": res, "gloo_2_ranks_one_card": res2}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2874,9 +3148,20 @@ def main() -> int:
     slice10_s = time.perf_counter() - t10
     print(f"slice 10 phase: {slice10_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 11: the parallel layer ---------------------------------------
+    t11 = time.perf_counter()
+    parallel = _parallel_phase(torch, card)
+    slice11_s = time.perf_counter() - t11
+    print(f"slice 11 phase: {slice11_s:.1f} s")
+    torch.cuda.empty_cache()
     # the routing runs that reach the grid flow (gric, rklt_ssd_spi, pfrk,
     # nnrk, line) count in K5's main-path launches too, and the slice-10
     # runs at S = 2 (hesm, hrch) in the chain kernel's
+    for name, res in (("parallel nccl", parallel["nccl"]),
+                      ("parallel gloo", parallel["gloo_2_ranks_one_card"])):
+        if res and res.get("launches"):
+            k5_launches["linear"][name] = res["launches"].get(
+                "grid_flow@linear", 0)
     for row_set in (generic, stochastic, slice10):
         for name, row in row_set.items():
             for k, v in row.get("launches", {}).items():
@@ -2963,6 +3248,8 @@ def main() -> int:
         "build_s": {k: v.seconds for k, v in libs.items()},
         "slice9_phase_s": slice9_s,
         "slice10_phase_s": slice10_s,
+        "parallel": parallel,
+        "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,
         "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """Image patch sampling (port of `mtf_tpu/ops/interp.py`).
 
 Images are (H, W) or (H, W, C) float tensors; points are (..., N, 2) in
-(x, y) order with any leading batch dims; patches are (..., N, C).
+(x, y) order with any leading batch dims; patches are (..., N, C). A
+(B, H, W, C) tensor holds one image per tracker: `sample_val_grad`,
+`sample` and `sample_dense` then read points (B, ..., N, 2) each from its
+own tracker's image.
 Border handling is 'replicate' (the slice's only border mode).
 
 `sample_val_grad` (and `sample`, `sample_grad`) is the gather form of
@@ -53,13 +56,27 @@ def _as_hwc(img: torch.Tensor) -> torch.Tensor:
     return img[..., None] if img.dim() == 2 else img
 
 
-def _gather(img_flat: torch.Tensor, h: int, w: int, xi: torch.Tensor,
+def _flat(img: torch.Tensor, x: torch.Tensor):
+    """(pixels (·, C), H, W, C, the offset of each point's image in them)
+    of an (H, W[, C]) image, or of per-tracker images (B, H, W, C) read at
+    coordinates x (B, ...)."""
+    if img.dim() == 4:
+        b, h, w, c = img.shape
+        base = (torch.arange(b, device=img.device) * (h * w)).view(
+            (b,) + (1,) * (x.dim() - 1))
+        return img.reshape(b * h * w, c), h, w, c, base
+    img = _as_hwc(img)
+    h, w, c = img.shape
+    return img.reshape(h * w, c), h, w, c, 0
+
+
+def _gather(img_flat: torch.Tensor, base, h: int, w: int, xi: torch.Tensor,
             yi: torch.Tensor) -> torch.Tensor:
     """Pixel values at integer coords (...,) -> (..., C), replicate
-    border."""
+    border; `base`, the offset of each point's image (`_flat`)."""
     xc = xi.clamp(0, w - 1)
     yc = yi.clamp(0, h - 1)
-    return img_flat[yc * w + xc]
+    return img_flat[base + yc * w + xc]
 
 
 def _cubic_weights(f: torch.Tensor, kind: str):
@@ -99,12 +116,10 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
                             need_grad=need_grad)
     if kind not in KINDS + (NEAREST,):
         raise ValueError(f"unknown interp {kind!r}")
-    img = _as_hwc(img)
-    h, w, c = img.shape
-    img_flat = img.reshape(h * w, c)
     x, y = pts[..., 0], pts[..., 1]
+    img_flat, h, w, c, base = _flat(img, x)
     if kind == NEAREST:
-        val = _gather(img_flat, h, w, torch.round(x).long(),
+        val = _gather(img_flat, base, h, w, torch.round(x).long(),
                       torch.round(y).long())
         return val, (val.new_zeros(val.shape + (2,)) if need_grad else None)
     x0f, y0f = torch.floor(x), torch.floor(y)
@@ -112,10 +127,10 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     fy = (y - y0f)[..., None]
     x0, y0 = x0f.long(), y0f.long()
     if kind == LINEAR:
-        v00 = _gather(img_flat, h, w, x0, y0)
-        v01 = _gather(img_flat, h, w, x0 + 1, y0)
-        v10 = _gather(img_flat, h, w, x0, y0 + 1)
-        v11 = _gather(img_flat, h, w, x0 + 1, y0 + 1)
+        v00 = _gather(img_flat, base, h, w, x0, y0)
+        v01 = _gather(img_flat, base, h, w, x0 + 1, y0)
+        v10 = _gather(img_flat, base, h, w, x0, y0 + 1)
+        v11 = _gather(img_flat, base, h, w, x0 + 1, y0 + 1)
         top = v00 * (1.0 - fx) + v01 * fx
         bot = v10 * (1.0 - fx) + v11 * fx
         val = top * (1.0 - fy) + bot * fy
@@ -125,7 +140,7 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         return val, torch.stack([dx, bot - top], dim=-1)
     wx, dwx = _cubic_weights(fx, kind)
     wy, dwy = _cubic_weights(fy, kind)
-    rows = [[_gather(img_flat, h, w, x0 + i - 1, y0 + j - 1)
+    rows = [[_gather(img_flat, base, h, w, x0 + i - 1, y0 + j - 1)
              for i in range(4)] for j in range(4)]
     row_v = [sum(rows[j][i] * wx[i] for i in range(4)) for j in range(4)]
     val = sum(row_v[j] * wy[j] for j in range(4))
@@ -273,9 +288,8 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     clamped to that window, as `jax.lax.dynamic_slice` plus the dense
     clamp do in the JAX package. The window is never materialised."""
     lo, hi = _clamp_margins(kind)
-    img = _as_hwc(img)
-    h, w, c = img.shape
     x, y = pts[..., 0], pts[..., 1]
+    img_flat, h, w, c, base = _flat(img, x)
     if crop is not None and (crop < h or crop < w):
         hc, wc = min(crop, h), min(crop, w)
         ox = crop_origin(x, wc, w, 2.0)[..., None]
@@ -285,13 +299,12 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         ox = oy = torch.zeros((), dtype=x.dtype, device=x.device)
     cx = _clamp_st(x - ox, lo, wc - hi)
     cy = _clamp_st(y - oy, lo, hc - hi)
-    img_flat = img.reshape(h * w, c)
     if kind != LINEAR:
         x0, wx, dwx = _cubic_axis(cx, kind)
         y0, wy, dwy = _cubic_axis(cy, kind)
         xi, yi = (x0 + ox).long(), (y0 + oy).long()
         val, dx, dy = _cubic_sum(
-            lambda r, j: _gather(img_flat, h, w, xi + j, yi + r), *[
+            lambda r, j: _gather(img_flat, base, h, w, xi + j, yi + r), *[
                 [t[..., None] for t in ts] for ts in (wx, dwx, wy, dwy)],
             need_grad=need_grad)
         return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
@@ -300,10 +313,10 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     fy = _frac_dense(cy - fys)[..., None]
     xi = (fxs + ox).long()
     yi = (fys + oy).long()
-    v00 = _gather(img_flat, h, w, xi, yi)
-    v01 = _gather(img_flat, h, w, xi + 1, yi)
-    v10 = _gather(img_flat, h, w, xi, yi + 1)
-    v11 = _gather(img_flat, h, w, xi + 1, yi + 1)
+    v00 = _gather(img_flat, base, h, w, xi, yi)
+    v01 = _gather(img_flat, base, h, w, xi + 1, yi)
+    v10 = _gather(img_flat, base, h, w, xi, yi + 1)
+    v11 = _gather(img_flat, base, h, w, xi + 1, yi + 1)
     top = v00 * (1.0 - fx) + v01 * fx
     bot = v10 * (1.0 - fx) + v11 * fx
     val = top * (1.0 - fy) + bot * fy

@@ -51,10 +51,14 @@ def _refit(ssm, src, dst, w, ss):
 
 def ransac_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
                idx: torch.Tensor, inlier_thresh=0.05,
-               weights: torch.Tensor | None = None):
+               weights: torch.Tensor | None = None, select=None):
     """RANSAC warp fit -> (state (B, S), inlier weights (B, N)).
     `inlier_thresh` (a float, or (B,) per tracker) is in the
-    correspondences' units; `weights` (B, N) multiply the inlier flags."""
+    correspondences' units; `weights` (B, N) multiply the inlier flags.
+    `select(key (B,), w (B, N), maximize)`, where given, returns the
+    inlier weights of the best among every hypothesis shard's best
+    (`ShardedGridTracker`), `key` the score of this shard's best, the
+    largest (`maximize`) or the least wins."""
     res, valid = _scored(ssm, src, dst, idx)
     thresh = torch.as_tensor(inlier_thresh, dtype=src.dtype,
                              device=src.device)
@@ -65,12 +69,15 @@ def ransac_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
         inl = inl * weights[:, None, :]
     scores = torch.where(valid, inl.sum(-1), -1.0)
     best = scores.argmax(dim=-1)          # the first maximum, as jnp.argmax
-    w = inl[torch.arange(src.shape[0], device=src.device), best]
+    rows = torch.arange(src.shape[0], device=src.device)
+    w = inl[rows, best]
+    if select is not None:
+        w = select(scores[rows, best], w, True)
     return _refit(ssm, src, dst, w, min_sample_size(ssm))
 
 
 def lmeds_fit(ssm, src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
-              weights: torch.Tensor | None = None):
+              weights: torch.Tensor | None = None, select=None):
     """Least-median-of-squares fit: the hypothesis with the least median
     squared residual, then a refit on the points within 2.5 robust sigma."""
     res, valid = _scored(ssm, src, dst, idx)
@@ -84,6 +91,8 @@ def lmeds_fit(ssm, src: torch.Tensor, dst: torch.Tensor, idx: torch.Tensor,
     w = (res[rows, best] < 2.5 * sigma[:, None]).to(src.dtype)
     if weights is not None:
         w = w * weights
+    if select is not None:
+        w = select(med[rows, best], w, False)
     return _refit(ssm, src, dst, w, min_sample_size(ssm))
 
 
@@ -126,14 +135,15 @@ def median_flow_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
 
 def robust_fit(ssm, src: torch.Tensor, dst: torch.Tensor,
                idx: torch.Tensor | None, method: str = "ransac",
-               inlier_thresh=0.05, weights: torch.Tensor | None = None):
+               inlier_thresh=0.05, weights: torch.Tensor | None = None,
+               select=None):
     """Dispatch over the estimators (SSMEstimatorParams.h:11): "ransac",
     "lmeds" / "least_median", "median" / "medianflow" (the median-flow
     similarity, no draw), and least squares for any other name."""
     if method == "ransac":
-        return ransac_fit(ssm, src, dst, idx, inlier_thresh, weights)
+        return ransac_fit(ssm, src, dst, idx, inlier_thresh, weights, select)
     if method in ("lmeds", "least_median"):
-        return lmeds_fit(ssm, src, dst, idx, weights)
+        return lmeds_fit(ssm, src, dst, idx, weights, select)
     if method in ("median", "medianflow"):
         return median_flow_fit(ssm, src, dst, weights)
     w = weights if weights is not None else torch.ones(

@@ -20,6 +20,8 @@ and RKLT.
 
 The JAX package vmaps each composite per tracker, so its `lax.cond`s
 decide per tracker; here each is a (B,) mask applied by `where_state`.
+Each composite's `update_multi` (one frame per tracker, (B, H, W[, C]))
+steps its members' `update_multi`, where `update` steps their `update`.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from mtf_tpu_torch.sm.core import image_corners
+from mtf_tpu_torch.sm.core import image_corners, multi_frames
 from mtf_tpu_torch.utils.pyramid import build_pyramid
 
 
@@ -77,6 +79,18 @@ class _Composite(nn.Module):
         return torch.as_tensor(frame, dtype=torch.float32,
                                device=self.device)
 
+    def update(self, state: CompositeState, frame) -> CompositeState:
+        return self._step(state, self._frame(frame), False)
+
+    def update_multi(self, state: CompositeState, frames) -> CompositeState:
+        """One update, each tracker on its own frame of frames (B, H, W)
+        or (B, H, W, C)."""
+        return self._step(state, multi_frames(frames, self.device), True)
+
+
+def _member_update(m, st, frame, multi: bool):
+    return m.update_multi(st, frame) if multi else m.update(st, frame)
+
 
 class CascadeSM(_Composite):
     """Sequential composition (reference CascadeSM.cc; the shorthands
@@ -99,13 +113,13 @@ class CascadeSM(_Composite):
         return CompositeState(tuple(m.initialize(frame, corners)
                                     for m in self.members))
 
-    def update(self, state: CompositeState, frame) -> CompositeState:
-        frame = self._frame(frame)
+    def _step(self, state: CompositeState, frame,
+              multi: bool) -> CompositeState:
         out, corners = [], None
         for m, st in zip(self.members, state.members):
             if corners is not None:
                 st = m.set_region(st, corners)
-            st = m.update(st, frame)
+            st = _member_update(m, st, frame, multi)
             c_new = member_corners(m, st)
             if self.auto_reinit_thresh is not None and corners is not None:
                 div = torch.linalg.vector_norm(
@@ -151,9 +165,9 @@ class ParallelSM(_Composite):
         states = tuple(m.initialize(frame, corners) for m in self.members)
         return CompositeState(states, extra=(self._fused(states),))
 
-    def update(self, state: CompositeState, frame) -> CompositeState:
-        frame = self._frame(frame)
-        states = [m.update(st, frame)
+    def _step(self, state: CompositeState, frame,
+              multi: bool) -> CompositeState:
+        states = [_member_update(m, st, frame, multi)
                   for m, st in zip(self.members, state.members)]
         fused = self._fused(states)
         if self.reset_to_mean:
@@ -197,14 +211,15 @@ class PyramidalSM(_Composite):
             self.sm.initialize(pyr[lvl], corners / (2.0 ** lvl))
             for lvl in range(self.n_levels)))
 
-    def update(self, state: CompositeState, frame) -> CompositeState:
-        pyr = build_pyramid(self._frame(frame), self.n_levels)
+    def _step(self, state: CompositeState, frame,
+              multi: bool) -> CompositeState:
+        pyr = build_pyramid(frame, self.n_levels)
         out, corners = list(state.members), None
         for lvl in reversed(range(self.n_levels)):
             st = out[lvl]
             if corners is not None:
                 st = self.sm.set_region(st, corners / (2.0 ** lvl))
-            st = self.sm.update(st, pyr[lvl])
+            st = _member_update(self.sm, st, pyr[lvl], multi)
             corners = member_corners(self.sm, st) * (2.0 ** lvl)
             out[lvl] = st
         return CompositeState(tuple(out))
@@ -250,10 +265,18 @@ class RKLT(nn.Module):
             extra=(image_corners(self.templ_sm.ssm, templ_st),))
 
     def update(self, state: CompositeState, frame) -> CompositeState:
-        frame = torch.as_tensor(frame, dtype=torch.float32,
-                                device=self.device)
+        return self._step(state, torch.as_tensor(
+            frame, dtype=torch.float32, device=self.device), False)
+
+    def update_multi(self, state: CompositeState, frames) -> CompositeState:
+        """One update, each tracker on its own frame of frames (B, H, W)
+        or (B, H, W, C)."""
+        return self._step(state, multi_frames(frames, self.device), True)
+
+    def _step(self, state: CompositeState, frame,
+              multi: bool) -> CompositeState:
         grid_st, templ_st = state.members
-        grid_st = self.grid_sm.update(grid_st, frame)
+        grid_st = _member_update(self.grid_sm, grid_st, frame, multi)
         grid_corners = image_corners(self.grid_sm.ssm, grid_st)
         templ_st = self.templ_sm.set_region(templ_st, grid_corners)
         reseated = templ_st.ssm_state
@@ -262,7 +285,7 @@ class RKLT(nn.Module):
             # template pixel takes the flag of the grid cell it falls in
             # (NT/RKLT.cc:100); the refiner then runs its generic path
             templ_st = templ_st._replace(spi_mask=self._spi_mask(grid_st))
-        templ_st = self.templ_sm.update(templ_st, frame)
+        templ_st = _member_update(self.templ_sm, templ_st, frame, multi)
         if self.prm.enable_spi:
             templ_st = templ_st._replace(spi_mask=None)
         templ_corners = image_corners(self.templ_sm.ssm, templ_st)

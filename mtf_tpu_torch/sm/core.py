@@ -1,9 +1,11 @@
 """Tracker core (port of `mtf_tpu/sm/core.py`): state, region
 normalization and the search-method protocol, over a batch of B trackers.
 
-    initialize: (frame, corners (B, 4, 2)) -> TrackerState
-    update:     (TrackerState, frame)      -> TrackerState
-    corners:    TrackerState               -> (B, 2, 4) corner matrices
+    initialize:   (frame, corners (B, 4, 2))  -> TrackerState
+    update:       (TrackerState, frame)       -> TrackerState
+    update_multi: (TrackerState, frames (B, H, W[, C])), one frame per
+                  tracker                     -> TrackerState
+    corners:      TrackerState                -> (B, 2, 4) corner matrices
 
 The SSM state lives in a template frame: each init region mapped to a
 centered, unit-scale square by a similarity `norm_mat`, which keeps the
@@ -161,6 +163,41 @@ def converge(ssm: SSM, region: RegionState, s: torch.Tensor, n_iters: int,
     return s
 
 
+def multi_frames(frames, device) -> torch.Tensor:
+    """Per-tracker frames (B, H, W) or (B, H, W, C) as the (B, H, W, C)
+    float32 stack the search methods' `update_multi` reads."""
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
+    if frames.dim() == 3:
+        frames = frames[..., None]
+    if frames.dim() != 4:
+        raise ValueError(f"per-tracker frames are (B, H, W) or (B, H, W, C), "
+                         f"got {tuple(frames.shape)}")
+    return frames
+
+
+def track_sequence(sm, frames, corners0, state0=None):
+    """Track B regions over a frame stack (T, H, W[, C]) shared by the
+    trackers, one batched update per frame (`mtf_tpu/sm/core.py:134`):
+    from `sm.initialize(frames[0], corners0)` over frames[1:], or from
+    `state0` over every frame. Returns (the final state, the corners
+    (T', B, 2, 4) after each update)."""
+    if state0 is None:
+        state0 = sm.initialize(frames[0], corners0)
+        frames = frames[1:]
+    state, out = state0, []
+    for frame in frames:
+        state = sm.update(state, frame)
+        out.append(sm.corners(state))
+    return state, torch.stack(out)
+
+
+def multi_unported(sm):
+    """The error of an SM whose `update_multi` is not ported."""
+    return NotImplementedError(
+        f"{type(sm).__name__}.update_multi (per-tracker frames) is not "
+        "ported yet: ROADMAP Queue 1, item 1 (update_multi)")
+
+
 class SearchMethod(nn.Module):
     """Base SM binding one AM and one SSM. Subclasses implement
     `_init_extra` and `_update`."""
@@ -201,6 +238,19 @@ class SearchMethod(nn.Module):
                frame: torch.Tensor) -> TrackerState:
         frame = torch.as_tensor(frame, dtype=torch.float32, device=self.device)
         return self._update(state, frame)
+
+    def update_multi(self, state: TrackerState, frames) -> TrackerState:
+        """One update of the B trackers, each on its own frame: frames
+        (B, H, W) or (B, H, W, C), batched as `update` is."""
+        frames = multi_frames(frames, self.device)
+        if frames.shape[0] != state.ssm_state.shape[0]:
+            raise ValueError(f"{frames.shape[0]} frames for "
+                             f"{state.ssm_state.shape[0]} trackers")
+        return self._update_multi(state, frames)
+
+    def _update_multi(self, state: TrackerState,
+                      frames: torch.Tensor) -> TrackerState:
+        raise multi_unported(self)
 
     def corners(self, state: TrackerState) -> torch.Tensor:
         """(B, 2, 4) MTF corner matrices."""

@@ -35,8 +35,12 @@ sub-tracker's own batched update (tracker-major: sub-tracker b·P + p),
 takes the mean of each one's corners as its patch centre, fits the
 warp, and re-seats every sub-tracker on the fitted warp.
 
+With `update_multi` each tracker reads its own frame of (B, H, W, C):
+per-tracker pyramid levels, K5 windows and gather samples.
+
 The previous frame (f2f, forward-backward) is one (H, W[, C]) copy shared
-by the B trackers, owned by the state (a JAX fleet holds B copies). The
+by the B trackers, owned by the state (a JAX fleet holds B copies), or
+the per-tracker frames after an `update_multi`. The
 hypothesis draw is a `torch.Generator` on the tracker's device, seeded
 from `GridParams.seed` and the update counter `GridState.step`
 (`core.seeded_generator`, salt 0); all B
@@ -95,7 +99,8 @@ class GridState(NamedTuple):
     step: torch.Tensor         # () int64 on the CPU: updates so far
     inlier_mask: torch.Tensor  # (B, P) last fit's inlier weights
     prev_frame: torch.Tensor | None = None  # (H, W[, C]) the last frame,
-                                            # shared (f2f or fb only)
+                                            # shared, or (B, H, W, C) after
+                                            # `update_multi` (f2f or fb only)
 
 
 def _standardize(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -132,6 +137,20 @@ def _patch_centres(g: GridParams, base_corners: torch.Tensor) -> torch.Tensor:
     return W.apply_warp(H, c_unit.expand(base_corners.shape[0], -1, -1))
 
 
+def _gray(img: torch.Tensor) -> bool:
+    """An (H, W) frame, or per-tracker frames (B, H, W, 1)."""
+    return img.dim() == 2 or (img.dim() == 4 and img.shape[-1] == 1)
+
+
+def _per_tracker(img: torch.Tensor, b: int) -> torch.Tensor:
+    """A shared frame (H, W[, C]) as B per-tracker frames (B, H, W, C)
+    (a view), or per-tracker frames as they are."""
+    if img.dim() == 4:
+        return img
+    return (img[..., None] if img.dim() == 2 else img)[None].expand(
+        (b,) + img.shape + ((1,) if img.dim() == 2 else ()))
+
+
 class GridTracker(SearchMethod):
     """`SearchMethod` over B trackers; `am` is unused (the patch distance
     is SSD, on standardised patches with `zncc`)."""
@@ -163,15 +182,18 @@ class GridTracker(SearchMethod):
     def _pyr_frames(self, frame: torch.Tensor) -> list:
         """Level 0 = the frame; level l halves it l times with the
         antialiased bilinear resize (what `jax.image.resize(..., "linear")`
-        computes), channels resized alike."""
+        computes), channels resized alike; per-tracker frames
+        (B, H, W, C) each resized alike."""
         frames = [frame]
-        x = frame[None, None] if frame.dim() == 2 else \
-            frame.permute(2, 0, 1)[None]
+        multi = frame.dim() == 4
+        x = (frame.permute(0, 3, 1, 2) if multi else frame[None, None]
+             if frame.dim() == 2 else frame.permute(2, 0, 1)[None])
+        h, w = x.shape[-2:]
         for lvl in range(1, self.grid.pyramid_levels):
-            size = (frame.shape[0] >> lvl, frame.shape[1] >> lvl)
-            y = F.interpolate(x, size=size, mode="bilinear",
-                              align_corners=False, antialias=True)[0]
-            frames.append(y[0] if frame.dim() == 2 else y.permute(1, 2, 0))
+            y = F.interpolate(x, size=(h >> lvl, w >> lvl), mode="bilinear",
+                              align_corners=False, antialias=True)
+            frames.append(y.permute(0, 2, 3, 1) if multi else y[0, 0]
+                          if frame.dim() == 2 else y[0].permute(1, 2, 0))
         return frames
 
     def _level_iters(self, lvl: int) -> int:
@@ -186,25 +208,36 @@ class GridTracker(SearchMethod):
         templates (B, P, n, C) -> the (B, P, 2) corrections (template
         units)."""
         kind = self.prm.interp
-        if not (kind.endswith(interp.MM_SUFFIX) and frame.dim() == 2):
+        if not (kind.endswith(interp.MM_SUFFIX) and _gray(frame)):
             return self._track_patches_gather(frame, norm_l, pts_base,
                                               templates, n_iters)
         b, P, n, _ = pts_base.shape
-        h, w = frame.shape
+        multi = frame.dim() == 4
+        h, w = frame.shape[1:3] if multi else frame.shape
         hc, wc = (h, w) if crop is None else (min(crop, h), min(crop, w))
         pts = W.apply_warp(norm_l, pts_base.reshape(b, P * n, 2))
-        x0 = interp.crop_origin(pts[..., 0], wc, w, _GRID_MARGIN)
-        y0 = interp.crop_origin(pts[..., 1], hc, h, _GRID_MARGIN)
+        x0 = self._window_start(pts[..., 0], wc, w)
+        y0 = self._window_start(pts[..., 1], hc, h)
         dev = frame.device
         rows = y0.long()[:, None] + torch.arange(hc, device=dev)
         cols = x0.long()[:, None] + torch.arange(wc, device=dev)
-        win = frame[rows[:, :, None], cols[:, None, :]]       # (B, hc, wc)
+        if multi:                                             # (B, hc, wc)
+            win = frame[torch.arange(b, device=dev)[:, None, None],
+                        rows[:, :, None], cols[:, None, :], 0]
+        else:
+            win = frame[rows[:, :, None], cols[:, None, :]]
         pts = pts - torch.stack([x0, y0], dim=-1)[:, None]
         return grid_flow(win, pts.transpose(1, 2).contiguous(),
                          templates.reshape(b, P * n).contiguous(),
                          norm_l[:, 0, 0].contiguous(), n, n_iters,
                          zncc=self.grid.zncc,
                          kind=kind[:-len(interp.MM_SUFFIX)])
+
+    def _window_start(self, v: torch.Tensor, size: int,
+                      full: int) -> torch.Tensor:
+        """The grid window's start (B,) along one axis from the level's
+        point coordinates v (B, M)."""
+        return interp.crop_origin(v, size, full, _GRID_MARGIN)
 
     def _track_patches_gather(self, frame, norm_l, pts_base, templates,
                               n_iters):
@@ -310,6 +343,11 @@ class GridTracker(SearchMethod):
                     b, P * n, 2)).reshape(b, P, n, 2)
         return centers_pred, centers_pred[:, :, None, :] + gs.offsets[:, None]
 
+    def _update_multi(self, state: TrackerState,
+                      frames: torch.Tensor) -> TrackerState:
+        # every step below reads per-tracker frames (B, H, W, C) as such
+        return self._update(state, frames)
+
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
         g = self.grid
@@ -317,6 +355,10 @@ class GridTracker(SearchMethod):
         region = state.region
         centers_pred, pts_base = self._patch_points(state)
         prev = gs.prev_frame
+        if prev is not None and (prev.dim() == 4) != (frame.dim() == 4):
+            # per-tracker frames after a shared one, or the other way
+            b = region.norm_mat.shape[0]
+            prev, frame = _per_tracker(prev, b), _per_tracker(frame, b)
         frames = self._pyr_frames(frame)
         prev_frames = None if prev is None else self._pyr_frames(prev)
         templates = gs.templates
@@ -359,11 +401,19 @@ class GridTracker(SearchMethod):
         g = self.grid
         idx = None
         if g.estimator in ransac.SAMPLED:
-            idx = self._hyp_indices(step, centers0.shape[1])
+            idx = self._my_hyps(self._hyp_indices(step, centers0.shape[1]))
         return ransac.robust_fit(
             self.ssm, centers0, centers_new, idx, method=g.estimator,
             inlier_thresh=g.inlier_thresh_px / region.norm_mat[:, 0, 0],
-            weights=weights)
+            weights=weights, select=self._select_hyp)
+
+    # -- the hypotheses: all of them here; `ShardedGridTracker` scores its
+    # rank's and picks among every rank's best
+    _select_hyp = None
+
+    def _my_hyps(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the (H, sample) hypothesis draw."""
+        return idx
 
 
 class SubGridState(NamedTuple):

@@ -9,7 +9,8 @@ configuration alone (`LKBase._fused_ok`, the JAX package's rule):
     chain kernel (`lk_fused_chain`) for all B trackers, in the AM's mode
     (SSD, NCC moments, ESM's J0 operand, multi-channel SSD) on dense taps
     from a window hoisted out of the iteration loop (per tracker with a
-    crop; the shared frame, read in place by every tracker, without). It
+    crop; the shared frame, read in place by every tracker, without; with
+    `update_multi`, each tracker's window of its own frame). It
     takes forward compositional LK and ESM with SSD or NCC, a matrix SSM,
     the self0/selft (and for SSD std) Hessians, no SPI, and gray or (SSD
     without ESM) 2-4-channel frames;
@@ -144,6 +145,33 @@ def _blur_windows(win: torch.Tensor, stride: int) -> torch.Tensor:
     return sum(float(k[j]) * fh[..., j:j + h, :] for j in range(len(k)))
 
 
+def _windows(frames: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+             hc: int, wc: int, pad: int = 0) -> torch.Tensor:
+    """Each tracker's window (B, C, hc + 2 pad, wc + 2 pad) of its own
+    frame of frames (B, H, W, C), from (x0 - pad, y0 - pad), with the
+    indices clamped into the frame (its replicate border)."""
+    b, h, w, _ = frames.shape
+    dev = frames.device
+    rows = (y0.long()[:, None] + torch.arange(-pad, hc + pad, device=dev)
+            ).clamp(0, h - 1)
+    cols = (x0.long()[:, None] + torch.arange(-pad, wc + pad, device=dev)
+            ).clamp(0, w - 1)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    return frames[bi, rows[:, :, None], cols[:, None, :]].permute(
+        0, 3, 1, 2).contiguous()
+
+
+def _blur_valid(ext: torch.Tensor, stride: int) -> torch.Tensor:
+    """`_blur2` of the frame, on a window read with the blur's radius of
+    margin (`_windows(..., pad)`): the same sums in the same order, so
+    the window of the blurred frame, bit for bit."""
+    k = _binomial(stride)
+    r = (k.shape[0] - 1) // 2
+    h, w = ext.shape[-2] - 2 * r, ext.shape[-1] - 2 * r
+    fh = sum(float(k[i]) * ext[..., i:i + w] for i in range(len(k)))
+    return sum(float(k[j]) * fh[..., j:j + h, :] for j in range(len(k)))
+
+
 def _homogeneous(base_pts: torch.Tensor) -> torch.Tensor:
     """(B, N, 2) -> (B, 3, N) homogeneous base points."""
     return W.homogenize(base_pts).transpose(1, 2).contiguous()
@@ -152,6 +180,22 @@ def _homogeneous(base_pts: torch.Tensor) -> torch.Tensor:
 def _bmv(g: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
     """(B, K) x (B, K, S) -> (B, S)."""
     return (g[:, None] @ J)[:, 0]
+
+
+def hess_contract(am, am_state, at_patch: torch.Tensor,
+                  J: torch.Tensor) -> torch.Tensor:
+    """(B, Q, Q) J^T (d2 similarity / d corrected-patch^2) J by one
+    Hessian-vector product per column of J (B, N·C, Q), at the corrected
+    patches `at_patch` (B, N, C)."""
+    shape = at_patch.shape
+
+    def g(pf):
+        return am.grad_corrected(am_state, pf.reshape(shape)).flatten(1)
+
+    p0 = at_patch.flatten(1)
+    cols = torch.func.vmap(lambda v: torch.func.jvp(g, (p0,), (v,))[1],
+                           in_dims=-1, out_dims=-1)(J)
+    return J.transpose(1, 2) @ cols
 
 
 class LKBase(SearchMethod):
@@ -235,7 +279,8 @@ class LKBase(SearchMethod):
         `need_grad`, their derivative (B, N, C, 2): from per-tracker
         windows (B, C, Hc, Wc) at pts - offset (dense taps), or from the
         shared frame (H, W[, C]) (dense taps in a `crop` window, or the
-        gather kinds)."""
+        gather kinds) or per-tracker frames (B, H, W, C) (the gather
+        kinds)."""
         if offset is not None:
             out = interp.sample_windows(
                 img, pts[..., 0] - offset[:, None, 0],
@@ -307,18 +352,7 @@ class LKBase(SearchMethod):
 
     def _hess_contract(self, am_state, at_patch: torch.Tensor,
                        J: torch.Tensor) -> torch.Tensor:
-        """(B, Q, Q) J^T (d2 similarity / d corrected-patch^2) J by one
-        Hessian-vector product per column of J (B, N·C, Q)."""
-        shape = at_patch.shape
-
-        def g(pf):
-            return self.am.grad_corrected(am_state,
-                                          pf.reshape(shape)).flatten(1)
-
-        p0 = at_patch.flatten(1)
-        cols = torch.func.vmap(lambda v: torch.func.jvp(g, (p0,), (v,))[1],
-                               in_dims=-1, out_dims=-1)(J)
-        return J.transpose(1, 2) @ cols
+        return hess_contract(self.am, am_state, at_patch, J)
 
     def _self_hessian(self, patch: torch.Tensor,
                       J: torch.Tensor) -> torch.Tensor:
@@ -502,6 +536,22 @@ class LKBase(SearchMethod):
                                    self.am.ilm.apply(patch, p_am))
 
     # -- full update ----------------------------------------------------
+    def _crop(self, state: TrackerState, h: int, w: int):
+        """The dense taps' window per tracker (x0 (B,), y0 (B,), hc, wc)
+        in a frame of (h, w), where the crop is smaller than the frame;
+        else None. One window for the whole update, from the points at
+        the pre-update state: the margin absorbs the motion."""
+        prm = self.prm
+        if not (self.dense and prm.crop is not None
+                and (prm.crop < h or prm.crop < w)):
+            return None
+        hc, wc = min(prm.crop, h), min(prm.crop, w)
+        pts0 = W.apply_warp(state.region.norm_mat, self.ssm.warp_pts(
+            state.ssm_state, state.region.base_pts))
+        return (interp.crop_origin(pts0[..., 0], wc, w, _CROP_MARGIN),
+                interp.crop_origin(pts0[..., 1], hc, h, _CROP_MARGIN),
+                hc, wc)
+
     def _views(self, state: TrackerState, frame: torch.Tensor, strides,
                fused: bool):
         """The images an update samples, per variant (the frame, then its
@@ -514,22 +564,14 @@ class LKBase(SearchMethod):
         from the blurred frame; the generic path blurs its windows, as the
         JAX package's does (the two differ only within a blur radius of a
         window's edge)."""
-        prm = self.prm
         h, w = frame.shape[:2]
         mc = frame.dim() == 3
         b = state.ssm_state.shape[0]
-        crop = self.dense and prm.crop is not None and (prm.crop < h
-                                                        or prm.crop < w)
+        crop = self._crop(state, h, w)
         variants = [frame] + [_blur2(frame, st) for st in strides
-                              if fused or not crop]
-        if crop:
-            hc, wc = min(prm.crop, h), min(prm.crop, w)
-            # one window per tracker for the whole update, from the points
-            # at the pre-update state; the margin absorbs the motion
-            pts0 = W.apply_warp(state.region.norm_mat, self.ssm.warp_pts(
-                state.ssm_state, state.region.base_pts))
-            x0 = interp.crop_origin(pts0[..., 0], wc, w, _CROP_MARGIN)
-            y0 = interp.crop_origin(pts0[..., 1], hc, h, _CROP_MARGIN)
+                              if fused or crop is None]
+        if crop is not None:
+            x0, y0, hc, wc = crop
             stk = torch.stack(variants)
             dev = frame.device
             rows = y0.long()[:, None] + torch.arange(hc, device=dev)
@@ -552,6 +594,41 @@ class LKBase(SearchMethod):
                 (b,) + (v.shape[2:3] if mc else ()) + (h, w))
                 for v in variants]
         return variants, kwins, None
+
+    def _views_multi(self, state: TrackerState, frames: torch.Tensor,
+                     strides, fused: bool):
+        """`_views` of per-tracker frames (B, H, W, C): the same images,
+        each tracker's read from its own frame. Where a crop applies, the
+        dense taps read windows (B, C, Hc, Wc) gathered from the frames,
+        each blurred variant on a margin of the blur's radius; else the
+        stack (B, C, H, W) itself and its blur, with offset 0, so the
+        chain kernel's window is the stack with no copy. The gather kinds
+        read the frames (B, H, W, C)."""
+        b, h, w, c = frames.shape
+        crop = self._crop(state, h, w)
+        if crop is None:
+            stack = frames.permute(0, 3, 1, 2)
+            blurs = [_blur_windows(stack, st) for st in strides]
+            if not self.dense:
+                return ([frames] + [v.permute(0, 2, 3, 1) for v in blurs],
+                        None, None)
+            # the stack itself for C = 1; one copy of it for C > 1
+            imgs = [stack.contiguous()] + blurs
+            offset = frames.new_zeros(b, 2)
+        else:
+            x0, y0, hc, wc = crop
+            imgs = [_windows(frames, x0, y0, hc, wc)]
+            if fused:
+                # every variant cropped from the blurred frame, as `_views`
+                imgs += [_blur_valid(_windows(
+                    frames, x0, y0, hc, wc, (len(_binomial(st)) - 1) // 2),
+                    st) for st in strides]
+            else:
+                imgs += [_blur_windows(imgs[0], st) for st in strides]
+            offset = torch.stack([x0, y0], dim=-1)
+        kwins = ([v[:, 0] if c == 1 else v for v in imgs]
+                 if fused else None)
+        return imgs, kwins, offset
 
     def _phases(self, state: TrackerState, cache: LKCache, imgs, kwins,
                 strides):
@@ -638,9 +715,22 @@ class LKBase(SearchMethod):
 
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
-        prm, am = self.prm, self.am
         frame = self._frame(frame)
-        fused = self._fused_ok(state, frame)
+        return self._track(state, self._fused_ok(state, frame),
+                           lambda strides, fused: self._views(
+                               state, frame, strides, fused))
+
+    def _update_multi(self, state: TrackerState,
+                      frames: torch.Tensor) -> TrackerState:
+        # the route is the one a shared frame of these frames' shape takes
+        fused = self._fused_ok(state, self._frame(frames[0]))
+        return self._track(state, fused, lambda strides, fused:
+                           self._views_multi(state, frames, strides, fused))
+
+    def _track(self, state: TrackerState, fused: bool,
+               views) -> TrackerState:
+        """The update on the images `views(strides, fused)` gives."""
+        prm, am = self.prm, self.am
         cache = state.extra
         if (not prm.coarse_pt_iters or not cache.coarse
                 or (not fused and state.spi_mask is not None)):
@@ -649,7 +739,7 @@ class LKBase(SearchMethod):
             cache = cache._replace(coarse=())
         strides = [st for (st, _), _ in zip(prm.coarse_pt_iters, cache.coarse)
                    if st > 1]
-        imgs, kwins, offset = self._views(state, frame, strides, fused)
+        imgs, kwins, offset = views(strides, fused)
         offs3 = None
         if fused:
             b = state.ssm_state.shape[0]

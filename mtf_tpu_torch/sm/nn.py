@@ -76,6 +76,17 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[b, idx]
 
 
+def _put(x: torch.Tensor, idx: torch.Tensor, fire: torch.Tensor,
+         new: torch.Tensor) -> torch.Tensor:
+    """x (B, K, ...) with rows idx (B, A) set to new (B, A, ...) where
+    fire (B,) is set."""
+    old = _rows(x, idx)
+    m = fire.view((-1,) + (1,) * (new.dim() - 1))
+    i = idx.view(idx.shape + (1,) * (x.dim() - 2)).expand(
+        idx.shape + x.shape[2:])
+    return x.scatter(1, i, torch.where(m, new, old))
+
+
 def build_knn_graph(feats: torch.Tensor, feats_sq: torch.Tensor, k: int,
                     block: int = 256) -> torch.Tensor:
     """kNN graph (B, K, k) of datasets feats (B, K, D): per block of rows
@@ -152,9 +163,11 @@ class NN(SearchMethod):
         B = state.ssm_state.shape[0]
         dps = self._draw_dps(state)
         bs = _CHUNK if self.prm.interp.endswith(interp.MM_SUFFIX) else 256
-        feats = torch.cat([self._feat_at(state.region, dps[:, i:i + bs],
+        mine = self._mine(dps)          # the samples this rank featurizes
+        feats = torch.cat([self._feat_at(state.region, mine[:, i:i + bs],
                                          frame)
-                           for i in range(0, K, bs)], dim=1)    # (B, K, D)
+                           for i in range(0, mine.shape[1], bs)],
+                          dim=1)                                # (B, K, D)
         # a patch that matches the template seen under dp is corrected by
         # dp^-1: store the inverses
         dps_inv = self.ssm.invert(dps)
@@ -165,6 +178,17 @@ class NN(SearchMethod):
         return NNState(feats=feats, feats_sq=feats_sq, dps=dps_inv,
                        ptr=zeros, frame_idx=zeros.clone(),
                        step=torch.zeros((), dtype=torch.int64), graph=graph)
+
+    # -- the dataset: all of it here; `ShardedNN` holds and searches its
+    # rank's samples
+    def _mine(self, dps: torch.Tensor) -> torch.Tensor:
+        """The samples (B, K', S) of the dataset's (B, K, S) whose
+        features this rank holds."""
+        return dps
+
+    def _put_feats(self, x, idx, fire, new):
+        """`_put` into this rank's features."""
+        return _put(x, idx, fire, new)
 
     def _best_idx(self, ns: NNState, q: torch.Tensor) -> torch.Tensor:
         """(B,) index of each tracker's nearest dataset sample to its
@@ -222,18 +246,12 @@ class NN(SearchMethod):
         idx = 1 + (ns.ptr[:, None].long()
                    + torch.arange(A, device=s_out.device)) % (K - 1)
         fire = (ns.frame_idx % nn.add_samples_gap) == 0       # (B,)
-
-        def put(x, new):
-            old = _rows(x, idx)
-            m = fire.view((-1,) + (1,) * (new.dim() - 1))
-            i = idx.view(idx.shape + (1,) * (x.dim() - 2)).expand(
-                idx.shape + x.shape[2:])
-            return x.scatter(1, i, torch.where(m, new, old))
-
-        feats = put(ns.feats, f_new)
-        feats_sq = put(ns.feats_sq, (f_new * f_new).sum(dim=-1))
+        feats = self._put_feats(ns.feats, idx, fire, f_new)
+        feats_sq = self._put_feats(ns.feats_sq, idx, fire,
+                                   (f_new * f_new).sum(dim=-1))
         new_extra = new_extra._replace(
-            feats=feats, feats_sq=feats_sq, dps=put(ns.dps, dp_inv),
+            feats=feats, feats_sq=feats_sq, dps=_put(ns.dps, idx, fire,
+                                                     dp_inv),
             ptr=ns.ptr + torch.where(fire, A, 0).to(ns.ptr.dtype))
         if nn.use_gnn:
             # reconnect the replaced nodes to their kNN in the updated
@@ -244,7 +262,8 @@ class NN(SearchMethod):
                  + feats_sq[:, None, :])                      # (B, A, K)
             d = d.scatter(2, idx[..., None], float("inf"))
             rows = torch.topk(-d, kk, dim=-1).indices
-            new_extra = new_extra._replace(graph=put(ns.graph, rows))
+            new_extra = new_extra._replace(graph=_put(ns.graph, idx, fire,
+                                                      rows))
         return new_extra
 
     # -- index persistence (NNParams.h:35-37 save_index / load_index) ---

@@ -180,14 +180,16 @@ class PF(SearchMethod):
                              self.pf.pix_sigma)
 
     def _particle_patches(self, region, states, frame, base_pts=None,
-                          pts_scale=None, crop=None):
+                          pts_scale=None, crop=None, extent=None):
         """(B, P, N, C) patches of particles (B, P, S) and their (B, P)
         validity. With a dense kind on a gray frame each tracker's
         particles sample one window of `crop` (None: `prm.crop`) anchored
         at the centre of its point cloud; a particle with a point outside
         it is invalid. `base_pts`: the template-frame points (default the
         region's grid); `pts_scale`: scales the image-frame points (the
-        downsampled scoring pass)."""
+        downsampled scoring pass); `extent`: maps the cloud's (4, B)
+        (min x, -max x, min y, -max y) to the one the window is anchored
+        on (`ShardedPF`: the whole population's, over every shard)."""
         if base_pts is None:
             base_pts = region.base_pts
         B, P = states.shape[:2]
@@ -204,8 +206,12 @@ class PF(SearchMethod):
             if crop is not None and (crop < h or crop < w):
                 hc, wc = min(crop, h), min(crop, w)
                 x, y = pts[..., 0], pts[..., 1]
-                cx = 0.5 * (x.amin(-1) + x.amax(-1))
-                cy = 0.5 * (y.amin(-1) + y.amax(-1))
+                ext = torch.stack([x.amin(-1), -x.amax(-1), y.amin(-1),
+                                   -y.amax(-1)])
+                if extent is not None:
+                    ext = extent(ext)
+                cx = 0.5 * (ext[0] - ext[1])
+                cy = 0.5 * (ext[2] - ext[3])
                 x0 = torch.clamp(torch.nan_to_num(
                     torch.floor(cx - 0.5 * wc), nan=0.0), 0.0, float(w - wc))
                 y0 = torch.clamp(torch.nan_to_num(
@@ -339,7 +345,7 @@ class PF(SearchMethod):
     def _propagate_measure(self, state, frame, noise, particles,
                            prev_particles, sig_p, am_prop=None):
         """Propagate and measure: (prop (B, P, S), log_lik (B, P),
-        valid (B, P))."""
+        valid (B, P)) of this rank's particles (`_mine`)."""
         ssm, pf = self.ssm, self.pf
         comp = pf.update_type == "compositional"
         if pf.dynamic_model == "ar1":
@@ -359,7 +365,7 @@ class PF(SearchMethod):
             frame_sc, pscale, crop_sc = self._score_frame(frame)
         patches, valid = self._particle_patches(
             region, prop, frame_sc, base_pts=bp, pts_scale=pscale,
-            crop=crop_sc)
+            crop=crop_sc, extent=self._extent)
         log_lik = self._log_lik(_particle_view(sc_st), patches, am=sc_am,
                                 p_am=am_prop)
         K = pf.rescore_top_k
@@ -379,6 +385,18 @@ class PF(SearchMethod):
             log_lik = torch.full_like(log_lik, _NEG).scatter(1, topi, ll_k)
             valid = torch.zeros_like(valid).scatter(1, topi, valid_k)
         return prop, log_lik, valid
+
+    # -- the particle population: all of it here; `ShardedPF` holds and
+    # measures its rank's rows and gathers the rest
+    _extent = None
+
+    def _mine(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's particles of a whole-population tensor."""
+        return x
+
+    def _all(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole population (B, P, ...) of this rank's (B, P', ...)."""
+        return x
 
     @staticmethod
     def _apply_window_mask(log_lik, valid):
@@ -400,15 +418,18 @@ class PF(SearchMethod):
             # the photometric random walk, one draw shared by the trackers
             am_prop = am_prop + torch.as_tensor(
                 self.pf.am_sigma, dtype=am_prop.dtype,
-                device=am_prop.device) * dr.am[None]
+                device=am_prop.device) * self._mine(dr.am)[None]
         prop, log_lik, valid = self._propagate_measure(
-            state, frame, dr.prop[None], ps.particles, ps.prev_particles,
-            sig_p, am_prop)
-        log_lik = self._apply_window_mask(log_lik, valid)
-        log_w = ps.log_weights + log_lik
+            state, frame, self._mine(dr.prop)[None], ps.particles,
+            ps.prev_particles, self._mine(sig_p, 1), am_prop)
+        # the tables below are small: the whole population's, on every rank
+        prop, am_prop = self._all(prop), self._all(am_prop)
+        log_lik = self._apply_window_mask(self._all(log_lik),
+                                          self._all(valid))
+        log_w = self._all(ps.log_weights) + log_lik
         log_w = log_w - torch.logsumexp(log_w, dim=-1, keepdim=True)
         prop, prev_out, am_prop, log_w, new_dlw, mean_state = self._finish(
-            state, prop, ps.particles, am_prop, log_w, d_idx,
+            state, prop, self._all(ps.particles), am_prop, log_w, d_idx,
             ps.distr_log_w, dr.u0)
         am_state = state.am_state
         if self._sample_am:
@@ -419,9 +440,11 @@ class PF(SearchMethod):
                 p_am=(w[..., None] * am_prop).sum(dim=1))
         new_am, new_score = self._learn_mean_patch(
             state, am_state, mean_state, frame, ps.score_am)
-        new_extra = PFState(particles=prop, prev_particles=prev_out,
-                            log_weights=log_w, step=ps.step + 1,
-                            distr_log_w=new_dlw, am_particles=am_prop,
+        new_extra = PFState(particles=self._mine(prop, 1),
+                            prev_particles=self._mine(prev_out, 1),
+                            log_weights=self._mine(log_w, 1),
+                            step=ps.step + 1, distr_log_w=new_dlw,
+                            am_particles=self._mine(am_prop, 1),
                             score_am=new_score)
         return state._replace(ssm_state=mean_state, am_state=new_am,
                               extra=new_extra)

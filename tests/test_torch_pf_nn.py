@@ -37,6 +37,7 @@ from mtf_tpu_torch.ssm import get_ssm as tget_ssm
 from mtf_tpu_torch.utils import synth as tsynth
 from test_torch_fleet import (CORNER_TOL, CORNERS, _scene, jax_init,
                               side_by_side)
+from test_torch_grid import jax_fit_indices, use_indices
 
 OFF_GRID = (CORNERS[:2] + np.float32([0.31, 0.27])).astype(np.float32)
 SHIFT = (1, 2)
@@ -433,12 +434,63 @@ def _leg_jax(name):
     _LEG[name] = out
 
 
+# -- pfrk and nnrk against a cascade of the JAX package's own parts ----------
+# Every JAX pfrk / nnrk update raises (its cascade reads the RKLT member's
+# corners with `image_corners`, which takes no composite state: ROADMAP
+# Queue 3, item 13), so the reference is the cascade it means, built from
+# the JAX parts: the PF or NN update, RKLT's `set_region` to its corners,
+# RKLT's update.
+RK_CFG = dict(BASE, max_iters=15, epsilon=0.0, grid_res=4, grid_patch_res=6,
+              grid_sub_iters=(1, 3), grid_n_hyps=16)
+CASCADE_RK = {"pfrk": dict(RK_CFG, pf_n_particles=P, pf_pix_sigma=1.0),
+              "nnrk": dict(RK_CFG, nn_n_samples=K, nn_pix_sigma=1.0)}
+_RK = {}
+
+
+def _rk_jax():
+    """One update of pfrk and of nnrk by the JAX parts, from the JAX init
+    (the RKLT step compiled once for both: their RKLT members are built
+    alike)."""
+    frame, f2 = _frames()
+    rk_step = None
+    for name, cfg in CASCADE_RK.items():
+        sm = jcreate(name, "ssd", "8", **cfg)
+        first, rk = sm.members
+        st = jax_init(types.SimpleNamespace(sm=sm), frame, OFF_GRID)
+        if rk_step is None:
+            rk_step = jax.jit(jax.vmap(lambda s, c, f: rk.update(
+                rk.set_region(s, c), f), in_axes=(0, 0, None)))
+        new0 = jax.jit(jax.vmap(first.update, in_axes=(0, None)))(
+            st.members[0], f2)
+        c = jnp.swapaxes(jax.vmap(first.corners)(new0), 1, 2)
+        new1 = rk_step(st.members[1], c, f2)
+        _RK[name] = (jax.tree.map(np.asarray, st),
+                     np.asarray(jax.vmap(rk.corners)(new1)))
+
+
+@pytest.mark.parametrize("name", list(CASCADE_RK))
+def test_stochastic_rklt_cascade_matches_jax_parts(name):
+    """pfrk and nnrk, one update from the JAX init on the JAX draws (the
+    PF's or NN's, and RANSAC's): within 0.05 px of the JAX package's PF
+    or NN update followed by its RKLT re-seated on those corners and
+    updated."""
+    st0, want = _RK[name]
+    sm = inject(tcreate(name, "ssd", "8", device="cpu", **CASCADE_RK[name]),
+                steps=1)
+    use_indices(sm.members[1].grid_sm, jax_fit_indices(1, n_hyps=16,
+                                                       n_pts=16))
+    st = sm.update(convert.to_torch(st0, device="cpu", sm=sm), _frames()[1])
+    got = sm.corners(st).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < CORNER_TOL
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax_refs(_one_torch_thread):
     """Every JAX reference of the module, computed side by side first
     (the longest first: each is mostly a trace and an XLA compile)."""
     _leg_frames()
-    side_by_side([functools.partial(_leg_jax, n) for n in LEGS]
+    side_by_side([_rk_jax] + [functools.partial(_leg_jax, n) for n in LEGS]
                  + [functools.partial(_sampler_jax, "sl3")]
                  + [functools.partial(_pf_jax, n) for n in PF_CASES]
                  + [functools.partial(_nn_jax, n) for n in NN_CASES]

@@ -207,3 +207,27 @@ def test_rklt_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcreate("rklt", "ssd", "8", **RKLT_CFG)
+
+
+def test_set_region_reports_the_new_corners(ref):
+    """ROADMAP Queue 3, item 14, decided as a fault of the reference:
+    after `set_region`, RKLT's `corners` are the new corners, as every
+    search method's are in both packages (`set_region` refits the SSM
+    state to them: MTF's `setRegion`, `ssm->setCorners`) and both members
+    are there. The JAX package's RKLT keeps the previous final corners in
+    `extra` (`mtf_tpu/sm/composite.py:231-235`), so its `corners` after
+    an update and a `set_region` still read the update's."""
+    new = (GRID_CORNERS + np.float32([3.3, -2.1])).astype(np.float32)
+    sm = _port()
+    st = sm.set_region(convert.to_torch(ref["states"][0], device="cpu",
+                                        sm=sm), torch.as_tensor(new))
+    np.testing.assert_allclose(sm.corners(st).numpy().transpose(0, 2, 1),
+                               new, atol=1e-3)
+    for m, ms in zip((sm.grid_sm, sm.templ_sm), st.members):
+        np.testing.assert_allclose(image_corners(m.ssm, ms).numpy(), new,
+                                   atol=1e-3)
+    j = jcreate("rklt", "ssd", "8", **RKLT_CFG)
+    jst = jax.vmap(j.set_region)(jax.tree.map(jnp.asarray, ref["states"][0]),
+                                 jnp.asarray(new))
+    np.testing.assert_array_equal(np.asarray(jax.vmap(j.corners)(jst)),
+                                  ref["corners"][0])
