@@ -22,9 +22,11 @@ and every other LK key and option on the path the JAX package's
 neighbour search (the pf500 and nn1k rows) with SSIM, MI and the other
 histogram AMs, and of slice 10: the hierarchical ESM, the linear
 predictor, the line tracker, RegNet, the SCV family and the illumination
-models:
+models, and of slice 12: the correlation filters, the learning trackers,
+DFT and TLD:
 
-  1. prints the card's name and power limit (nvidia-smi);
+  1. prints the card's name and power limit (nvidia-smi), and whether
+     `cv2` imports on the machine (slice 7's cv2 trackers);
   2. builds the kernel libraries from `mtf_tpu_torch/csrc/`, one nvcc per
      library, side by side: the chain kernel once per state size S in
      STATE_DIMS (30 instantiations each: K1 ssd, K2 ncc, K3 ssd_esm and
@@ -195,6 +197,21 @@ models:
      its `mc` key on FCLK, the sums, GB and RBF, PF with GB's photometric
      walk, lp, lpic, lpes (ssd_esm 10), hrch with FCLK (ssd:s2 10, ssd
      10), RegNet on the translation, NN on ZNCC's and DFM's features.
+ 18. slice 12 (`_slice12_phase`): the box trackers of `slice12_family` at
+     their JAX defaults on the scene: mosse, kcf and dsst (B = 1024; KCF
+     and DSST on fHOG), rct, mil, boost, strk, frg, dft (ESM on the
+     descriptor fields, the generic path) and tld (B = 256; its Median
+     Flow leg on the mf row's dense taps: K5 6 per update), each with its
+     exact launches, WARMUP updates and one timed window of STEPS
+     updates, one update under the profiler and the GT leg on the
+     homography's sequence (SLICE12_GT_READING_PX; SLICE12_GT_LOST for
+     the box trackers, which lose most trackers by LOST_PX in the JAX
+     package too); then 3 updates of each CF key with its other features
+     and of dft with FCLK on dense taps (`slice12_routing`: K4 on the
+     4-channel fields, 1-30 per update), and TLD's occlusion leg
+     (`_tld_occlusion`: `tests/test_tld.py`'s scene, box, trajectory and
+     occluder at B = 16; every tracker invalid while hidden, the
+     re-acquired count held to TLD_OCC_REACQUIRED).
  The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
@@ -831,6 +848,81 @@ def slice10_routing():
         "nn_zncc_feat": ("nn", "zncc", "8", nn, "gray", {}),
         "nn_dfm_feat": ("nn", "dfm", "8", nn, "gray", {}),
     })
+    return out
+
+
+# slice 12: the box trackers (the CF and learn families, DFT and TLD) at
+# each one's JAX defaults on the scene and the `_corners` boxes; the CF
+# fleets at B_CF, the others at B_BOX
+B_CF = 1024
+B_BOX = 256
+B_SLICE12_ROUTING = 16   # the 3-update routing runs of the other options
+# The GT leg of every slice-12 fleet is the headline's: the 6-frame
+# sequence drawn with the homography (a box tracker has no SSM of its
+# own), held by `gt_limit` of the JAX package's reading on the CPU over the
+# same leg (`scripts/port_slice12_reference_leg.py`): the first 8
+# trackers' mean where none of them is lost, else the whole fleet's
+# median and lost count (SLICE12_GT_LOST, `_gt_leg_lost`).
+# The readings (the first 8 trackers' mean; else the whole fleet's median
+# per frame averaged over the frames, and the lost count): dft 0.0465 px
+# (per frame 0.0491, 0.0505, 0.043, 0.0411, 0.0485), none lost; mosse
+# 1.1287 px (923 of 1,024 lost), kcf 1.3816 (992), dsst 1.0344 (931), rct
+# 1.4188 (251 of 256), mil 1.5046 (252), boost 1.5259 (252), strk 3.2726
+# (256), frg 1.6053 (254), tld 0.7243 (178): a box cannot follow the
+# sequence's shear and perspective, and the learn trackers step in whole
+# feature-frame pixels (1-2.5 image px).
+SLICE12_GT_READING_PX = {"dft": 0.0465}
+SLICE12_GT_LOST = {"mosse": (1.1287, 923), "kcf": (1.3816, 992),
+                   "dsst": (1.0344, 931), "rct": (1.4188, 251),
+                   "mil": (1.5046, 252), "boost": (1.5259, 252),
+                   "strk": (3.2726, 256), "frg": (1.6053, 254),
+                   "tld": (0.7243, 178)}
+SLICE12_GT_SSM = "8"
+# TLD's occlusion leg (`tests/test_tld.py`'s scene, box, trajectory and
+# pyramid): the target hidden by noise on frames 3-7
+TLD_OCC_CFG = dict(tld_canon_h=96, tld_canon_w=128, tld_levels=3)
+TLD_OCC_TRAJ = ((2, 1), (4, 2), (6, 3)) + ((8, 4),) * 6 + ((10, 5), (12, 6))
+TLD_OCC_HIDDEN = (3, 8)
+TLD_OCC_FINAL_PX = 12.0
+# Re-acquisition after the occluder turns on rounding (the Median Flow leg
+# tracks the noise): of the 16 boxes, the JAX package's lone trackers on
+# the CPU re-acquire 9 (10, 9 and 9 on the leg's frames 1, 2 and 3 ulps
+# up: 1, 2 and 0 trackers flip) and the port's fleet on the CPU 8 (1
+# flips; `scripts/port_slice12_reference_leg.py occlusion --nudge 3`). If
+# each tracker's outcome is an independent draw, the flips between two
+# runs estimate the variance of the difference of their counts; the
+# card's count is held to the JAX count less 3 standard deviations (as
+# `not_finite_limit`): (count, the most flips).
+TLD_OCC_REACQUIRED = (9, 2)
+
+
+def slice12_family():
+    """The slice-12 fleets: {name: (SM key, AM, SSM key, B, configuration,
+    launches per update by kernel)}. Each runs its JAX defaults; TLD's
+    Median Flow leg takes the mf row's dense taps and window (K5: 3 levels,
+    forward and back), DFT the default ESM on the generic path (no kernel,
+    as in the JAX package)."""
+    mf_cfg = grid_family()["mf"][3]
+    out = {k: (k, "ssd", "8", B_CF, {}, {}) for k in ("mosse", "kcf", "dsst")}
+    out.update({k: (k, "ssd", "8", B_BOX, {}, {})
+                for k in ("rct", "mil", "boost", "strk", "frg", "dft")})
+    out["tld"] = ("tld", "ssd", "8", B_BOX, dict(mf_cfg),
+                  {"grid_flow@linear": 6})
+    return out
+
+
+def slice12_routing():
+    """Every other slice-12 option, 3 updates each at B_SLICE12_ROUTING:
+    {name: (SM key, AM, SSM key, configuration, launches per update)}:
+    each CF key with its other features, and DFT with FCLK on dense taps,
+    which the JAX package's `_fused_ok` sends to the multi-channel chain
+    kernel (K4) on the 4-channel descriptor fields, once per iteration
+    until its done masks stop it (at most 30)."""
+    out = {f"{k}_{f}": (k, "ssd", "8", {"features": f}, {})
+           for k, f in (("mosse", "hog"), ("kcf", "gray"), ("dsst", "gray"))}
+    out["dft_fclk"] = ("dft", "ssd", "8",
+                       dict(dft_sm="fclk", interp="linear_mm"),
+                       {"ssd_mc": (1, 30)})
     return out
 
 
@@ -2351,9 +2443,11 @@ def _generic_phase(torch, tk, gf, card, dev, frame0, frame_d, frame3_d):
     return out
 
 
-def _profile_updates(torch, fleet, states, frame, n=PROFILED_UPDATES):
+def _profile_updates(torch, fleet, states, frame, n=PROFILED_UPDATES,
+                     top=0, label=""):
     """`n` updates under `torch.profiler`: (device ms of all kernels per
-    update, kernel launches per update, the states)."""
+    update, kernel launches per update, the states); with `top`, prints
+    the `top` kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2363,6 +2457,11 @@ def _profile_updates(torch, fleet, states, frame, n=PROFILED_UPDATES):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if top:
+        worst = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        print(f"{label}: top kernels by device ms per update: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x "
+            f"{e.count // n}" for e in worst[:top]))
     return device_ms, sum(e.count for e in kernels) / n, states
 
 
@@ -2575,6 +2674,159 @@ def _slice10_phase(torch, tk, gf, card, dev, frame0, frame_d, frame3_d):
         out[name] = {"B": B_SLICE10_ROUTING, "launches": got,
                      "wall_s": time.perf_counter() - t0}
         torch.cuda.empty_cache()
+    return out
+
+
+# -- slice 12: the box trackers ---------------------------------------------
+def _tld_scene():
+    """`tests/test_tld.py`'s scene: smoothed noise, 160 x 200, 0-255."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(3)
+    img = gaussian_filter(rng.standard_normal((160, 200)), 2.0)
+    return ((img - img.min()) / (img.max() - img.min()) * 255.0).astype(
+        np.float32)
+
+
+def tld_occlusion_boxes():
+    """`tests/test_tld.py`'s box and the B_SLICE12_ROUTING sub-pixel
+    offsets of the occlusion leg's trackers (B, 1, 2)."""
+    c0 = np.array([[60, 50], [110, 50], [110, 100], [60, 100]], np.float32)
+    return c0, np.random.default_rng(5).uniform(
+        -0.5, 0.5, (B_SLICE12_ROUTING, 1, 2)).astype(np.float32)
+
+
+def tld_occlusion_frame(scene, t, dxdy, occ):
+    """Frame t of the occlusion leg: the scene moved by dxdy, the target
+    covered by noise from `occ` on the frames of TLD_OCC_HIDDEN."""
+    dx, dy = dxdy
+    f = np.roll(np.roll(scene, dy, axis=0), dx, axis=1)
+    lo, hi = TLD_OCC_HIDDEN
+    if lo <= t < hi:
+        c = np.array([85.0, 75.0]) + [dx, dy]
+        x0, y0 = int(c[0] - 35), int(c[1] - 35)
+        h = min(70, 160 - max(0, y0))
+        w = min(70, 200 - max(0, x0))
+        f = f.copy()
+        f[max(0, y0):max(0, y0) + h, max(0, x0):max(0, x0) + w] = \
+            128.0 + 20 * occ.standard_normal((h, w))
+    return f
+
+
+def _tld_occlusion(torch, dev, card):
+    """TLD's occlusion leg at B_SLICE12_ROUTING trackers: `tests/test_tld.py`'s
+    box (each tracker's moved by a sub-pixel offset), trajectory and
+    occluder (noise over the target on frames TLD_OCC_HIDDEN). Every
+    tracker must go invalid on some hidden frame; as many as
+    TLD_OCC_REACQUIRED holds must be valid again on some later frame,
+    each of those ending within TLD_OCC_FINAL_PX of the target."""
+    from mtf_tpu_torch import create_tracker
+    scene = _tld_scene()
+    c0, offs = tld_occlusion_boxes()
+    target0 = np.array([85.0, 75.0]) + offs[:, 0]
+    sm = create_tracker("tld", device=dev, **TLD_OCC_CFG)
+    t0 = time.perf_counter()
+    st = sm.initialize(scene, c0[None] + offs)
+    occ = np.random.default_rng(9)
+    valid, errs = [], []
+    lo, hi = TLD_OCC_HIDDEN
+    for t, d in enumerate(TLD_OCC_TRAJ):
+        st = sm.update(st, tld_occlusion_frame(scene, t, d, occ))
+        valid.append(st.valid.cpu().numpy())
+        errs.append(np.linalg.norm(st.center.cpu().numpy()
+                                   - (target0 + d), axis=1))
+    valid, errs = np.stack(valid), np.stack(errs)
+    went = ~valid[lo:hi].all(0)
+    back = valid[hi:].any(0)
+    ref, flips = TLD_OCC_REACQUIRED
+    least = ref - int(np.ceil(3 * np.sqrt(flips)))
+    near = errs[-1][back] < TLD_OCC_FINAL_PX
+    print(f"tld occlusion leg B={B_SLICE12_ROUTING}: valid trackers per "
+          f"frame {valid.sum(1).tolist()} (hidden on frames {lo}-{hi - 1}); "
+          f"{int(went.sum())} went invalid while hidden, {int(back.sum())} "
+          f"re-acquired (at least {least}; the JAX package {ref}), their "
+          f"final error max {float(errs[-1][back].max(initial=0.0)):.3f} px "
+          f"(limit {TLD_OCC_FINAL_PX}) ({card})")
+    _check(went.all() and back.sum() >= least and near.all(),
+           f"tld occlusion leg: invalid while hidden {went.tolist()}, "
+           f"re-acquired {back.tolist()}, final errors "
+           f"{errs[-1].round(3).tolist()}")
+    return {"B": B_SLICE12_ROUTING, "valid_per_frame": valid.sum(1).tolist(),
+            "reacquired": int(back.sum()), "reacquired_least": least,
+            "jax_cpu_reacquired": ref,
+            "final_err_px_max": float(errs[-1][back].max(initial=0.0)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _slice12_phase(torch, tk, gf, card, dev, frame0, frame_d):
+    """Slice 12: the fleets of `slice12_family` through the entry points,
+    each with its exact launches per update: WARMUP updates and one timed
+    window of STEPS updates on the scene by the host clock, one update
+    under the profiler (device ms, busy share, launches; every state
+    tensor on the card), the GT leg on the homography's sequence
+    (SLICE12_GT_READING_PX, or SLICE12_GT_LOST by the median and the
+    trackers lost); then 3 updates of every other option
+    (`slice12_routing`) and TLD's occlusion leg (`_tld_occlusion`)."""
+    from mtf_tpu_torch.parallel import TrackerFleet
+    out = {}
+    for name, (key, am, ssm, b, cfg, expect) in slice12_family().items():
+        crn = _corners(b)
+        label = f"{name} ({key})"
+        t0 = time.perf_counter()
+        timing = {}
+        sm, fps, got = _fleet(torch, key, am, b, card, crn, frame_d, dev, tk,
+                              gf, expect, windows=1, cfg=cfg, label=label,
+                              ssm=ssm, timing=timing)
+        update_ms = 1e3 * b / fps
+        fleet = TrackerFleet(sm, donate=True)
+        states = fleet.update(fleet.initialize(frame_d, crn), frame_d)
+        dev_ms, launches, states = _profile_updates(torch, fleet, states,
+                                                    frame_d, n=1, top=3,
+                                                    label=label)
+        on_card = [x.is_cuda for x in torch.utils._pytree.tree_leaves(
+            states) if isinstance(x, torch.Tensor) and x.dim() > 0]
+        _check(all(on_card) and launches > 0,
+               f"{label}: a state tensor off the card, or no launch")
+        del fleet, states
+        row = {"B": b, "fps": fps, "update_ms": update_ms,
+               "init_s": timing["init_s"], "launches": got,
+               "device_ms_per_update": dev_ms,
+               "busy_share": dev_ms / update_ms,
+               "launches_per_update": launches}
+        print(f"{label}: init {timing['init_s']:.2f} s, update "
+              f"{update_ms:.2f} ms, {fps:.1f} frames/s, device {dev_ms:.2f} "
+              f"ms per update (busy share {dev_ms / update_ms:.3f}), "
+              f"{launches:.0f} launches per update ({card})")
+        if name in SLICE12_GT_LOST:
+            med_ref, lost_ref = SLICE12_GT_LOST[name][:2]
+            med, lost, gt, _ = _gt_leg_lost(sm, frame0, crn,
+                                            SLICE12_GT_LOST[name], label,
+                                            gt_ssm=SLICE12_GT_SSM)
+            row.update(gt_median_px=med, gt_median_limit_px=gt_limit(med_ref),
+                       lost=lost, lost_limit=lost_ref + int(np.ceil(
+                           LOST_MARGIN * b)), gt_px=gt,
+                       jax_cpu_median_px=med_ref, jax_cpu_lost=lost_ref)
+        else:
+            reading = SLICE12_GT_READING_PX[name]
+            gt, _ = _gt_leg(sm, frame0, crn, gt_limit(reading), label,
+                            gt_ssm=SLICE12_GT_SSM)
+            row.update(gt_px=gt, gt_limit_px=gt_limit(reading),
+                       jax_cpu_reading_px=reading)
+        row["wall_s"] = time.perf_counter() - t0
+        print(f"{label}: stage {row['wall_s']:.1f} s")
+        out[name] = row
+        del sm
+        torch.cuda.empty_cache()
+
+    crn = _corners(B_SLICE12_ROUTING)
+    for name, (key, am, ssm, cfg, expect) in slice12_routing().items():
+        t0 = time.perf_counter()
+        _, _, got = _fleet(torch, key, am, B_SLICE12_ROUTING, card, crn,
+                           frame_d, dev, tk, gf, expect, windows=0, cfg=cfg,
+                           label=f"{name} ({key})", ssm=ssm)
+        out[name] = {"B": B_SLICE12_ROUTING, "launches": got,
+                     "wall_s": time.perf_counter() - t0}
+    out["tld_occlusion"] = _tld_occlusion(torch, dev, card)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2872,6 +3124,11 @@ def main() -> int:
     card = smi.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    try:
+        import cv2
+        print(f"cv2 {cv2.__version__} imports (slice 7's cv2 trackers)")
+    except ImportError as e:
+        print(f"cv2 does not import: {e}")
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3148,6 +3405,12 @@ def main() -> int:
     slice10_s = time.perf_counter() - t10
     print(f"slice 10 phase: {slice10_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 12: the box trackers (CF, learn, DFT, TLD) --------------------
+    t12 = time.perf_counter()
+    slice12 = _slice12_phase(torch, tk, gf, card, dev, frame0, frame_d)
+    slice12_s = time.perf_counter() - t12
+    print(f"slice 12 phase: {slice12_s:.1f} s")
+    torch.cuda.empty_cache()
     # -- slice 11: the parallel layer ---------------------------------------
     t11 = time.perf_counter()
     parallel = _parallel_phase(torch, card)
@@ -3162,7 +3425,7 @@ def main() -> int:
         if res and res.get("launches"):
             k5_launches["linear"][name] = res["launches"].get(
                 "grid_flow@linear", 0)
-    for row_set in (generic, stochastic, slice10):
+    for row_set in (generic, stochastic, slice10, slice12):
         for name, row in row_set.items():
             for k, v in row.get("launches", {}).items():
                 if k.startswith("grid_flow@"):
@@ -3243,11 +3506,12 @@ def main() -> int:
                    "fclk_ssd_cubic": cubic["cubic"],
                    "fclk_ssd_cubic_bspl": cubic["cubic_bspl"],
                    **family, **ssm_fleets, **generic, **stochastic,
-                   **slice10},
+                   **slice10, **slice12},
         "raw_sum_rule": rule,
         "build_s": {k: v.seconds for k, v in libs.items()},
         "slice9_phase_s": slice9_s,
         "slice10_phase_s": slice10_s,
+        "slice12_phase_s": slice12_s,
         "parallel": parallel,
         "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,

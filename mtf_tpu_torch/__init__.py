@@ -26,7 +26,10 @@ tracker fleet; the grid tracker (pyramidal patch flow in the `warped`,
 RANSAC, LMedS, least squares or the median-flow similarity: Median
 Flow, or snapped to row and column lines: the line tracker), the
 sub-tracker grid, RKLT (the grid refined by ESM-LM, with SPI
-feedback), and the Cascade, Parallel and Pyramidal composites. Every
+feedback), and the Cascade, Parallel and Pyramidal composites; and the
+box trackers (the correlation filters MOSSE, KCF and DSST on gray or fHOG
+features, RCT, MIL, Boosting, Struck, FragTrack, DFT on the descriptor
+fields, and TLD). Every
 TPU kernel is a CUDA kernel: the chain-fused LK iteration
 (`csrc/lk_fused_chain.cu`) in all its modes and tap kinds, its
 precomputed-Jacobian form (`csrc/lk_fused_gn.cu`), and the grid flow

@@ -59,6 +59,22 @@ Layouts (JAX per tracker -> port, B leading; C channels, 1 for gray,
   RegNet extra (`RegNetState`): params, per layer (W (in, out), b (out,)),
   feat0 (D,), feat_scale () -> batched; the line tracker's extra is a
   grid's.
+
+The box trackers' states (`box_to_torch`, which `to_torch` calls for a
+state with a `center`) are read by their fields, each batched
+(B leading) with the tracker's tables built by the port from the same
+seed (RCT's measurement matrix, TLD's fern pairs): MOSSEState (center,
+base_sz (2,), scale (), num (res, res, C) complex64, den (res, res),
+psr ()), KCFState (alpha_f (res, res) complex64, model_x (res, res, C)),
+DSSTState (also snum (S, D) complex64, sden (S,)), RCTState (mu_pos,
+sg_pos, mu_neg, sg_neg (K,)), MILState (also sel (K,) int32 -> int64),
+BoostState (also alpha (K,)), StruckState (sv_x (budget, D), sv_beta,
+sv_pos, sv_valid (budget,); its `key`, never split in the JAX package,
+becomes `step`, 0), FragState (templ_hists (F, n_bins)) and TLDState
+(trk, the Median Flow leg's grid state, converted as above; valid ()
+bool, var_min (), fern_pos and fern_neg (T, 2^F), pos_set (KP, P),
+pos_valid (KP,), neg_set (KN, P), neg_valid (KN,), pos_ptr and neg_ptr
+() int32). DFT's state is its inner tracker's.
 """
 from __future__ import annotations
 
@@ -67,15 +83,19 @@ import torch
 
 from mtf_tpu_torch import _device
 from mtf_tpu_torch.am.base import AMState
+from mtf_tpu_torch.sm.cf import DSSTState, KCFState, MOSSEState
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
                                         ParallelSM, PyramidalSM)
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
 from mtf_tpu_torch.sm.grid import GridState, SubGridState
+from mtf_tpu_torch.sm.learn import (BoostState, FragState, MILState, RCTState,
+                                    StruckState)
 from mtf_tpu_torch.sm.lk import LKCache
 from mtf_tpu_torch.sm.lp import LPState
 from mtf_tpu_torch.sm.nn import NNState
 from mtf_tpu_torch.sm.pf import PFState
 from mtf_tpu_torch.sm.regnet import RegNetState
+from mtf_tpu_torch.sm.tld import TLDState
 from mtf_tpu_torch.ssm.projective import Homography
 
 
@@ -113,9 +133,53 @@ def _one_frame(prev, single: bool):
     return a[0]
 
 
+# the box trackers' states, told apart by a field of their own (the most
+# specific first)
+_BOX_STATES = (("fern_pos", TLDState), ("snum", DSSTState),
+               ("alpha_f", KCFState), ("num", MOSSEState),
+               ("sv_x", StruckState), ("templ_hists", FragState),
+               ("alpha", BoostState), ("sel", MILState),
+               ("mu_pos", RCTState))
+
+
+def box_to_torch(jstate, device=None, sm=None):
+    """A JAX box tracker's state (CF, learn or TLD; single or batched) ->
+    the port's batched state (see the module doc)."""
+    single = np.ndim(jstate.center) == 1
+    device = _device.resolve(device)
+    cls = next(c for f, c in _BOX_STATES if hasattr(jstate, f))
+
+    def leaf(name, x):
+        a = np.asarray(x)
+        if single:
+            a = a[None]
+        if np.iscomplexobj(a):
+            return torch.tensor(a.astype(np.complex64), device=device)
+        if a.dtype == np.bool_:
+            return torch.tensor(a, device=device)
+        if name == "sel":
+            return torch.tensor(a, dtype=torch.int64, device=device)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a, dtype=torch.int32, device=device)
+        return torch.tensor(a.astype(np.float32), device=device)
+
+    out = {}
+    for name in cls._fields:
+        if name == "step":
+            out[name] = torch.zeros((), dtype=torch.int64)
+        elif name == "trk":
+            out[name] = to_torch(jstate.trk, device,
+                                 None if sm is None else sm.mf)
+        else:
+            out[name] = leaf(name, getattr(jstate, name))
+    return cls(**out)
+
+
 def to_torch(jstate, device=None, sm=None):
     """JAX-layout numpy state (single or batched) -> port state; `sm`,
     the port's tracker, tells composites apart (see the module doc)."""
+    if hasattr(jstate, "center"):
+        return box_to_torch(jstate, device, sm)
     single = np.ndim(_ssm_state(jstate)) == 1
     device = _device.resolve(device)
 
@@ -227,7 +291,8 @@ def to_torch(jstate, device=None, sm=None):
 
 def to_numpy(state, squeeze: bool = False):
     """Port state -> numpy arrays in the JAX layout; `squeeze` drops the
-    batch axis of a one-tracker state."""
+    batch axis of a one-tracker state (a box tracker's state keeps the
+    port's fields: Struck's `step`, MIL's and Boosting's int64 `sel`)."""
     def n(x):
         a = x.detach().cpu().numpy()
         return a[0] if squeeze else a
@@ -280,6 +345,10 @@ def to_numpy(state, squeeze: bool = False):
                                     for pack in ex.coarse))
 
     def tracker(st, f=n):
+        if hasattr(st, "center"):
+            return st._replace(**{k: (tracker(v) if k == "trk" else
+                                      v.numpy() if k == "step" else n(v))
+                                  for k, v in st._asdict().items()})
         if isinstance(st, CompositeState):
             return CompositeState(tuple(tracker(m) for m in st.members),
                                   extra=tuple(n(x) for x in st.extra))

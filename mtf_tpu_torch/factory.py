@@ -73,6 +73,14 @@ nearest-neighbour search (`nn`, `nn1k` to `nn100k`, `gnn`, `fgnn`, and
 LK refiner (`pfic pffc pfes nnic nnfc nnes`) or RKLT (`pfrk nnrk`), the
 multi-layer `pfk*` / `nnk*` cascades and `pfsl3` (a PF on SL3 refined by
 FCLK) are built as the JAX factory builds them (`mtf_tpu/factory.py`).
+
+The box trackers: `mosse kcf dsst` (`CFParams` fields; KCF and DSST on
+fHOG by default), `rct mil boost bsr strk struck frg frag` (their
+parameter classes' fields), `dft` (`dft_sm`, default ESM, on the
+descriptor fields; `dft_sigma`) and `tld` (`tld_*`: `TLDParams` fields;
+its Median Flow leg takes the grid and SM options, as the JAX factory
+builds it). `feat`, `cmt` and the cv2 adapter keys wait for cv2 (ROADMAP
+Queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -80,16 +88,20 @@ from dataclasses import replace
 from typing import Any
 
 from mtf_tpu_torch.am import AMParams, get_am
+from mtf_tpu_torch.sm.cf import CF_REGISTRY, CFParams, get_cf_tracker
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
                                         PyramidalSM, RKLTParams)
 from mtf_tpu_torch.sm.core import SMParams
 from mtf_tpu_torch.sm.grid import GridParams, GridTracker, SubTrackerGrid
 from mtf_tpu_torch.sm.line import LineParams, LineTracker
+from mtf_tpu_torch.sm.learn import (DFT, LEARN_PARAMS, LEARN_REGISTRY,
+                                    get_learn_tracker)
 from mtf_tpu_torch.sm.lk import LM_KEYS, SM_LK_REGISTRY
 from mtf_tpu_torch.sm.lp import LP, LPParams
 from mtf_tpu_torch.sm.nn import NN, NNParams
 from mtf_tpu_torch.sm.pf import PF, PFParams
 from mtf_tpu_torch.sm.regnet import RegNet, RegNetParams
+from mtf_tpu_torch.sm.tld import TLD, TLDParams
 from mtf_tpu_torch.ssm import get_ssm
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
@@ -131,7 +143,15 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "lp_pix_sigma", "lp_ssm_sigma", "lp_ridge", "lp_n_stages",
               "lp_epsilon", "lp_ssm", "rg_n_samples", "rg_hidden",
               "rg_train_steps", "rg_max_iters", "rg_pix_sigma",
-              "rg_ssm_sigma", "line_conf_thresh"}
+              "rg_ssm_sigma", "line_conf_thresh",
+              # DFT: the registration SM on the descriptor fields
+              "dft_sm", "dft_sigma"}
+# the CF and learn trackers take their parameter classes' fields, and TLD
+# its `tld_`-prefixed ones (as the JAX factory reads them)
+_BOX_CFG = {**{k: set(CFParams.__dataclass_fields__) for k in CF_REGISTRY},
+            **{k: set(LEARN_PARAMS[c].__dataclass_fields__)
+               for k, c in LEARN_REGISTRY.items()},
+            "tld": {"tld_" + f for f in TLDParams.__dataclass_fields__}}
 
 GRID_KEYS = {"grid": None, "lms": "lmeds", "ransac": "ransac",
              "rnsc": "ransac"}
@@ -164,11 +184,15 @@ _PORTED_SM = (set(SM_LK_REGISTRY) | {"haclk"} | set(GRID_KEYS) | RKLT_KEYS
               | MF_KEYS | CASC_KEYS | PRL_KEYS | PYR_KEYS
               | set(CASCADE_SHORTHAND) | set(PF_SIZES) | NN_KEYS
               | STOCH_CASC_KEYS | {"pfsl3"} | HRCH_KEYS | set(LP_KEYS)
-              | GTRN_KEYS | {"regnet", "line"})
+              | GTRN_KEYS | {"regnet", "line", "dft"} | set(_BOX_CFG))
 
-# where each unported SM key is queued: "1c" is the rest of slice 3
+# where each unported SM key is queued
 _SLICE_OF_SM = {
-    "tld": "1c (its detection cascade, sm/tld.py: Queue 1, slice 7)",
+    "feat": "1, item 2 (sm/feature.py: cv2 detectors)",
+    "cmt": "1, item 2 (sm/cmt.py: cv2 keypoints)",
+    # the cv2 tracker adapters of `mtf_tpu/third_party.py`
+    **{k: "1, item 2 (third_party.py: cv2 tracker adapters)"
+       for k in ("csrt", "visp", "cv3")},
 }
 
 
@@ -325,17 +349,24 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     card)."""
     sm_key = sm.lower()
     if sm_key not in _PORTED_SM:
-        where = _SLICE_OF_SM.get(sm_key, "1, slice 7")
+        where = _SLICE_OF_SM.get(sm_key, "1, item 2")
         raise NotImplementedError(
             f"SM {sm!r} is not ported yet: it comes with ROADMAP Queue "
             f"{where}")
-    unknown = sorted(set(cfg) - _KNOWN_CFG)
+    unknown = sorted(set(cfg) - _KNOWN_CFG - _BOX_CFG.get(sm_key, set()))
     if unknown:
         raise NotImplementedError(
             f"options {unknown} are not ported yet: the PF, NN and other "
             "trackers' options, and the likelihood and histogram options "
             "of the AMs that read them (SSIM, MI, PF), come with their "
             "slices (ROADMAP Queue 1)")
+
+    # the correlation-filter and learn trackers: axis-aligned box trackers
+    # with no AM or SSM, built from their own parameter classes
+    if sm_key in CF_REGISTRY:
+        return get_cf_tracker(sm_key, device=device, **cfg)
+    if sm_key in LEARN_REGISTRY:
+        return get_learn_tracker(sm_key, device=device, **cfg)
 
     # a composite's members take its options, but not its own member
     # list or pyramid SM (a member of the same kind would recurse)
@@ -480,6 +511,25 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
                              gnn_k=int(cfg.get("gnn_k", 10)),
                              gnn_max_steps=int(cfg.get("gnn_max_steps", 32)))
         return NN(make_am(), make_ssm(), prm, nn_prm)
+    if sm_key == "dft":
+        # a registration SM on the 4-channel descriptor fields of the frame
+        inner = create_tracker(str(cfg.get("dft_sm", "esm")), "ssd", ssm,
+                               ilm, device=device,
+                               **{k: v for k, v in cfg.items()
+                                  if k not in ("dft_sm", "dft_sigma")})
+        return DFT(inner, sigma=float(cfg.get("dft_sigma", 1.5)))
+    if sm_key == "tld":
+        # a Median Flow leg on the similitude with SSD patches (the JAX
+        # factory's: median fusion, f2f flow, fb 2 px, 20 iterations on 3
+        # pyramid levels) and the detection cascade
+        gp = replace(_grid_params(cfg, "median"), flow="f2f",
+                     fb_err_px=float(cfg.get("grid_fb_err", 2.0)),
+                     sub_iters=int(cfg.get("grid_sub_iters", 20)),
+                     pyramid_levels=int(cfg.get("grid_pyramid_levels", 3)))
+        mf_leg = GridTracker(get_am("ssd", am_prm),
+                             get_ssm("4", device=device), prm, gp)
+        return TLD(mf_leg, TLDParams(**{k[4:]: v for k, v in cfg.items()
+                                        if k.startswith("tld_")}))
     if sm_key in MF_KEYS:
         # Median Flow (the reference's bundled TLD tracker core):
         # frame-to-frame pyramidal grid flow with forward-backward masking

@@ -731,3 +731,44 @@ def test_cuda_slice10_updates_match_cpu(cuda_device, key, kw):
             assert all(x.is_cuda for x in leaves)
     assert np.isfinite(out[0]).all()
     assert np.abs(out[0] - out[1]).max() < 0.05
+
+
+SLICE12_GPU_KEYS = {
+    "mosse": {}, "kcf": {}, "dsst": {}, "rct": {}, "mil": {}, "boost": {},
+    "bsr": {}, "strk": {}, "struck": {}, "frg": {}, "frag": {},
+    "dft": dict(dft_sm="fclk", resx=16, resy=16, max_iters=5, epsilon=0.0,
+                interp="linear_mm", crop=96),
+    "tld": dict(tld_canon_h=48, tld_canon_w=64, tld_levels=3,
+                interp="linear_mm", crop=96),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", sorted(SLICE12_GPU_KEYS))
+def test_cuda_slice12_key_updates(cuda_device, key):
+    """Each slice-12 key built on the card (its defaults, DFT's FCLK and
+    TLD at a cut pyramid, both on dense taps): one update, finite corners, every state tensor
+    on the card; DFT's FCLK launches the chain kernel's multi-channel
+    mode (K4) and TLD's Median Flow leg K5."""
+    from mtf_tpu_torch import create_tracker
+    rng = np.random.default_rng(0)
+    frame = _window(rng, 160)
+    f2 = np.roll(frame, (1, 2), (0, 1))
+    corners = np.array([[[50.3, 46.2], [100.3, 46.2], [100.3, 98.2],
+                         [50.3, 98.2]],
+                        [[60.1, 40.4], [110.1, 40.4], [110.1, 90.4],
+                         [60.1, 90.4]]], np.float32)
+    sm = create_tracker(key, "ssd", "8", device=cuda_device,
+                        **SLICE12_GPU_KEYS[key])
+    k4 = tk.lk_fused_chain_raw.launches.get("ssd_mc", 0)
+    k5 = gf.grid_flow.launches.get("linear", 0)
+    st = sm.update(sm.initialize(frame, corners), f2)
+    c = sm.corners(st)
+    assert c.shape == (2, 2, 4) and bool(torch.isfinite(c).all())
+    leaves = [x for x in torch.utils._pytree.tree_leaves(st)
+              if isinstance(x, torch.Tensor) and x.dim() > 0]
+    assert all(x.is_cuda for x in leaves)
+    if key == "dft":
+        assert tk.lk_fused_chain_raw.launches.get("ssd_mc", 0) > k4
+    if key == "tld":
+        assert gf.grid_flow.launches.get("linear", 0) > k5

@@ -554,7 +554,7 @@ def _same_build(t, j):
             assert len(getattr(t, name)) == len(getattr(j, name))
             for a, b in zip(getattr(t, name), getattr(j, name)):
                 _same_build(a, b)
-    for name in ("grid_sm", "templ_sm", "sm"):
+    for name in ("grid_sm", "templ_sm", "sm", "mf"):
         if hasattr(j, name):
             _same_build(getattr(t, name), getattr(j, name))
     for name in ("pf", "nn"):
@@ -606,16 +606,21 @@ def test_stochastic_keys_update(key, kw):
 
 
 @pytest.mark.parametrize("key,queue", [
-    ("hrch", None), ("hesm", None), ("tld", "Queue 1c"),
+    ("hrch", None), ("hesm", None),
+    pytest.param("tld", None, id="tld-Queue 1c"),
     ("regnet", None), ("lp", None)])
 def test_factory_rejects_the_rest(key, queue):
-    """Of the SM keys slice 9 left, only tld still raises, naming its
-    queue, and it is the only one `_SLICE_OF_SM` still names; hrch, hesm,
-    regnet and lp (slice 10) build as the JAX factory builds them, and so
+    """Of the SM keys slice 9 left, none raises now: hrch, hesm, regnet and
+    lp (slice 10) and tld (slice 12, its Median Flow leg checked too;
+    the case keeps its id) build as the JAX factory builds them, and so
     do the AMs and the ILM once unported there, and PF's photometric
-    sampling (which needs an ILM)."""
+    sampling (which needs an ILM). `_SLICE_OF_SM` names only the keys
+    that wait for cv2 (ROADMAP Queue 1, item 2)."""
     from mtf_tpu_torch import factory
-    assert set(factory._SLICE_OF_SM) == {"tld"}
+    assert set(factory._SLICE_OF_SM) == {"feat", "cmt", "csrt", "visp",
+                                         "cv3"}
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        tcreate("feat", "ssd", "8", device="cpu")
     if queue is not None:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
             tcreate(key, "ssd", "8", device="cpu")
