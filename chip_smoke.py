@@ -23,7 +23,8 @@ neighbour search (the pf500 and nn1k rows) with SSIM, MI and the other
 histogram AMs, and of slice 10: the hierarchical ESM, the linear
 predictor, the line tracker, RegNet, the SCV family and the illumination
 models, and of slice 12: the correlation filters, the learning trackers,
-DFT and TLD:
+DFT and TLD, and of slice 13: the user entry points (run_mtf, its fleet
+mode, the APIs, checkpoints, profiling, eval_suite):
 
   1. prints the card's name and power limit (nvidia-smi), and whether
      `cv2` imports on the machine (slice 7's cv2 trackers);
@@ -212,6 +213,26 @@ DFT and TLD:
      (`_tld_occlusion`: `tests/test_tld.py`'s scene, box, trajectory and
      occluder at B = 16; every tracker invalid while hidden, the
      re-acquired count held to TLD_OCC_REACQUIRED).
+ 19. slice 13 (`_slice13_phase`): the user entry points. It records a
+     480x640 8-bit PNG sequence of SLICE13_FRAMES frames and its MTF GT
+     file (`slice13_sequence`: the port's synth on the card, the scene's
+     SLICE13_BOX on the homography's random walk); runs
+     `mtf_tpu_torch.apps.run_mtf.main` in-process on it with
+     `--write_outputs --reinit_on_failure` for fclk/ssd, esm/ncc and
+     rklt/ssd at the bench configuration given as CLI pairs
+     (`slice13_legs`), each with its exact launches per update (K1 10,
+     K2 + K3 10, K3 10 and K5 2), its avg_mcd within `gt_limit` of the
+     JAX package's reading on the CPU and its failures equal to the JAX
+     count (SLICE13_JAX_READING), its artifacts read back through the
+     port's `utils.gt` and its state on the card; then the fleet mode
+     (`--synthetic --n_objs 16` under each protocol and a forced failure
+     path, against 16 single-object `run_single` runs on the same frames,
+     within SLICE13_FLEET_TOL_PX); pyMTF, pyMTF2 (two trackers; it prints
+     which frame reader it took) and a mex round trip against run_mtf's
+     fclk/ssd corners (SLICE13_API_TOL_PX); a fleet checkpointed mid-run
+     whose resumed update equals the uninterrupted one; a `Profiler`
+     section and a `trace` that must hold the chain kernel; and the
+     port's `eval_suite` at 20 frames, which must exit 0.
  The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
@@ -2830,6 +2851,356 @@ def _slice12_phase(torch, tk, gf, card, dev, frame0, frame_d):
     return out
 
 
+# -- slice 13: the user entry points ---------------------------------------
+SLICE13_FRAMES = 60      # the recorded sequence: 480x640 8-bit PNGs
+SLICE13_SIGMA = 0.008    # the random walk's step (synthetic_sequence)
+SLICE13_SEED = 13
+SLICE13_BOX = ((270.0, 190.0), (370.0, 190.0), (370.0, 290.0),
+               (270.0, 290.0))
+SLICE13_FLEET_OBJS = 16  # run_mtf --n_objs: the fleet protocol
+SLICE13_FLEET_FRAMES = 6
+SLICE13_FLEET_TOL_PX = 1e-4   # fleet against single-object runs
+SLICE13_API_FRAMES = 10  # frames the APIs track
+SLICE13_API_TOL_PX = 1e-4     # the APIs' corners against run_mtf's
+SLICE13_CKPT_AT = 5      # fleet updates before the checkpoint
+SLICE13_BUDGET_S = 60.0
+SLICE13_FLEET_SIGMA = "0.005"  # run_mtf's syn_sigma: 40x30-px regions
+# the three protocols, then the failure path forced (a threshold under the
+# tracking noise: every object fails, skips 2 frames and is re-initialised
+# into its fleet rows)
+SLICE13_PROTOCOLS = ("--reinit_on_failure", "--reinit_at_each_frame",
+                     "--reset_at_each_frame",
+                     "--reinit_on_failure --reinit_err_thresh 1e-6 "
+                     "--reinit_frame_skip 2")
+# the JAX package's run_mtf on the CPU over the same sequence, its PNGs
+# rendered on the CPU (`scripts/port_slice13_reference_leg.py`; the card
+# renders its own, `slice13_sequence`): (avg_mcd px, failures)
+SLICE13_JAX_READING = {"fclk_ssd": (0.05262000315775305, 0),
+                       "esm_ncc": (0.0378742128989454, 0),
+                       "rklt_ssd": (0.051280725684206364, 0)}
+
+
+def slice13_pairs(key: str) -> list:
+    """The bench configuration as run_mtf's CLI pairs
+    (`scripts/real_protocol.py:110-127`): `slice_cfg()`, and for rklt
+    `rklt_cfg()`."""
+    crop = CROP_RKLT if key == "rklt" else CROP
+    pairs = ["resx", str(RES), "resy", str(RES), "max_iters", str(MAX_ITERS),
+             "epsilon", "0", "interp", "linear_mm", "crop", str(crop),
+             "coarse_pt_iters", ",".join(f"{s}:{n}" for s, n in SCHEDULE)]
+    if key == "rklt":
+        pairs += ["grid_sub_iters", "1,8", "grid_coarse_stride", "2"]
+    return pairs
+
+
+def slice13_legs():
+    """run_mtf's legs on the recorded sequence: {name: (CLI pairs,
+    launches per update by kernel)}."""
+    return {
+        "fclk_ssd": (["sm", "fclk", "am", "ssd", "ssm", "8"]
+                     + slice13_pairs("fclk"), {"ssd": MAX_ITERS}),
+        "esm_ncc": (["sm", "esm", "am", "ncc", "ssm", "8"]
+                    + slice13_pairs("esm"), {"ncc_esm": MAX_ITERS}),
+        "rklt_ssd": (["sm", "rklt", "am", "ssd", "ssm", "8"]
+                     + slice13_pairs("rklt"),
+                     {"ssd_esm": MAX_ITERS,
+                      "grid_flow@linear": K5_PER_UPDATE}),
+    }
+
+
+def slice13_sequence(root: str, device):
+    """Record the slice-13 sequence under `root`: `seq13/frame%05d.png`
+    (8-bit gray, lossless) and its MTF GT file `seq13.txt`, rendered by
+    the port's `synthetic_sequence` on `device` (the scene, SLICE13_BOX
+    moving by the homography's random walk, SLICE13_SEED). -> (sequence
+    directory, GT path, GT (T, 4, 2))."""
+    import os
+
+    import cv2
+    import torch
+    from mtf_tpu_torch.ssm import get_ssm
+    from mtf_tpu_torch.utils import gt as gtio
+    from mtf_tpu_torch.utils.synth import synthetic_sequence
+    frames, gt = synthetic_sequence(
+        _scene(0), np.asarray(SLICE13_BOX, np.float32),
+        get_ssm("8", device=device), n_frames=SLICE13_FRAMES,
+        sigma_scale=SLICE13_SIGMA, seed=SLICE13_SEED)
+    u8 = torch.clamp(torch.round(frames), 0, 255).to(torch.uint8)
+    seq = os.path.join(root, "seq13")
+    os.makedirs(seq, exist_ok=True)
+    names = [f"frame{t + 1:05d}.png" for t in range(len(u8))]
+    for name, f in zip(names, u8.cpu().numpy()):
+        _check(cv2.imwrite(os.path.join(seq, name), f), f"cannot write {name}")
+    gt_path = os.path.join(root, "seq13.txt")
+    gtio.write_corners_file(gt_path, gt, names)
+    return seq, gt_path, np.asarray(gt, np.float32)
+
+
+def _on_card(torch, state) -> bool:
+    return all(x.is_cuda for x in torch.utils._pytree.tree_leaves(state)
+               if isinstance(x, torch.Tensor) and x.dim() > 0)
+
+
+def _slice13_leg(torch, tk, gf, name, pairs, expect, seq, gt_path, tmp):
+    """One run_mtf leg on the recorded sequence, in-process, with
+    `--write_outputs --reinit_on_failure`: its exact launches per update,
+    its avg_mcd and failures against the JAX reading, its artifacts read
+    back through the port's `utils.gt`, its state on the card."""
+    import os
+
+    from mtf_tpu_torch.apps import run_mtf
+    from mtf_tpu_torch.utils import gt as gtio
+    out_dir = os.path.join(tmp, f"log_{name}")
+    _zero_counts(tk, gf)
+    fps, avg = run_mtf.main(["--seq", seq, "--gt", gt_path, "--write_outputs",
+                             "--reinit_on_failure", "--out_dir", out_dir]
+                            + pairs)
+    counts = _counts(tk, gf)
+    MAIN_PATH_LAUNCHES.update(counts)
+    run = dict(run_mtf.LAST_RUN)
+    n_up = run["updates"]
+    for k, got in counts.items():
+        want = expect.get(k, 0)
+        _check(got == want * n_up, f"run_mtf {name}: {k} launched {got} "
+               f"times in {n_up} updates (expected {want} per update)")
+    jax_avg, jax_fail = SLICE13_JAX_READING[name]
+    limit = gt_limit(jax_avg)
+    _check(np.isfinite(avg) and avg <= limit,
+           f"run_mtf {name}: avg_mcd {avg} px (limit {limit}, JAX {jax_avg})")
+    _check(run["failures"] == jax_fail, f"run_mtf {name}: {run['failures']} "
+           f"failures (JAX {jax_fail})")
+    sm, am, ssm = pairs[1], pairs[3], pairs[5]
+    base = os.path.join(out_dir, f"seq13_{sm}_{am}_{ssm}")
+    tracked = gtio.read_corners_file(base + ".txt")
+    errs = gtio.read_errors_file(base + ".err")
+    th, sr = gtio.read_sr_file(base + ".sr")
+    stats = gtio.read_tracking_stats(os.path.join(out_dir,
+                                                  "tracking_stats.txt"))
+    _check(tracked.shape == run["tracked"].shape
+           and np.abs(tracked - run["tracked"]).max() <= 1e-3
+           and len(errs) == SLICE13_FRAMES - 1
+           and np.allclose(errs, run["errors"], atol=1e-5, equal_nan=True)
+           and len(th) == len(sr) == 100 and stats[-1] == run["summary"],
+           f"run_mtf {name}: an artifact does not read back")
+    _check(_on_card(torch, run["state"]), f"run_mtf {name}: a state "
+           "tensor off the card")
+    row = {"fps": fps, "update_ms": 1e3 / fps, "avg_mcd": avg,
+           "failures": run["failures"], "updates": n_up,
+           "launches": {k: counts[k] for k in expect},
+           "jax_cpu_avg_mcd": jax_avg, "jax_cpu_failures": jax_fail,
+           "limit_px": limit}
+    print(f"run_mtf {name}: {run['summary']}; {n_up} updates, launches "
+          + ", ".join(f"{k} {counts[k]}" for k in expect)
+          + f"; JAX avg_mcd {jax_avg} failures {jax_fail}, limit {limit}")
+    return row, run
+
+
+def _slice13_fleet(torch, dev):
+    """run_mtf --synthetic --n_objs 16 under each protocol, against 16
+    single-object protocol runs (`run_mtf.run_single`) on the same frames:
+    per-object errors within SLICE13_FLEET_TOL_PX (the JAX package's own
+    claim, `tests/test_fleet_protocol.py:30`)."""
+    import contextlib
+    import io
+
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.apps import run_mtf
+    from mtf_tpu_torch.utils.config import read_params
+    pairs = (["sm", "fclk", "am", "ssd", "ssm", "8"] + slice13_pairs("fclk")
+             + ["syn_sigma", SLICE13_FLEET_SIGMA])
+    out = {}
+    for proto in SLICE13_PROTOCOLS:
+        argv = ["--synthetic", "--n_objs", str(SLICE13_FLEET_OBJS),
+                "--n_frames", str(SLICE13_FLEET_FRAMES)] + proto.split() \
+            + pairs
+        fps, _ = run_mtf.main(argv)
+        fleet = dict(run_mtf.LAST_RUN)
+        args, extra = run_mtf.build_argparser().parse_known_args(argv)
+        cfg = read_params(None, extra)
+        keys = tuple(str(cfg.pop(k)) for k in ("sm", "am", "ssm"))
+        tracker = create_tracker(*keys, device=dev, **cfg)
+        frames, gt = run_mtf.synthetic_input(
+            SLICE13_FLEET_OBJS, SLICE13_FLEET_FRAMES, cfg, keys[2], dev)
+        frames = [frames[i] for i in range(len(frames))]
+        worst = 0.0
+        for i in range(SLICE13_FLEET_OBJS):
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_mtf.run_single(args, tracker, frames, gt[:, i], gt[0, i],
+                                   "synthetic", keys)
+            single = run_mtf.LAST_RUN["errors"]
+            fe = fleet["errors"][:, i]
+            _check(np.array_equal(np.isnan(single), np.isnan(fe)),
+                   f"fleet {proto}: object {i}'s skipped frames differ")
+            ok = ~np.isnan(fe)
+            worst = max(worst, float(np.abs(single[ok] - fe[ok]).max(
+                initial=0.0)))
+        fails = int(np.isnan(fleet["errors"]).sum())
+        _check(worst <= SLICE13_FLEET_TOL_PX, f"fleet {proto}: per-object "
+               f"errors {worst} px from the single runs (limit "
+               f"{SLICE13_FLEET_TOL_PX})")
+        _check(("1e-6" in proto) == (fleet["failures"] > 0),
+               f"fleet {proto}: {fleet['failures']} failures")
+        print(f"run_mtf fleet {proto}: {fleet['summary']}; against "
+              f"{SLICE13_FLEET_OBJS} single runs {worst:.3g} px")
+        name = "forced_failures" if "1e-6" in proto else proto.lstrip("-")
+        avg = fleet["avg_err"]
+        out[name] = {"obj_fps": fps,
+                     "avg_mcd": avg if np.isfinite(avg) else None,
+                     "failures": fleet["failures"], "skipped": fails,
+                     "vs_single_px": worst}
+    return out
+
+
+def _slice13_apis(torch, seq, gt, tracked):
+    """pyMTF, pyMTF2 and one mex round trip on the recorded sequence, each
+    against run_mtf's fclk/ssd corners on the same frames."""
+    from mtf_tpu_torch import api, api2, api_mex
+    from mtf_tpu_torch.utils.input import get_input
+    cfg = slice_cfg()
+    keys = dict(sm="fclk", am="ssd", ssm="8")
+    frames = [f for _, f in zip(range(SLICE13_API_FRAMES + 1),
+                                get_input(seq))]
+    c0 = gt[0].T                                              # (2, 4)
+    worst = {}
+
+    def held(label, got, t):
+        e = float(np.abs(np.asarray(got).T - tracked[t - 1]).max())
+        worst[label] = max(worst.get(label, 0.0), e)
+
+    tid = api.create(frames[0], c0, **keys, **cfg)
+    for t in range(1, SLICE13_API_FRAMES + 1):
+        held("api", api.getRegion(frames[t], tid), t)
+    api.setRegion(gt[SLICE13_API_FRAMES].T, tid)
+    _check(np.isfinite(api.getRegion(frames[-1], tid)).all(),
+           "api: corners not finite after setRegion")
+    api.remove(tid)
+    _check(tid not in api.getTrackerIds(), "api: remove left the tracker")
+
+    _check(api2.init(seq), "api2: init read no frame")
+    reader = api2.reader()
+    ids = api2.createTrackers([c0, c0], **keys, **cfg)
+    for t in range(1, SLICE13_API_FRAMES + 1):
+        _check(api2.step(), f"api2: no frame {t}")
+        for k in ids:
+            held("api2", api2.getRegion(k), t)
+    api2.quit()
+
+    ok, = api_mex.mex("init", seq)
+    ok2, mid = api_mex.mex("create_tracker", c0, *[
+        x for k, v in {**keys, **cfg}.items() for x in (k, v)])
+    ok3, got = api_mex.mex("get_region", mid)
+    held("mex", got, 1)
+    ok4, = api_mex.mex("quit")
+    _check(ok and ok2 and ok3 and ok4, "mex: a command failed")
+    _check(max(worst.values()) <= SLICE13_API_TOL_PX, f"APIs against "
+           f"run_mtf: {worst} px (limit {SLICE13_API_TOL_PX})")
+    print(f"APIs against run_mtf's fclk/ssd corners: {worst} px; api2's "
+          f"reader: {reader}")
+    return {"vs_run_mtf_px": worst, "api2_reader": reader}
+
+
+def _slice13_checkpoint_profile(torch, dev, seq, tmp):
+    """Checkpoint a fleet mid-sequence and resume it (the next update
+    equal to the uninterrupted one, every leaf); then `Profiler.section`
+    with `sync` and `trace` around one update each."""
+    import os
+
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.parallel import TrackerFleet
+    from mtf_tpu_torch.utils import checkpoint, profiling
+    from mtf_tpu_torch.utils.input import get_input
+    frames = [torch.as_tensor(f, device=dev) for _, f in
+              zip(range(SLICE13_CKPT_AT + 3), get_input(seq))]
+    crn = _corners(16)
+    fleet = TrackerFleet(create_tracker("fclk", "ssd", "8", device=dev,
+                                        **slice_cfg()))
+    states = fleet.initialize(frames[0], crn)
+    for t in range(1, SLICE13_CKPT_AT + 1):
+        states = fleet.update(states, frames[t])
+    path = os.path.join(tmp, "ckpt", "fleet.npz")
+    checkpoint.save_fleet(path, states)
+    resumed = checkpoint.load_fleet(path, fleet.initialize(frames[0], crn))
+    nxt = SLICE13_CKPT_AT + 1
+    a = torch.utils._pytree.tree_leaves(fleet.update(states, frames[nxt]))
+    b = torch.utils._pytree.tree_leaves(fleet.update(resumed, frames[nxt]))
+    exact = len(a) == len(b) and all(
+        (x is None and y is None) or (x.device == y.device and
+                                      torch.equal(x, y))
+        for x, y in zip(a, b))
+    _check(exact, "checkpoint: the resumed update differs")
+    prof = profiling.Profiler()
+    with prof.section("fleet_update", sync=states):
+        states = fleet.update(states, frames[nxt])
+    times = prof.write(os.path.join(tmp, "log", "times.txt"))
+    with open(times) as f:
+        _check(f.read().startswith("fleet_update n=1 "),
+               "profiling: no fleet_update line")
+    with profiling.trace(os.path.join(tmp, "trace")) as trace_dir:
+        states = fleet.update(states, frames[nxt + 1])
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = f.read()
+    kernels = trace.count('"cat": "kernel"')
+    _check("lk_fused_chain" in trace and kernels > 0,
+           "profiling: the trace holds no chain-kernel launch")
+    print(f"checkpoint: resumed update equal; Profiler section "
+          f"{prof.summary()['fleet_update']['mean_ms']:.3f} ms; trace "
+          f"{len(trace)} B, {kernels} kernel events")
+    return {"resumed_exact": exact, "trace_kernel_events": kernels,
+            "section_ms": prof.summary()["fleet_update"]["mean_ms"]}
+
+
+def _slice13_phase(torch, tk, gf, card, dev):
+    """Slice 13: the user entry points on the card. Record the sequence;
+    run_mtf's three legs (fclk/ssd K1, esm/ncc K2 + K3, rklt/ssd K5 + K3)
+    in-process with `--write_outputs --reinit_on_failure`; the fleet
+    protocol against single runs; the APIs; a checkpoint and the
+    profiler; the port's eval_suite at 20 frames. Each check fails the
+    run. Each stage's seconds are kept; SLICE13_BUDGET_S is the aim of the
+    stages before eval_suite, whose generic MI and CCRE legs alone take
+    longer (`PERF.md` §5)."""
+    import tempfile
+
+    from mtf_tpu_torch.apps import eval_suite
+    t0 = time.perf_counter()
+    out, stages = {}, {}
+
+    def lap(name, t_prev):
+        now = time.perf_counter()
+        stages[name] = now - t_prev
+        return now
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, gt_path, gt = slice13_sequence(tmp, dev)
+        t = lap("record", t0)
+        tracked = None
+        for name, (pairs, expect) in slice13_legs().items():
+            out[name], run = _slice13_leg(torch, tk, gf, name, pairs, expect,
+                                          seq, gt_path, tmp)
+            if name == "fclk_ssd":
+                tracked = run["tracked"]
+        t = lap("run_mtf_legs", t)
+        _check(out["fclk_ssd"]["failures"] == 0, "run_mtf fclk_ssd failed "
+               "on the sequence, so the APIs have no corners to meet")
+        out["fleet"] = _slice13_fleet(torch, dev)
+        t = lap("fleet_protocol", t)
+        out["apis"] = _slice13_apis(torch, seq, gt, tracked)
+        t = lap("apis", t)
+        out["checkpoint"] = _slice13_checkpoint_profile(torch, dev, seq, tmp)
+        t = lap("checkpoint_profile", t)
+    rc = eval_suite.main(["--n_frames", "20"])
+    lap("eval_suite", t)
+    _check(rc == 0, "eval_suite: a configuration missed its budget")
+    out["stages_s"] = stages
+    out["phase_s"] = time.perf_counter() - t0
+    before_suite = out["phase_s"] - stages["eval_suite"]
+    print(f"slice-13 stages: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in stages.items())
+          + f"; {before_suite:.1f} s before eval_suite (aim "
+          f"{SLICE13_BUDGET_S} s) ({card})")
+    return out
+
+
 # -- slice 11: the parallel layer ----------------------------------------
 B_SCALING = 64           # bench.py's strong-scaling row: 64 trackers
 SCALING_WIDTHS = (1, 2, 4, 8)
@@ -3411,6 +3782,12 @@ def main() -> int:
     slice12_s = time.perf_counter() - t12
     print(f"slice 12 phase: {slice12_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 13: run_mtf, the fleet protocol, the APIs, eval_suite ---------
+    t13 = time.perf_counter()
+    slice13 = _slice13_phase(torch, tk, gf, card, dev)
+    slice13_s = time.perf_counter() - t13
+    print(f"slice 13 phase: {slice13_s:.1f} s")
+    torch.cuda.empty_cache()
     # -- slice 11: the parallel layer ---------------------------------------
     t11 = time.perf_counter()
     parallel = _parallel_phase(torch, card)
@@ -3425,6 +3802,8 @@ def main() -> int:
         if res and res.get("launches"):
             k5_launches["linear"][name] = res["launches"].get(
                 "grid_flow@linear", 0)
+    k5_launches["linear"]["run_mtf rklt_ssd"] = (
+        slice13["rklt_ssd"]["launches"]["grid_flow@linear"])
     for row_set in (generic, stochastic, slice10, slice12):
         for name, row in row_set.items():
             for k, v in row.get("launches", {}).items():
@@ -3512,6 +3891,8 @@ def main() -> int:
         "slice9_phase_s": slice9_s,
         "slice10_phase_s": slice10_s,
         "slice12_phase_s": slice12_s,
+        "slice13": slice13,
+        "slice13_phase_s": slice13_s,
         "parallel": parallel,
         "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,

@@ -35,6 +35,11 @@ TPU kernel is a CUDA kernel: the chain-fused LK iteration
 precomputed-Jacobian form (`csrc/lk_fused_gn.cu`), and the grid flow
 (`csrc/grid_flow.cu`), all iterations of a pyramid level for every
 patch in one launch, with linear or cubic taps.
+
+The user entry points are ported too: `apps.run_mtf` (the evaluation
+protocol of runMTF), `apps.eval_suite`, pyMTF (`api`), pyMTF2 (`api2`),
+the mex front end (`api_mex`), `video_capture` and `utils/` (config,
+metrics, GT files, datasets, frame input, viz, checkpoints, profiling).
 """
 import torch
 

@@ -50,11 +50,14 @@ B-spline) or the gather kinds "nearest", "linear", "cubic" and
 frames are (H, W) or (H, W, C). The AM keys "mc<am>" and "<am>3" take
 (H, W, 3) frames. The composites (`casc`, `prl`, `pyr` and their
 aliases, the shorthands `grfc`, `gres` and `gric`) build their members
-with this function, from the same options. The tracker lives on the card
+with this function, from the same options; `casc` and `prl` take them
+from `members` or from the blocks of a multi.cfg (`multi_cfg=<path or
+text>`, `create_trackers_from_multi`). The tracker lives on the card
 unless `device` says otherwise (`device="cpu"` for a CPU run); without a
-card and without `device` it raises. Keys and options outside the ported
-slices raise `NotImplementedError` naming the ROADMAP queue that brings
-them.
+card and without `device` it raises. Keys outside the ported slices, and
+the options of the JAX package the port has not ported, raise
+`NotImplementedError` naming the ROADMAP item that brings them; an option
+that neither package reads is ignored (`_check_options`).
 
 The AMs are every key of the JAX package's registry (SSD, NSSD, ZNCC,
 SAD, NCC, SSIM, SPSS, MI, CCRE, KLD, LKLD, SCV, RSCV, LSCV, LRSCV, RIU,
@@ -103,6 +106,7 @@ from mtf_tpu_torch.sm.pf import PF, PFParams
 from mtf_tpu_torch.sm.regnet import RegNet, RegNetParams
 from mtf_tpu_torch.sm.tld import TLD, TLDParams
 from mtf_tpu_torch.ssm import get_ssm
+from mtf_tpu_torch.utils.config import read_multi_cfg
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "border", "crop", "coarse_pt_iters", "hess_type", "jac_type",
@@ -146,6 +150,9 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "rg_ssm_sigma", "line_conf_thresh",
               # DFT: the registration SM on the descriptor fields
               "dft_sm", "dft_sigma"}
+# options the JAX package reads that the port has not ported: each raises
+# where it is set to anything but its JAX default (ROADMAP Queue 1, slice 8)
+_UNPORTED_CFG = ("crop_blocks", "interp_bf16", "interp_precision")
 # the CF and learn trackers take their parameter classes' fields, and TLD
 # its `tld_`-prefixed ones (as the JAX factory reads them)
 _BOX_CFG = {**{k: set(CFParams.__dataclass_fields__) for k in CF_REGISTRY},
@@ -330,16 +337,63 @@ def _casc_thresh(cfg: dict):
     return float(v) if v is not None else None
 
 
-def _members(sm_key: str, cfg: dict) -> list:
+def _members(sm_key: str, cfg: dict, ilm, device) -> list:
+    """A composite's member trackers: from `members` [(sm, am, ssm), ...]
+    or, without it, one per block of the multi.cfg `multi_cfg` (a path or
+    the text; `create_trackers_from_multi`, each block on the
+    composite's other options)."""
     members = cfg.get("members")
-    if "multi_cfg" in cfg:
-        raise NotImplementedError(
-            "multi_cfg (members from a multi.cfg file) is not ported yet: "
-            "it needs utils/config, which comes with ROADMAP Queue 1, "
-            "slice 8")
+    if not members and "multi_cfg" in cfg:
+        base = {k: v for k, v in cfg.items() if k != "multi_cfg"}
+        return create_trackers_from_multi(cfg["multi_cfg"], device=device,
+                                          **base)
     if not members:
-        raise ValueError(f"{sm_key} requires members=[(sm, am, ssm), ...]")
-    return list(members)
+        raise ValueError(f"{sm_key} requires members=[(sm, am, ssm), ...] "
+                         "or multi_cfg=<path>")
+    # a composite's members take its options, but not its own member list
+    sub_cfg = {k: v for k, v in cfg.items()
+               if k not in ("members", "pyr_sm", "multi_cfg")}
+    return [create_tracker(m_sm, m_am, m_ssm, ilm, device=device, **sub_cfg)
+            for (m_sm, m_am, m_ssm) in members]
+
+
+def create_trackers_from_multi(path_or_text: str, device=None, **base_cfg):
+    """One tracker per multi.cfg block (readTrackerParams analog): each
+    block's `sm`, `am`, `ssm` and `ilm` (defaults fclk, ssd, 8, none) on
+    `base_cfg` updated by the block's other keys."""
+    trackers = []
+    for block in read_multi_cfg(path_or_text):
+        merged = {**base_cfg, **block}
+        sm = str(merged.pop("sm", "fclk"))
+        am = str(merged.pop("am", "ssd"))
+        ssm = str(merged.pop("ssm", "8"))
+        ilm = merged.pop("ilm", None)
+        ilm = None if ilm in (None, 0, "0", "none") else str(ilm)
+        merged.pop("members", None)
+        trackers.append(create_tracker(sm, am, ssm, ilm, device=device,
+                                       **merged))
+    return trackers
+
+
+def _check_options(sm_key: str, cfg: dict) -> None:
+    """The options rule: an option of the JAX package that the port has
+    not ported raises naming its ROADMAP item; an option of another
+    tracker's vocabulary (a box tracker's fields on any other tracker)
+    raises; an option that neither package reads (a run's `syn_sigma`,
+    `pre_proc_type`, the rest of a reference .cfg directory) is ignored,
+    as the JAX factory ignores it."""
+    unported = sorted(k for k in _UNPORTED_CFG if cfg.get(k))
+    if unported:
+        raise NotImplementedError(
+            f"options {unported} are not ported yet: they come with "
+            "ROADMAP Queue 1, slice 8 (options)")
+    own = _KNOWN_CFG | _BOX_CFG.get(sm_key, set())
+    misplaced = sorted(k for k in cfg if k not in own and any(
+        k in fields for fields in _BOX_CFG.values()))
+    if misplaced:
+        raise NotImplementedError(
+            f"options {misplaced} belong to other trackers than {sm_key!r} "
+            "(their parameter classes)")
 
 
 def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
@@ -353,13 +407,7 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         raise NotImplementedError(
             f"SM {sm!r} is not ported yet: it comes with ROADMAP Queue "
             f"{where}")
-    unknown = sorted(set(cfg) - _KNOWN_CFG - _BOX_CFG.get(sm_key, set()))
-    if unknown:
-        raise NotImplementedError(
-            f"options {unknown} are not ported yet: the PF, NN and other "
-            "trackers' options, and the likelihood and histogram options "
-            "of the AMs that read them (SSIM, MI, PF), come with their "
-            "slices (ROADMAP Queue 1)")
+    _check_options(sm_key, cfg)
 
     # the correlation-filter and learn trackers: axis-aligned box trackers
     # with no AM or SSM, built from their own parameter classes
@@ -425,10 +473,10 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
             members.append(sub(refiner))
         return CascadeSM(members, _casc_thresh(cfg))
     if sm_key in CASC_KEYS:
-        return CascadeSM([sub(*m) for m in _members(sm_key, cfg)],
+        return CascadeSM(_members(sm_key, cfg, ilm, device),
                          _casc_thresh(cfg))
     if sm_key in PRL_KEYS:
-        return ParallelSM([sub(*m) for m in _members(sm_key, cfg)])
+        return ParallelSM(_members(sm_key, cfg, ilm, device))
     if sm_key in PYR_KEYS:
         return PyramidalSM(sub(str(cfg.get("pyr_sm", "fclk"))),
                            int(cfg.get("pyr_n_levels", 3)))

@@ -109,6 +109,12 @@ class SSM(nn.Module):
             mat = W.similitude_dlt(src, dst, weights)
         return self.from_matrix(mat)
 
+    def fit_corners(self, src_corners: torch.Tensor,
+                    dst_corners: torch.Tensor) -> torch.Tensor:
+        """Least-squares state (..., S) mapping corners (..., 4, 2) to
+        corners (..., 4, 2): `fit_pts` on the four corners."""
+        return self.fit_pts(src_corners, dst_corners)
+
     def compose(self, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
         """State of W(s1) @ W(s2) (s2 applied first in the template
         frame), at full float32 precision."""

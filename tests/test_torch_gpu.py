@@ -772,3 +772,27 @@ def test_cuda_slice12_key_updates(cuda_device, key):
         assert tk.lk_fused_chain_raw.launches.get("ssd_mc", 0) > k4
     if key == "tld":
         assert gf.grid_flow.launches.get("linear", 0) > k5
+
+
+@pytest.mark.gpu
+def test_cuda_run_mtf_small(cuda_device, tmp_path):
+    """run_mtf on the card (no `--device`: the card is the default) at a
+    small size: fclk/ssd/8 on dense taps over a 6-frame synthetic
+    sequence; the chain kernel (K1) launched 5 times an update, the
+    artifacts written, every state tensor on the card."""
+    from mtf_tpu_torch.apps import run_mtf
+    before = tk.lk_fused_chain_raw.launches.get("ssd", 0)
+    fps, err = run_mtf.main(
+        ["--synthetic", "--n_frames", "6", "--out_dir", str(tmp_path),
+         "--write_outputs", "--reinit_on_failure", "sm", "fclk", "am",
+         "ssd", "ssm", "8", "resx", "16", "resy", "16", "max_iters", "5",
+         "epsilon", "0", "interp", "linear_mm", "crop", "64",
+         "syn_sigma", "0.005"])
+    run = run_mtf.LAST_RUN
+    assert err < 0.5 and run["failures"] == 0
+    assert (tk.lk_fused_chain_raw.launches.get("ssd", 0) - before
+            == 5 * run["updates"])
+    assert (tmp_path / "synthetic_fclk_ssd_8.sr").exists()
+    leaves = [x for x in torch.utils._pytree.tree_leaves(run["state"])
+              if isinstance(x, torch.Tensor) and x.dim() > 0]
+    assert all(x.is_cuda for x in leaves)

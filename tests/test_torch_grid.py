@@ -391,19 +391,23 @@ def test_grid_factory_keys(key, est, levels):
     pytest.param("grid", {"grid_sm": "cmt"}, "Queue 1, item 2",
                  id="grid-kw0-Queue 1c"),
     ("gric", {}, "Queue 1c"), ("pfrk", {}, "Queue 1c"),
-    ("casc", {"multi_cfg": "multi.cfg"}, "Queue 1, slice 8")])
+    # a cascade from a multi.cfg is ported with utils/config (slice 13;
+    # the case keeps its id)
+    pytest.param("casc", {"multi_cfg": "mtf_sm fclk\nmtf_am ssd\nmtf_ssm 8"
+                          "\n\nmtf_sm esm\nmtf_am ssd\nmtf_ssm 8\n"},
+                 "Queue 1, slice 8", id="casc-kw3-Queue 1, slice 8")])
 def test_grid_rejects_unported(key, kw, queue):
     """What stays unported raises naming its queue: a grid of sub-trackers
     that are not ported (the grid of ported sub-trackers is held against
-    the JAX package in `test_torch_ssm_fleet.py`), composites from a
-    multi.cfg file. gric (grid, then ICLK) is ported with ICLK, pfrk (PF,
-    then RKLT) with the PF: each builds as the JAX package builds it
-    (`test_torch_fleet.builds_like_jax`; gric's fleet is held against the
-    JAX package in `test_torch_generic_fleet.py`, the PF in
+    the JAX package in `test_torch_ssm_fleet.py`). gric (grid, then ICLK)
+    is ported with ICLK, pfrk (PF, then RKLT) with the PF, and a cascade
+    from a multi.cfg with utils/config: each builds as the JAX package
+    builds it (`test_torch_fleet.builds_like_jax`; gric's fleet is held
+    against the JAX package in `test_torch_generic_fleet.py`, the PF in
     `test_torch_pf_nn.py`). (The rigid and f2f flows,
     forward-backward masking and the gather kinds are held against the
     JAX package in `test_torch_grid_family.py`.)"""
-    if key in CASCADE_SHORTHAND:
+    if key in CASCADE_SHORTHAND or "multi_cfg" in kw:
         builds_like_jax((key, "ssd", "8"), {**GRID_CFG, **kw})
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
