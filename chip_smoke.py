@@ -24,7 +24,9 @@ histogram AMs, and of slice 10: the hierarchical ESM, the linear
 predictor, the line tracker, RegNet, the SCV family and the illumination
 models, and of slice 12: the correlation filters, the learning trackers,
 DFT and TLD, and of slice 13: the user entry points (run_mtf, its fleet
-mode, the APIs, checkpoints, profiling, eval_suite):
+mode, the APIs, checkpoints, profiling, eval_suite), and of slice 14: the
+cv2 trackers (feat, CMT, the adapters), diagnostics, the frame bridge and
+tracker node, parity_cv2, the other apps and the examples:
 
   1. prints the card's name and power limit (nvidia-smi), and whether
      `cv2` imports on the machine (slice 7's cv2 trackers);
@@ -233,6 +235,31 @@ mode, the APIs, checkpoints, profiling, eval_suite):
      whose resumed update equals the uninterrupted one; a `Profiler`
      section and a `trace` that must hold the chain kernel; and the
      port's `eval_suite` at 20 frames, which must exit 0.
+ 20. slice 14 (`_slice14_phase`), before the parallel phase: feat/ssd/8
+     (ORB, SLICE14_FEAT_CFG) and cmt at B_SLICE14 on the 480x640 blob
+     scene (`blob_scene`, `slice14_corners`), each on its 6-frame GT leg
+     within `gt_limit` of the JAX package's CPU reading
+     (SLICE14_JAX_READING, `scripts/port_slice14_reference_leg.py`),
+     launching no kernel, and its device stage on one frame's host
+     detections and one draw within SLICE14_TOL_PX of the same stage on
+     the CPU; the cv2 adapters (`third_party.available()` printed; mil's
+     corners equal to the boxes its cv2 object answered; csrt, visp and
+     cv3 build and run where cv2 has them, else raise the JAX package's
+     NotImplementedError); `diagnose --am ncc --ssm 8 --validate` exits 0
+     and `validate_chain` is ok; `apps.tracker_node` in a subprocess on
+     the card over the shared-memory bridge at fclk/ssd/8 (the bench
+     configuration: K1 10 an update, read from the node's own counts),
+     its corners file within SLICE14_NODE_TOL_PX of the tracker run
+     in-process; `parity_cv2` at its defaults (its trackers on the
+     generic path: no launch), each of its rows within `gt_limit` of the
+     JAX reading and parity in both families; `register_seq` and
+     `create_mosaic` at esm/ncc/8 (K3 10 an update) on the slice-13
+     sequence, their outputs read back; `track_markers` and
+     `track_uav_trajectory` (K3 10 an update) against GT;
+     `generate_synthetic_seq`, `extract_patch`, `show_ground_truth` and
+     `record_seq`; the three demos of `mtf_tpu_torch/examples/`, each
+     demo's error within `gt_limit` of the JAX reading. SLICE14_BUDGET_S
+     is the phase's aim.
  The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
@@ -3201,6 +3228,620 @@ def _slice13_phase(torch, tk, gf, card, dev):
     return out
 
 
+# -- slice 14: the cv2 trackers, diagnostics, the bridge, the other apps --
+B_SLICE14 = 16           # feat and cmt trackers on the blob scene
+SLICE14_BLOBS = 1200     # `tests/test_feature.py`'s density at 480x640
+SLICE14_HALF = (80, 60)  # the boxes' half width and height (px)
+# the blob scene's descriptors are ambiguous: at the default 128 RANSAC
+# hypotheses (4-point samples) a third of the trackers jump tens of px in
+# both packages within 5 updates; 4096 keep every tracker of the leg
+SLICE14_FEAT_CFG = dict(feat_n_hypotheses=4096)
+SLICE14_TOL_PX = 0.05    # a device stage on the card against the CPU's
+SLICE14_NODE_TOL_PX = 1e-4  # tracker_node against the in-process tracker
+SLICE14_NODE_FRAMES = 6
+SLICE14_BUDGET_S = 90.0
+# x0, y0, w, h of the marker: the feature tracker draws its 128 minimal
+# samples over all 500 keypoint slots, matched or not (as the JAX package
+# does), so a marker whose matches fill few slots loses the homography in
+# some updates; at this size every draw of 6 kept it (0.52-0.61 px)
+SLICE14_MARKER_BOX = (100, 80, 440, 320)
+SLICE14_UAV_SHAPE = (160, 200)              # UAV frames (h, w)
+SLICE14_UAV_OFFSETS = ((150, 200), (156, 208), (163, 215), (169, 224))
+SLICE14_UAV_PAIRS = ["resx", "50", "resy", "50", "max_iters", "10", "epsilon",
+                     "0", "interp", "linear_mm", "crop", "160",
+                     "coarse_pt_iters", "4:6,2:3"]
+# create_mosaic's region is the frame but 15% margins: the bench
+# configuration without a crop (the chain kernel reads the whole frame)
+SLICE14_MOSAIC_PAIRS = ["resx", "50", "resy", "50", "max_iters", "10",
+                        "epsilon", "0", "interp", "linear_mm",
+                        "coarse_pt_iters", "4:6,2:3"]
+SLICE14_GEN_FRAMES = 8   # generate_synthetic_seq on the card
+# the JAX package's readings on the CPU of the same legs
+# (`scripts/port_slice14_reference_leg.py`): the feat and cmt GT legs'
+# mean corner error (px), parity_cv2's rows at their defaults (avg_mcd
+# px), track_markers' and track_uav_trajectory's mean corner error against
+# GT (px; the JAX apps with `_locate`'s call mended: reference fault 16),
+# and the examples' mean errors (px)
+SLICE14_JAX_READING = {
+    "feat_gt_px": 0.4191060637123883, "cmt_gt_px": 0.903028667345643,
+    "parity": {"opencv:ECC-homography": 0.0822, "mtf_tpu:esm/ncc/8": 0.0494,
+               "mtf_tpu:fclk/ssd/8": 0.0464, "opencv:pyrLK+RANSAC": 0.0795,
+               "mtf_tpu:rklt/ncc/8": 0.0477},
+    "track_markers_px": 0.5159232619959093, "track_uav_px": 0.0,
+    "simple_demo_px": 0.061, "composite_demo_px": {
+        "pyr(esm/ncc/8)": 0.052, "casc(pf->fclk)": 0.053,
+        "prl(esm|fclk)": 0.056}}
+SLICE14_NODE_SCRIPT = (
+    "import json, sys\n"
+    "from mtf_tpu_torch.apps import tracker_node\n"
+    "from mtf_tpu_torch.ops.kernels import lk_fused as tk\n"
+    "from mtf_tpu_torch.ops.kernels import grid_flow as gf\n"
+    "n = tracker_node.main(sys.argv[1:])\n"
+    "counts = {**tk.lk_fused_chain_raw.launches, **tk.lk_fused_gn_t.launches,"
+    " **{'grid_flow@' + k: v for k, v in gf.grid_flow.launches.items()}}\n"
+    "print(json.dumps({'updates': n, 'launches': counts}))\n")
+
+
+def blob_scene(h=480, w=640, n_blobs=SLICE14_BLOBS, seed=0):
+    """`tests/test_feature.py`'s blob scene at any size: 5x5 squares of
+    random gray, blurred (the feature trackers' textured scene)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float32)
+    for _ in range(n_blobs):
+        x, y = rng.integers(5, w - 5), rng.integers(5, h - 5)
+        img[y - 2:y + 3, x - 2:x + 3] = rng.uniform(50, 255)
+    return gaussian_filter(img, 1.0).astype(np.float32)
+
+
+def slice14_corners(n=B_SLICE14, seed=1):
+    """n boxes of half size SLICE14_HALF inside the 480x640 scene, 40 px
+    from its edges (the feature trackers' regions)."""
+    hw, hh = SLICE14_HALF
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        cx, cy = rng.uniform(40 + hw, 600 - hw), rng.uniform(40 + hh, 440 - hh)
+        out.append([[cx - hw, cy - hh], [cx + hw, cy - hh],
+                    [cx + hw, cy + hh], [cx - hw, cy + hh]])
+    return np.asarray(out, np.float32)
+
+
+def slice14_gt_errors(sm, device):
+    """The GT leg of a slice-14 fleet: `_gt_errors` on the blob scene
+    with `slice14_corners()` along the homography's random walk -> (each
+    tracker's mean corner error per frame (B, 5), the frames)."""
+    return _gt_errors(sm, blob_scene(), slice14_corners(), gt_ssm="8")
+
+
+def _write_seq(root, name, frames):
+    import os
+
+    import cv2
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    for t, f in enumerate(frames):
+        _check(cv2.imwrite(os.path.join(d, f"frame{t + 1:05d}.png"),
+                           np.clip(np.rint(f), 0, 255).astype(np.uint8)),
+               f"cannot write {name} frame {t}")
+    return d
+
+
+def slice14_marker_inputs(root, device):
+    """track_markers' inputs under `root`: the blob scene (seed 2) along
+    the homography's random walk (6 frames, the port's synth on `device`)
+    as PNGs, and the marker, the SLICE14_MARKER_BOX crop of the first
+    frame. -> (sequence dir, marker path, GT corners (T, 4, 2) of the
+    marker's corners [0, w-1] x [0, h-1])."""
+    import os
+
+    import cv2
+    from mtf_tpu_torch.ssm import get_ssm
+    from mtf_tpu_torch.utils.synth import synthetic_sequence
+    x0, y0, w, h = SLICE14_MARKER_BOX
+    box = np.float32([[x0, y0], [x0 + w - 1, y0], [x0 + w - 1, y0 + h - 1],
+                      [x0, y0 + h - 1]])
+    frames, gt = synthetic_sequence(blob_scene(seed=2), box,
+                                    get_ssm("8", device=device), n_frames=6,
+                                    sigma_scale=0.004, seed=3)
+    frames = frames.cpu().numpy()
+    seq = _write_seq(root, "markerseq", frames)
+    marker = os.path.join(root, "marker.png")
+    _check(cv2.imwrite(marker, np.clip(np.rint(frames[0][y0:y0 + h,
+                                                         x0:x0 + w]),
+                                       0, 255).astype(np.uint8)),
+           "cannot write the marker")
+    return seq, marker, np.asarray(gt, np.float32)
+
+
+def slice14_uav_inputs(root):
+    """track_uav_trajectory's inputs under `root`: the map (the blob
+    scene, seed 5) and the UAV frames, SLICE14_UAV_SHAPE windows of it at
+    SLICE14_UAV_OFFSETS (y, x). -> (map path, sequence dir, GT corners
+    (T, 4, 2) of each frame's template region in the map)."""
+    import os
+
+    import cv2
+    scene = blob_scene(seed=5)
+    path = os.path.join(root, "map.png")
+    _check(cv2.imwrite(path, np.rint(scene).astype(np.uint8)),
+           "cannot write the map")
+    fh, fw = SLICE14_UAV_SHAPE
+    seq = _write_seq(root, "uavseq", [scene[oy:oy + fh, ox:ox + fw]
+                                      for oy, ox in SLICE14_UAV_OFFSETS])
+    m = 0.2
+    tmpl = np.float32([[fw * m, fh * m], [fw * (1 - m), fh * m],
+                       [fw * (1 - m), fh * (1 - m)], [fw * m, fh * (1 - m)]])
+    gt = np.stack([tmpl + np.float32([ox, oy])
+                   for oy, ox in SLICE14_UAV_OFFSETS])
+    return path, seq, gt
+
+
+def corner_error(tracked, gt) -> float:
+    """Mean corner distance (px) of corners (T, 4, 2) against GT."""
+    return float(np.linalg.norm(np.asarray(tracked, np.float64) - gt,
+                                axis=-1).mean())
+
+
+def _state_on(torch, state, device):
+    return torch.utils._pytree.tree_map(
+        lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, state)
+
+
+def _slice14_stage_vs_cpu(torch, sm, cpu_sm, state, frame, label):
+    """The device stage on the card against the same stage on the CPU:
+    one frame's host detections, one draw, one state."""
+    if label == "feat":
+        pts, desc, valid = sm.detect_batch(frame, sm.corners(state)
+                                           .transpose(-1, -2))
+        idx = sm.hyp_draw(0)
+        card = sm.update_with_detections(state, pts, desc, valid, idx=idx)
+        cpu = cpu_sm.update_with_detections(
+            _state_on(torch, state, "cpu"), pts.cpu(), desc.cpu(),
+            valid.cpu(), idx=idx.cpu())
+    else:
+        from mtf_tpu_torch.sm.cmt import _pad
+        p = sm.prm
+        gray = sm._gray(frame)
+        pts, desc = sm._detect(gray)
+        n = p.max_keypoints + p.max_bg
+        args = [torch.as_tensor(a) for a in (
+            _pad(pts, n, 2)[0], _pad(desc, n, state.kp_desc.shape[-1])[0],
+            _pad(pts, n, 2)[1])]
+        card = sm.update_with_detections(state, *[a.to(gray.device)
+                                                  for a in args], gray)
+        cpu = cpu_sm.update_with_detections(_state_on(torch, state, "cpu"),
+                                            *args, gray.cpu())
+    err = float((sm.corners(card).cpu() - cpu_sm.corners(cpu)).abs().max())
+    _check(err <= SLICE14_TOL_PX, f"{label}: the card's device stage "
+           f"{err} px from the CPU's (limit {SLICE14_TOL_PX})")
+    return err
+
+
+def _slice14_trackers(torch, tk, gf, card, dev):
+    """feat/ssd/8 (ORB) and cmt at B_SLICE14 on the blob scene: each GT
+    leg against the JAX reading, no kernel launched, and the device stage
+    on the card against the CPU's."""
+    from mtf_tpu_torch import create_tracker
+    out = {}
+    for key in ("feat", "cmt"):
+        cfg = SLICE14_FEAT_CFG if key == "feat" else {}
+        sm = create_tracker(key, "ssd", "8", device=dev, **cfg)
+        cpu_sm = create_tracker(key, "ssd", "8", device="cpu", **cfg)
+        _zero_counts(tk, gf)
+        t0 = time.perf_counter()
+        e, frames = slice14_gt_errors(sm, dev)
+        torch.cuda.synchronize()
+        leg_s = time.perf_counter() - t0
+        counts = _counts(tk, gf)
+        _check(not any(counts.values()), f"{key}: kernels launched "
+               f"{ {k: v for k, v in counts.items() if v} }")
+        gt_px = float(e.mean())
+        reading = SLICE14_JAX_READING[f"{key}_gt_px"]
+        _check(np.isfinite(gt_px) and gt_px <= gt_limit(reading),
+               f"{key}: GT mean corner error {gt_px} px (limit "
+               f"{gt_limit(reading)}, JAX {reading})")
+        st = sm.initialize(frames[0], slice14_corners())
+        stage = _slice14_stage_vs_cpu(torch, sm, cpu_sm, st, frames[1], key)
+        print(f"{key} B={B_SLICE14}: GT {gt_px:.4f} px over 5 frames (JAX "
+              f"{reading}, limit {gt_limit(reading)}), leg {leg_s:.2f} s; "
+              f"device stage card vs CPU {stage:.3g} px ({card})")
+        out[key] = {"B": B_SLICE14, "gt_px": gt_px, "jax_cpu_reading_px":
+                    reading, "limit_px": gt_limit(reading), "leg_s": leg_s,
+                    "stage_vs_cpu_px": stage}
+    return out
+
+
+class _Recorder:
+    """A cv2 tracker that keeps the (ok, box) answers it gives."""
+
+    def __init__(self, impl):
+        self.impl, self.answers = impl, []
+
+    def init(self, img, box):
+        return self.impl.init(img, box)
+
+    def update(self, img):
+        ans = self.impl.update(img)
+        self.answers.append(ans)
+        return ans
+
+
+def _slice14_adapters(frames, box):
+    """The cv2 adapters on this machine's cv2: `mil` (the registry's cv2
+    tracker; the factory's `mil` key is the port's own MIL) for 6 frames,
+    its corners equal to the boxes its cv2 object answered (two TrackerMIL
+    objects on the same frames part by a pixel, so the raw tracker is the
+    run the adapter drove); then csrt, visp and cv3 through the factory:
+    a key the machine's cv2 has builds and runs, any other raises the JAX
+    package's NotImplementedError with the list."""
+    import cv2
+    from mtf_tpu_torch import create_tracker, third_party
+    avail = third_party.available()
+    print(f"cv2 {cv2.__version__} trackers available: {avail}")
+    rec = []
+    if "mil" in avail:
+        ad = third_party.CVTrackerAdapter(
+            lambda: rec.append(_Recorder(cv2.TrackerMIL_create())) or rec[-1],
+            "mil")
+        st = ad.initialize(frames[0], box)
+        for f in frames[1:]:
+            st = ad.update(st, f)
+            ok, (x, y, w, h) = rec[0].answers[-1]
+            want = np.float32([[x, y], [x + w, y], [x + w, y + h],
+                               [x, y + h]]) if ok else None
+            got = ad.corners(st)[0].numpy().T
+            _check(want is None or np.array_equal(got, want),
+                   f"mil adapter: corners {got} for the box {want}")
+    out = {"available": avail, "mil_frames": len(frames) - 1 if rec else 0}
+    print(f"mil adapter: {out['mil_frames']} updates, each tracker's "
+          "corners the box its cv2 object answered")
+    for key in ("csrt", "visp", "cv3"):
+        if key in avail:
+            trk = create_tracker(key)
+            st = trk.initialize(frames[0], box)
+            for f in frames[1:]:
+                st = trk.update(st, f)
+            _check(np.isfinite(trk.corners(st).numpy()).all(),
+                   f"{key}: corners not finite")
+            out[key] = "ran"
+        else:
+            try:
+                create_tracker(key)
+                raise AssertionError(f"{key}: built without cv2's tracker")
+            except NotImplementedError as e:
+                _check("available in this environment" in str(e),
+                       f"{key}: {e}")
+                out[key] = "raised NotImplementedError"
+        print(f"{key}: {out[key]}")
+    return out
+
+
+def _slice14_node(torch, tk, gf, dev, frames, box, card):
+    """tracker_node in a subprocess on the card over the bridge, at
+    fclk/ssd/8 with the bench configuration (K1 10 per update, read from
+    the node's own counts), against the same tracker in-process: its
+    corners file (4 decimals) within SLICE14_NODE_TOL_PX."""
+    import json
+    import os
+    import tempfile
+
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.bridge import SharedImageWriter
+    from mtf_tpu_torch.utils import gt as gtio
+    cfg = slice_cfg()
+    pairs = ["sm", "fclk", "am", "ssd", "ssm", "8"] + slice13_pairs("fclk")
+    h, w = frames[0].shape
+    name = f"chip14_{os.getpid()}"
+    writer = SharedImageWriter(name, h, w, 1)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "node.txt")
+        writer.write(frames[0])
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SLICE14_NODE_SCRIPT, "--bridge", name,
+             "--corners", ",".join(f"{v:.4f}" for v in box.reshape(-1)),
+             "--n_frames", str(len(frames) - 1), "--timeout", "120",
+             "--out", out_path] + pairs, stdout=subprocess.PIPE, text=True,
+            cwd=repo, env={**os.environ, "PYTHONPATH": repo})
+        try:
+            line = proc.stdout.readline()
+            _check(json.loads(line or "{}").get("event") == "initialized",
+                   f"tracker_node: no readiness line ({line!r})")
+            for t in range(1, len(frames)):
+                writer.write(frames[t])
+                rec = json.loads(proc.stdout.readline())
+                _check(rec.get("frame") == t, f"tracker_node: line {rec}")
+            counts = json.loads(proc.stdout.readline())
+            _check(proc.wait(timeout=120) == 0, "tracker_node failed")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            writer.close()
+        node = gtio.read_corners_file(out_path)
+    n_up = counts["updates"]
+    _check(n_up == len(frames) - 1, f"tracker_node: {n_up} updates")
+    for k, got in counts["launches"].items():
+        want = MAX_ITERS * n_up if k == "ssd" else 0
+        _check(got == want, f"tracker_node: {k} launched {got} times in "
+               f"{n_up} updates")
+    MAIN_PATH_LAUNCHES.update(counts["launches"])
+    sm = create_tracker("fclk", "ssd", "8", device=dev, **cfg)
+    st = sm.initialize(torch.as_tensor(frames[0], device=dev), box[None])
+    ref = []
+    for f in frames[1:]:
+        st = sm.update(st, torch.as_tensor(f, device=dev))
+        ref.append(sm.corners(st)[0].T.cpu().numpy())
+    err = float(np.abs(node - np.stack(ref)).max())
+    _check(err <= SLICE14_NODE_TOL_PX, f"tracker_node: corners {err} px "
+           f"from the in-process tracker (limit {SLICE14_NODE_TOL_PX})")
+    print(f"tracker_node: {n_up} updates in a subprocess on the card, ssd "
+          f"{counts['launches'].get('ssd', 0)} launches, {err:.2g} px from "
+          f"in-process ({card})")
+    return {"updates": n_up, "launches": counts["launches"].get("ssd", 0),
+            "vs_in_process_px": err}
+
+
+def _slice14_app(tk, gf, main, argv, label, expect_per_update=None,
+                 updates=0):
+    """One app in-process on the card, its launches read: exactly
+    `expect_per_update` (kernel: count) per update, 0 for every other."""
+    _zero_counts(tk, gf)
+    t0 = time.perf_counter()
+    rc = main(argv)
+    wall = time.perf_counter() - t0
+    _check(rc == 0, f"{label}: exit code {rc}")
+    counts = _counts(tk, gf)
+    MAIN_PATH_LAUNCHES.update(counts)
+    for k, got in counts.items():
+        want = (expect_per_update or {}).get(k, 0) * updates
+        _check(got == want, f"{label}: {k} launched {got} times (expected "
+               f"{want} in {updates} updates)")
+    return wall, {k: v for k, v in counts.items() if v}
+
+
+def _slice14_parity(torch, tk, gf, card):
+    """parity_cv2 at its defaults (20 frames), each contender's launches
+    read (its trackers on the generic path, as the JAX package's
+    `_fused_ok` routes gather taps: none); each of the port's rows within
+    `gt_limit` of the JAX reading, and parity in both families."""
+    from mtf_tpu_torch.apps import parity_cv2
+    launches = {}
+
+    def counted(name, fn):
+        def run(fr, fr_np, gt):
+            _zero_counts(tk, gf)
+            errs = fn(fr, fr_np, gt)
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in _counts(tk, gf).items() if v}
+            return errs
+        return run
+
+    rows = parity_cv2.head_to_head(
+        contenders=[(f, n, counted(n, fn)) for f, n, fn
+                    in parity_cv2.CONTENDERS])
+    ver = parity_cv2.verdicts(rows)
+    for r in rows:
+        _check("error" not in r, f"parity_cv2: {r}")
+        _check(not launches[r["tracker"]], f"parity_cv2 {r['tracker']}: "
+               f"launched {launches[r['tracker']]}")
+        reading = SLICE14_JAX_READING["parity"][r["tracker"]]
+        if r["tracker"].startswith("mtf_tpu:"):
+            _check(r["avg_mcd_px"] <= gt_limit(reading),
+                   f"parity_cv2 {r['tracker']}: {r['avg_mcd_px']} px (limit "
+                   f"{gt_limit(reading)}, JAX {reading})")
+        print(f"parity_cv2 {r['tracker']}: avg_mcd {r['avg_mcd_px']} px "
+              f"(JAX {reading}), {r['wall_s']} s ({card})")
+    _check(len(ver) == 2 and all(v["parity"] for v in ver),
+           f"parity_cv2: verdicts {ver}")
+    return {"rows": rows, "verdicts": ver}
+
+
+def _slice14_apps(torch, tk, gf, dev, tmp, card):
+    """register_seq and create_mosaic at esm/ncc/8 (the bench
+    configuration: ncc_esm 10 per update) on the slice-13 sequence, their
+    outputs read back; track_markers and track_uav_trajectory against GT
+    (limits from the JAX readings); generate_synthetic_seq,
+    extract_patch, show_ground_truth and record_seq from a directory."""
+    import os
+
+    import cv2
+    from mtf_tpu_torch.apps import (create_mosaic, extract_patch,
+                                    generate_synthetic_seq, record_seq,
+                                    register_seq, show_ground_truth,
+                                    track_markers, track_uav_trajectory)
+    from mtf_tpu_torch.utils import gt as gtio
+    out, walls = {}, {}
+    seq, gt_path, gt = slice13_sequence(tmp, dev)
+    n = len(gt)
+    pairs = ["sm", "esm", "am", "ncc", "ssm", "8"] + slice13_pairs("esm")
+    esm = {"ncc_esm": MAX_ITERS}
+    reg = os.path.join(tmp, "registered")
+    walls["register_seq"], out["register_seq"] = _slice14_app(
+        tk, gf, register_seq.main, ["--seq", seq, "--gt", gt_path,
+                                    "--out_dir", reg] + pairs,
+        "register_seq", esm, n - 1)
+    imgs = sorted(os.listdir(reg))
+    _check(len(imgs) == n and all(
+        cv2.imread(os.path.join(reg, f), cv2.IMREAD_GRAYSCALE).shape
+        == (480, 640) for f in imgs), "register_seq: outputs do not read back")
+    mosaic = os.path.join(tmp, "mosaic.png")
+    walls["create_mosaic"], out["create_mosaic"] = _slice14_app(
+        tk, gf, create_mosaic.main,
+        ["--seq", seq, "--out", mosaic, "sm", "esm", "am", "ncc", "ssm", "8"]
+        + SLICE14_MOSAIC_PAIRS, "create_mosaic", esm, n - 1)
+    m = cv2.imread(mosaic, cv2.IMREAD_GRAYSCALE)
+    _check(m is not None and m.shape == (960, 1280) and m.max() > 0,
+           "create_mosaic: the mosaic does not read back")
+    # track_markers: feat, no kernel
+    mseq, marker, mgt = slice14_marker_inputs(tmp, dev)
+    mdir = os.path.join(tmp, "markers")
+    walls["track_markers"], _ = _slice14_app(
+        tk, gf, track_markers.main, ["--seq", mseq, "--markers", marker,
+                                     "--out_dir", mdir], "track_markers")
+    err = corner_error(gtio.read_corners_file(
+        os.path.join(mdir, "marker_marker.txt")), mgt)
+    reading = SLICE14_JAX_READING["track_markers_px"]
+    _check(err <= gt_limit(reading), f"track_markers: {err} px from GT "
+           f"(limit {gt_limit(reading)}, JAX {reading})")
+    out["track_markers_px"] = err
+    # track_uav_trajectory: esm/ncc/8 on the map, one update per frame
+    map_path, useq, ugt = slice14_uav_inputs(tmp)
+    udir = os.path.join(tmp, "uav")
+    walls["track_uav_trajectory"], out["track_uav_trajectory"] = \
+        _slice14_app(tk, gf, track_uav_trajectory.main,
+                     ["--map", map_path, "--seq", useq, "--out_dir", udir]
+                     + ["sm", "esm", "am", "ncc", "ssm", "8"]
+                     + SLICE14_UAV_PAIRS, "track_uav_trajectory", esm,
+                     len(ugt))
+    err = corner_error(gtio.read_corners_file(
+        os.path.join(udir, "uav_corners.txt")), ugt)
+    reading = SLICE14_JAX_READING["track_uav_px"]
+    _check(err <= gt_limit(reading), f"track_uav_trajectory: {err} px from "
+           f"GT (limit {gt_limit(reading)}, JAX {reading})")
+    out["track_uav_px"] = err
+    # the sequence tools, from a directory source
+    gen = os.path.join(tmp, "gen")
+    walls["generate_synthetic_seq"], _ = _slice14_app(
+        tk, gf, generate_synthetic_seq.main,
+        ["--out_dir", gen, "--n_frames", str(SLICE14_GEN_FRAMES)],
+        "generate_synthetic_seq")
+    ggt = os.path.join(gen, "gt.txt")
+    for label, main, argv in (
+            ("extract_patch", extract_patch.main,
+             ["--seq", gen, "--gt", ggt, "--out_dir",
+              os.path.join(tmp, "patches")]),
+            ("show_ground_truth", show_ground_truth.main,
+             ["--seq", gen, "--gt", ggt, "--out_dir",
+              os.path.join(tmp, "annotated")]),
+            ("record_seq", record_seq.main,
+             ["--source", gen, "--out_dir", os.path.join(tmp, "recorded")])):
+        walls[label], _ = _slice14_app(tk, gf, main, argv, label)
+    for d in ("patches", "annotated", "recorded"):
+        _check(len(os.listdir(os.path.join(tmp, d))) == SLICE14_GEN_FRAMES,
+               f"{d}: {len(os.listdir(os.path.join(tmp, d)))} frames")
+    print("slice-14 apps: " + ", ".join(f"{k} {v:.2f} s"
+                                         for k, v in walls.items())
+          + f"; track_markers {out['track_markers_px']:.4f} px, "
+          f"track_uav_trajectory {out['track_uav_px']:.4f} px from GT "
+          f"({card})")
+    out["wall_s"] = walls
+    return out
+
+
+def _slice14_examples(card):
+    """The three demos on the card, in a fresh directory: each exits 0,
+    the two trackers' demos within `gt_limit` of the JAX readings."""
+    import os
+    import tempfile
+
+    from mtf_tpu_torch.examples import (composite_tracking_demo,
+                                        simple_tracking_demo, warping_demo)
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for mod in (simple_tracking_demo, composite_tracking_demo,
+                        warping_demo):
+                name = mod.__name__.rsplit(".", 1)[1]
+                _check(mod.main([]) == 0, f"{name}: nonzero exit")
+            n_png = len(os.listdir(os.path.join(tmp, "log", "warping_demo")))
+        finally:
+            os.chdir(cwd)
+    _check(n_png == 5, f"warping_demo: {n_png} sheets")
+    simple = float(np.mean(simple_tracking_demo.LAST_ERRORS))
+    reading = SLICE14_JAX_READING["simple_demo_px"]
+    _check(simple <= gt_limit(reading), f"simple_tracking_demo: {simple} px "
+           f"(limit {gt_limit(reading)}, JAX {reading})")
+    out["simple_tracking_demo_px"] = simple
+    for name, errs in composite_tracking_demo.LAST_ERRORS.items():
+        got = float(np.mean(errs))
+        reading = SLICE14_JAX_READING["composite_demo_px"][name]
+        _check(got <= gt_limit(reading), f"composite demo {name}: {got} px "
+               f"(limit {gt_limit(reading)}, JAX {reading})")
+        out[f"composite {name}_px"] = got
+    print("examples: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f" ({card})")
+    return out
+
+
+def _slice14_phase(torch, tk, gf, card, dev):
+    """Slice 14 on the card: feat and cmt (GT legs, device stage against
+    the CPU's), the cv2 adapters, diagnose --validate and validate_chain,
+    tracker_node over the bridge in a subprocess, parity_cv2 at its
+    defaults, the other apps and the examples. Each check fails the run;
+    each stage's seconds are kept, SLICE14_BUDGET_S the aim of the
+    whole."""
+    import os
+    import tempfile
+
+    from mtf_tpu_torch.am import AMParams, get_am
+    from mtf_tpu_torch.apps import diagnose
+    from mtf_tpu_torch.diagnostics import Diagnostics
+    from mtf_tpu_torch.ssm import get_ssm
+    t0 = time.perf_counter()
+    out, stages = {}, {}
+
+    def lap(name, t_prev):
+        now = time.perf_counter()
+        stages[name] = now - t_prev
+        return now
+
+    out["trackers"] = _slice14_trackers(torch, tk, gf, card, dev)
+    t = lap("feat_cmt", t0)
+    frames, _ = synthetic_sequence_host(torch, dev)
+    box = _corners(1)[0]
+    out["adapters"] = _slice14_adapters(frames, box)
+    t = lap("adapters", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts(tk, gf)
+        rc = diagnose.main(["--am", "ncc", "--ssm", "8", "--validate",
+                            "--out_dir", os.path.join(tmp, "log")])
+        _check(rc == 0, f"diagnose --validate: exit code {rc}")
+        h, w = frames[0].shape
+        s = min(h, w) / 4
+        corners = np.float32([[w / 2 - s, h / 2 - s], [w / 2 + s, h / 2 - s],
+                              [w / 2 + s, h / 2 + s], [w / 2 - s, h / 2 + s]])
+        chain = Diagnostics(get_am("ncc", AMParams(resx=25, resy=25)),
+                            get_ssm("8", device=dev)).validate_chain(
+            torch.as_tensor(frames[0], device=dev), corners)
+        _check(chain["ok"], f"validate_chain: {chain}")
+        _check(not any(_counts(tk, gf).values()), "diagnostics launched a "
+               "kernel")
+        out["diagnostics"] = {"validate_rc": rc, "chain": chain}
+        print(f"diagnose --validate exit 0; validate_chain {chain} ({card})")
+        t = lap("diagnostics", t)
+        out["node"] = _slice14_node(torch, tk, gf, dev, frames, box, card)
+        t = lap("tracker_node", t)
+        out["parity_cv2"] = _slice14_parity(torch, tk, gf, card)
+        t = lap("parity_cv2", t)
+        out["apps"] = _slice14_apps(torch, tk, gf, dev, tmp, card)
+        t = lap("apps", t)
+    out["examples"] = _slice14_examples(card)
+    lap("examples", t)
+    out["stages_s"] = stages
+    out["phase_s"] = time.perf_counter() - t0
+    print("slice-14 stages: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in stages.items())
+          + f"; {out['phase_s']:.1f} s (aim {SLICE14_BUDGET_S} s) ({card})")
+    return out
+
+
+def synthetic_sequence_host(torch, dev):
+    """The blob scene along the homography's random walk from
+    `_corners(1)` (6 frames rendered on the card) as host arrays: the
+    adapters', diagnostics' and tracker node's frames."""
+    from mtf_tpu_torch.ssm import get_ssm
+    from mtf_tpu_torch.utils.synth import synthetic_sequence
+    frames, gt = synthetic_sequence(blob_scene(), _corners(1)[0],
+                                    get_ssm("8", device=dev),
+                                    n_frames=SLICE14_NODE_FRAMES,
+                                    sigma_scale=0.004, seed=3)
+    return frames.cpu().numpy(), gt
+
+
 # -- slice 11: the parallel layer ----------------------------------------
 B_SCALING = 64           # bench.py's strong-scaling row: 64 trackers
 SCALING_WIDTHS = (1, 2, 4, 8)
@@ -3788,6 +4429,12 @@ def main() -> int:
     slice13_s = time.perf_counter() - t13
     print(f"slice 13 phase: {slice13_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 14: the cv2 trackers, diagnostics, the bridge, the apps -------
+    t14 = time.perf_counter()
+    slice14 = _slice14_phase(torch, tk, gf, card, dev)
+    slice14_s = time.perf_counter() - t14
+    print(f"slice 14 phase: {slice14_s:.1f} s")
+    torch.cuda.empty_cache()
     # -- slice 11: the parallel layer ---------------------------------------
     t11 = time.perf_counter()
     parallel = _parallel_phase(torch, card)
@@ -3893,6 +4540,8 @@ def main() -> int:
         "slice12_phase_s": slice12_s,
         "slice13": slice13,
         "slice13_phase_s": slice13_s,
+        "slice14": slice14,
+        "slice14_phase_s": slice14_s,
         "parallel": parallel,
         "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,

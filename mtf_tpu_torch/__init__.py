@@ -39,7 +39,13 @@ patch in one launch, with linear or cubic taps.
 The user entry points are ported too: `apps.run_mtf` (the evaluation
 protocol of runMTF), `apps.eval_suite`, pyMTF (`api`), pyMTF2 (`api2`),
 the mex front end (`api_mex`), `video_capture` and `utils/` (config,
-metrics, GT files, datasets, frame input, viz, checkpoints, profiling).
+metrics, GT files, datasets, frame input, viz, checkpoints, profiling),
+and so are the OpenCV trackers (the feature tracker, CMT, the cv2
+tracking-API adapters of `third_party`), `diagnostics`, the
+shared-memory `bridge`, the other apps (`diagnose`, `tracker_node`,
+`parity_cv2`, `register_seq`, `create_mosaic`, `generate_synthetic_seq`,
+`extract_patch`, `show_ground_truth`, `record_seq`, `track_markers`,
+`track_uav_trajectory`) and the demos of `examples/`.
 """
 import torch
 

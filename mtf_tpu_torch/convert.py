@@ -75,6 +75,15 @@ becomes `step`, 0), FragState (templ_hists (F, n_bins)) and TLDState
 bool, var_min (), fern_pos and fern_neg (T, 2^F), pos_set (KP, P),
 pos_valid (KP,), neg_set (KN, P), neg_valid (KN,), pos_ptr and neg_ptr
 () int32). DFT's state is its inner tracker's.
+
+The OpenCV trackers: the feature tracker's extra (`FeatureState`: desc0
+(Kmax, D), pts0_t (Kmax, 2), valid0 (Kmax,) bool) -> batched, its `key`
+becoming `step` as the grid's does; CMT's state (`CMTState`: center
+(2,), scale, rot (), base_sz (2,), kp_rel (K, 2), kp_desc (K, D),
+kp_valid (K,), bg_desc (KB, D), bg_valid (KB,), active_pos (K, 2),
+active_ok (K,) bool) -> batched, and its prev_frame (H, W), B equal
+copies in a vmapped JAX state, -> the one frame the port's trackers
+share (`to_numpy` gives the B copies back as a broadcast view).
 """
 from __future__ import annotations
 
@@ -84,9 +93,11 @@ import torch
 from mtf_tpu_torch import _device
 from mtf_tpu_torch.am.base import AMState
 from mtf_tpu_torch.sm.cf import DSSTState, KCFState, MOSSEState
+from mtf_tpu_torch.sm.cmt import CMTState
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, CompositeState,
                                         ParallelSM, PyramidalSM)
 from mtf_tpu_torch.sm.core import RegionState, TrackerState, image_corners
+from mtf_tpu_torch.sm.feature import FeatureState
 from mtf_tpu_torch.sm.grid import GridState, SubGridState
 from mtf_tpu_torch.sm.learn import (BoostState, FragState, MILState, RCTState,
                                     StruckState)
@@ -135,7 +146,8 @@ def _one_frame(prev, single: bool):
 
 # the box trackers' states, told apart by a field of their own (the most
 # specific first)
-_BOX_STATES = (("fern_pos", TLDState), ("snum", DSSTState),
+_BOX_STATES = (("kp_rel", CMTState), ("fern_pos", TLDState),
+               ("snum", DSSTState),
                ("alpha_f", KCFState), ("num", MOSSEState),
                ("sv_x", StruckState), ("templ_hists", FragState),
                ("alpha", BoostState), ("sel", MILState),
@@ -170,6 +182,9 @@ def box_to_torch(jstate, device=None, sm=None):
         elif name == "trk":
             out[name] = to_torch(jstate.trk, device,
                                  None if sm is None else sm.mf)
+        elif name == "prev_frame":
+            out[name] = torch.tensor(_one_frame(jstate.prev_frame, single),
+                                     device=device)
         else:
             out[name] = leaf(name, getattr(jstate, name))
     return cls(**out)
@@ -212,6 +227,10 @@ def to_torch(jstate, device=None, sm=None):
                        extra=tuple(am_leaf(x, f) for x in am.extra))
 
     def extra_of(ex, f=t):
+        if hasattr(ex, "desc0"):
+            return FeatureState(desc0=t(ex.desc0), pts0_t=t(ex.pts0_t),
+                                valid0=ints(ex.valid0, torch.bool),
+                                step=torch.zeros((), dtype=torch.int64))
         if hasattr(ex, "patch0"):
             return LPState(A=f(ex.A), patch0=f(ex.patch0))
         if hasattr(ex, "feat0"):
@@ -303,6 +322,9 @@ def to_numpy(state, squeeze: bool = False):
                                    else f(x) for x in am.extra))
 
     def extra_of(ex, f=n):
+        if isinstance(ex, FeatureState):
+            return FeatureState(desc0=n(ex.desc0), pts0_t=n(ex.pts0_t),
+                                valid0=n(ex.valid0), step=ex.step.numpy())
         if isinstance(ex, LPState):
             return LPState(A=f(ex.A), patch0=f(ex.patch0))
         if isinstance(ex, RegNetState):
@@ -346,8 +368,19 @@ def to_numpy(state, squeeze: bool = False):
 
     def tracker(st, f=n):
         if hasattr(st, "center"):
-            return st._replace(**{k: (tracker(v) if k == "trk" else
-                                      v.numpy() if k == "step" else n(v))
+            def box_leaf(k, v):
+                if k == "trk":
+                    return tracker(v)
+                if k == "step":
+                    return v.numpy()
+                if k == "prev_frame":
+                    # CMT's one shared frame, as the B copies of a vmapped
+                    # JAX state
+                    a = v.detach().cpu().numpy()
+                    return a if squeeze else np.broadcast_to(
+                        a, (st.center.shape[0],) + a.shape)
+                return n(v)
+            return st._replace(**{k: box_leaf(k, v)
                                   for k, v in st._asdict().items()})
         if isinstance(st, CompositeState):
             return CompositeState(tuple(tracker(m) for m in st.members),

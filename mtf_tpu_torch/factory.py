@@ -54,8 +54,9 @@ with this function, from the same options; `casc` and `prl` take them
 from `members` or from the blocks of a multi.cfg (`multi_cfg=<path or
 text>`, `create_trackers_from_multi`). The tracker lives on the card
 unless `device` says otherwise (`device="cpu"` for a CPU run); without a
-card and without `device` it raises. Keys outside the ported slices, and
-the options of the JAX package the port has not ported, raise
+card and without `device` it raises. Every SM key of the JAX factory is
+ported; another key raises `InvalidArgument`, as in the JAX package. The
+options of the JAX package the port has not ported raise
 `NotImplementedError` naming the ROADMAP item that brings them; an option
 that neither package reads is ignored (`_check_options`).
 
@@ -82,19 +83,30 @@ fHOG by default), `rct mil boost bsr strk struck frg frag` (their
 parameter classes' fields), `dft` (`dft_sm`, default ESM, on the
 descriptor fields; `dft_sigma`) and `tld` (`tld_*`: `TLDParams` fields;
 its Median Flow leg takes the grid and SM options, as the JAX factory
-builds it). `feat`, `cmt` and the cv2 adapter keys wait for cv2 (ROADMAP
-Queue 1, item 2).
+builds it).
+
+The OpenCV trackers: `feat` (the feature tracker, `feat_*` options as the
+JAX factory reads them) and `cmt` (`cmt_*`: `CMTParams` fields) detect
+on the host with cv2 and match, fit and vote on the device; the other
+third-party keys that no port of the package takes (`csrt`, `visp`,
+`cv3`, and keys given to `third_party.register_third_party`) build the
+cv2 tracking-API adapter on the host where the machine's cv2 has the
+tracker, and raise `NotImplementedError` with the list of the ones it
+has where it does not, as the JAX package's `get_third_party` does.
 """
 from __future__ import annotations
 
 from dataclasses import replace
 from typing import Any
 
+from mtf_tpu_torch import third_party
 from mtf_tpu_torch.am import AMParams, get_am
 from mtf_tpu_torch.sm.cf import CF_REGISTRY, CFParams, get_cf_tracker
+from mtf_tpu_torch.sm.cmt import CMT, CMTParams
 from mtf_tpu_torch.sm.composite import (RKLT, CascadeSM, ParallelSM,
                                         PyramidalSM, RKLTParams)
 from mtf_tpu_torch.sm.core import SMParams
+from mtf_tpu_torch.sm.feature import FeatureParams, FeatureTracker
 from mtf_tpu_torch.sm.grid import GridParams, GridTracker, SubTrackerGrid
 from mtf_tpu_torch.sm.line import LineParams, LineTracker
 from mtf_tpu_torch.sm.learn import (DFT, LEARN_PARAMS, LEARN_REGISTRY,
@@ -107,6 +119,7 @@ from mtf_tpu_torch.sm.regnet import RegNet, RegNetParams
 from mtf_tpu_torch.sm.tld import TLD, TLDParams
 from mtf_tpu_torch.ssm import get_ssm
 from mtf_tpu_torch.utils.config import read_multi_cfg
+from mtf_tpu_torch.utils.excp import InvalidArgument
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "border", "crop", "coarse_pt_iters", "hess_type", "jac_type",
@@ -149,7 +162,13 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "rg_train_steps", "rg_max_iters", "rg_pix_sigma",
               "rg_ssm_sigma", "line_conf_thresh",
               # DFT: the registration SM on the descriptor fields
-              "dft_sm", "dft_sigma"}
+              "dft_sm", "dft_sigma",
+              # the feature tracker (the fields the JAX factory reads)
+              "feat_detector", "feat_max_keypoints", "feat_ratio_thresh",
+              "feat_search_margin", "feat_min_matches", "feat_estimator",
+              "feat_inlier_thresh", "feat_n_hypotheses",
+              # CMT
+              *("cmt_" + f for f in CMTParams.__dataclass_fields__)}
 # options the JAX package reads that the port has not ported: each raises
 # where it is set to anything but its JAX default (ROADMAP Queue 1, slice 8)
 _UNPORTED_CFG = ("crop_blocks", "interp_bf16", "interp_precision")
@@ -191,16 +210,14 @@ _PORTED_SM = (set(SM_LK_REGISTRY) | {"haclk"} | set(GRID_KEYS) | RKLT_KEYS
               | MF_KEYS | CASC_KEYS | PRL_KEYS | PYR_KEYS
               | set(CASCADE_SHORTHAND) | set(PF_SIZES) | NN_KEYS
               | STOCH_CASC_KEYS | {"pfsl3"} | HRCH_KEYS | set(LP_KEYS)
-              | GTRN_KEYS | {"regnet", "line", "dft"} | set(_BOX_CFG))
-
-# where each unported SM key is queued
-_SLICE_OF_SM = {
-    "feat": "1, item 2 (sm/feature.py: cv2 detectors)",
-    "cmt": "1, item 2 (sm/cmt.py: cv2 keypoints)",
-    # the cv2 tracker adapters of `mtf_tpu/third_party.py`
-    **{k: "1, item 2 (third_party.py: cv2 tracker adapters)"
-       for k in ("csrt", "visp", "cv3")},
-}
+              | GTRN_KEYS | {"regnet", "line", "dft", "feat", "cmt"}
+              | set(_BOX_CFG))
+# the third-party keys with a port of their own, which the registry of
+# `third_party.py` never builds (the JAX factory's `_native_third_party`,
+# with the CF and learn keys it takes before the registry)
+_NATIVE_THIRD_PARTY = ({"mf", "rct", "strk", "dft", "frg", "pfsl3", "tld",
+                        "cmt", "gtrn", "goturn"} | set(CF_REGISTRY)
+                       | set(LEARN_REGISTRY))
 
 
 def _stride_pair(v):
@@ -402,11 +419,13 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     ported slices; the tracker's tensors live on `device` (None: the
     card)."""
     sm_key = sm.lower()
+    # the remaining third-party keys route as in the reference factory
+    # (mtf.h:935 -> 1978): cv2 adapters or registered trackers on the host
+    if (third_party.is_third_party(sm_key)
+            and sm_key not in _NATIVE_THIRD_PARTY):
+        return third_party.get_third_party(sm_key)
     if sm_key not in _PORTED_SM:
-        where = _SLICE_OF_SM.get(sm_key, "1, item 2")
-        raise NotImplementedError(
-            f"SM {sm!r} is not ported yet: it comes with ROADMAP Queue "
-            f"{where}")
+        raise InvalidArgument(f"unknown SM key {sm!r}")
     _check_options(sm_key, cfg)
 
     # the correlation-filter and learn trackers: axis-aligned box trackers
@@ -415,6 +434,14 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         return get_cf_tracker(sm_key, device=device, **cfg)
     if sm_key in LEARN_REGISTRY:
         return get_learn_tracker(sm_key, device=device, **cfg)
+    if sm_key == "cmt":
+        # keypoints tracked by pyramidal LK and re-matched by descriptor
+        # distances, scale and rotation by pairwise median votes, the
+        # center by the vote cluster (sm/cmt.py)
+        fields = set(CMTParams.__dataclass_fields__)
+        return CMT(CMTParams(**{k[4:]: v for k, v in cfg.items()
+                                if k.startswith("cmt_") and k[4:] in fields}),
+                   device=device)
 
     # a composite's members take its options, but not its own member
     # list or pyramid SM (a member of the same kind would recurse)
@@ -515,6 +542,18 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
     def make_ssm():
         return get_ssm(ssm, device=device)
 
+    if sm_key == "feat":
+        # the sparse feature tracker (FeatureTracker.cc; drives
+        # trackMarkers)
+        return FeatureTracker(make_ssm(), prm, FeatureParams(
+            detector=str(cfg.get("feat_detector", "orb")),
+            max_keypoints=int(cfg.get("feat_max_keypoints", 500)),
+            ratio_thresh=float(cfg.get("feat_ratio_thresh", 0.75)),
+            search_margin=float(cfg.get("feat_search_margin", 1.5)),
+            min_matches=int(cfg.get("feat_min_matches", 8)),
+            estimator=str(cfg.get("feat_estimator", "ransac")),
+            inlier_thresh=float(cfg.get("feat_inlier_thresh", 0.05)),
+            n_hypotheses=int(cfg.get("feat_n_hypotheses", 128))))
     if sm_key in LP_KEYS:
         refiner = LP_KEYS[sm_key]
         lp_prm = LPParams(

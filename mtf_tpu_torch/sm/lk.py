@@ -314,6 +314,18 @@ class LKBase(SearchMethod):
             return self.am.ilm.apply(patch, p_am + q[:, S:])
         return fn
 
+    def _template_patch_fn(self, region: RegionState, frame: torch.Tensor):
+        """q (B, Q) -> template-side patches (B, N, C) on the init frame,
+        the warp perturbed from the identity and no illumination model
+        (ICLK's and ESM's J0; `mtf_tpu/sm/lk.py:106`)."""
+        S = self.ssm.dof
+
+        def fn(q):
+            ident = self.ssm.identity((q.shape[0],))
+            return self._sample(frame, self._pts(region, ident, q[:, :S]),
+                                None, False)[0]
+        return fn
+
     def _patch_and_jac(self, region: RegionState, ssm_state: torch.Tensor,
                        p_am: torch.Tensor, img: torch.Tensor, offset,
                        crop=None):

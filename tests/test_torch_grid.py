@@ -386,10 +386,10 @@ def test_grid_factory_keys(key, est, levels):
 
 
 @pytest.mark.parametrize("key,kw,queue", [
-    # tld is ported (slice 12): the grid of unported sub-trackers is now
-    # one of cmt's, which waits for cv2 (the case keeps its id)
-    pytest.param("grid", {"grid_sm": "cmt"}, "Queue 1, item 2",
-                 id="grid-kw0-Queue 1c"),
+    # tld is ported (slice 12) and cmt (slice 14): a grid of CMT
+    # sub-trackers, a box tracker with no AM, is refused by both packages
+    # alike (the case keeps its id)
+    pytest.param("grid", {"grid_sm": "cmt"}, None, id="grid-kw0-Queue 1c"),
     ("gric", {}, "Queue 1c"), ("pfrk", {}, "Queue 1c"),
     # a cascade from a multi.cfg is ported with utils/config (slice 13;
     # the case keeps its id)
@@ -409,6 +409,14 @@ def test_grid_rejects_unported(key, kw, queue):
     JAX package in `test_torch_grid_family.py`.)"""
     if key in CASCADE_SHORTHAND or "multi_cfg" in kw:
         builds_like_jax((key, "ssd", "8"), {**GRID_CFG, **kw})
+        return
+    if queue is None:
+        for build in (lambda: jcreate(key, "ssd", "8", **GRID_CFG, **kw),
+                      lambda: tcreate(key, "ssd", "8", device="cpu",
+                                      **GRID_CFG, **kw)):
+            with pytest.raises(AttributeError, match="'CMT' object has no "
+                               "attribute 'am'"):
+                build()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
         tcreate(key, "ssd", "8", device="cpu", **{**GRID_CFG, **kw})

@@ -614,13 +614,11 @@ def test_factory_rejects_the_rest(key, queue):
     lp (slice 10) and tld (slice 12, its Median Flow leg checked too;
     the case keeps its id) build as the JAX factory builds them, and so
     do the AMs and the ILM once unported there, and PF's photometric
-    sampling (which needs an ILM). `_SLICE_OF_SM` names only the keys
-    that wait for cv2 (ROADMAP Queue 1, item 2)."""
-    from mtf_tpu_torch import factory
-    assert set(factory._SLICE_OF_SM) == {"feat", "cmt", "csrt", "visp",
-                                         "cv3"}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        tcreate("feat", "ssd", "8", device="cpu")
+    sampling (which needs an ILM). The cv2 trackers (ROADMAP Queue 1,
+    item 2) are ported too (slice 14), and build as the JAX factory
+    builds them."""
+    assert type(tcreate("feat", "ssd", "8", device="cpu")).__name__ == \
+        type(jcreate("feat", "ssd", "8")).__name__ == "FeatureTracker"
     if queue is not None:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
             tcreate(key, "ssd", "8", device="cpu")

@@ -238,10 +238,15 @@ def test_factory_builds_and_updates_every_slice12_key():
                        frame_at(scene, 0, CLEAN[0]))
         assert sm.corners(st).shape == (2, 2, 4), key
         assert bool(torch.isfinite(sm.corners(st)).all()), key
-    for key, item in (("feat", "1, item 2"), ("cmt", "1, item 2"),
-                      ("csrt", "1, item 2")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcreate(key, device="cpu")
+    # the cv2 trackers are ported (slice 14): feat and cmt build, and a
+    # cv2 adapter key builds or raises with the machine's list, as in JAX
+    assert type(tcreate("feat", device="cpu")).__name__ == "FeatureTracker"
+    assert type(tcreate("cmt", device="cpu")).__name__ == "CMT"
+    from mtf_tpu_torch import third_party
+    if "csrt" not in third_party.available():
+        with pytest.raises(NotImplementedError, match="available in this "
+                           "environment"):
+            tcreate("csrt", device="cpu")
     with pytest.raises(NotImplementedError):
         tcreate("kcf", device="cpu", tld_levels=3)
 
