@@ -26,7 +26,11 @@ models, and of slice 12: the correlation filters, the learning trackers,
 DFT and TLD, and of slice 13: the user entry points (run_mtf, its fleet
 mode, the APIs, checkpoints, profiling, eval_suite), and of slice 14: the
 cv2 trackers (feat, CMT, the adapters), diagnostics, the frame bridge and
-tracker node, parity_cv2, the other apps and the examples:
+tracker node, parity_cv2, the other apps and the examples, and of slice
+15: per-tracker frames (`update_multi`) for PF, NN, LP, RegNet, the
+sub-tracker grid, DFT and pfrk, and the options `interp_bf16` (the
+kernels' bfloat16-operand flag), `crop_blocks`, `border="constant"` and
+`interp_precision`:
 
   1. prints the card's name and power limit (nvidia-smi), and whether
      `cv2` imports on the machine (slice 7's cv2 trackers);
@@ -234,7 +238,8 @@ tracker node, parity_cv2, the other apps and the examples:
      fclk/ssd corners (SLICE13_API_TOL_PX); a fleet checkpointed mid-run
      whose resumed update equals the uninterrupted one; a `Profiler`
      section and a `trace` that must hold the chain kernel; and the
-     port's `eval_suite` at 20 frames, which must exit 0.
+     port's `eval_suite` at SLICE13_SUITE_FRAMES frames, which must exit
+     0.
  20. slice 14 (`_slice14_phase`), before the parallel phase: feat/ssd/8
      (ORB, SLICE14_FEAT_CFG) and cmt at B_SLICE14 on the 480x640 blob
      scene (`blob_scene`, `slice14_corners`), each on its 6-frame GT leg
@@ -260,6 +265,37 @@ tracker node, parity_cv2, the other apps and the examples:
      `record_seq`; the three demos of `mtf_tpu_torch/examples/`, each
      demo's error within `gt_limit` of the JAX reading. SLICE14_BUDGET_S
      is the phase's aim.
+ 21. slice 15 (`_slice15_phase`), before the parallel phase: the
+     bfloat16-operand flag's libraries (the chain kernel per S, K5/K5c;
+     built in 2, each instantiation without spills) against their plain
+     forms under the flag at the kernel phase's shapes (every chain mode
+     and kind at S = 8, N = 2500, on windows rounded to bfloat16, under
+     3's rules; K5/K5c at both rklt levels, held iteration by iteration
+     on the plain form's trajectory, `_k5_bf16_check`), each timed beside
+     its unflagged row; then per-tracker frames (`update_multi`) on the
+     fleets of `slice15_family` at their full widths (pf500 B = 128, nn1k
+     B = 256, lpfc B = 1280, gtrn B = 256, the sub-tracker grid B = 384 of
+     100 sub-trackers each, dft on FCLK (K4, C = 4) B = 256, pfrk
+     B = 128): `update_multi` on B copies of a frame against `update` (bit
+     for bit), the per-tracker GT leg (tracker b on sequence b mod 8 of
+     SLICE15_SEQ_SEEDS; the draws' fleets at GT_SEEDS; held by
+     `slice15_limits` of the JAX reading, SLICE15_JAX_READING,
+     `scripts/port_slice15_reference_leg.py`), the sub-tracker grid's
+     peak memory over its leg (under its frames' bytes +
+     SLICE15_MEM_MARGIN: no frame per sub-tracker), exact launches and one
+     timed window of 20 `update_multi` beside 20 `update` calls; the
+     option legs of `slice15_options` (fclk/ssd/8 B = 1280 and rklt/ssd/8
+     B = 384 with `interp_bf16`: K1 and K3 + K5 with the flag, their GT
+     legs and plain-path checks; pf500 with `interp_bf16`; fclk/ssd/8
+     B = 1280 with `crop_blocks` (2, 2): the generic path; fclk/ssd/8
+     B = 1024 on gather taps with `border="constant"`, every odd tracker a
+     quarter across the frame's edge: the inner trackers' GT, the edge
+     trackers' corners changed by the border; `interp_precision` highest
+     against the default, bit for bit); and 3 updates of every flagged
+     mode and kind through the entry points (`slice15_bf16_routing`).
+     SLICE15_BUDGET_S is the phase's aim. (Slice 13's eval_suite runs
+     SLICE13_SUITE_FRAMES frames, down from 20, to keep the whole script
+     under 1,000 s.)
  The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
@@ -1088,6 +1124,50 @@ def _ptxas_usage(log):
     return usage
 
 
+def build_specs(tk, gf):
+    """Every kernel library, built side by side: the chain kernel per S
+    and, with the bfloat16-operand flag, per S again; K6; the grid flow
+    with and without the flag."""
+    return ([("lk_fused_chain", tk.build_defines(st, bf))
+             for bf in (False, True) for st in STATE_DIMS]
+            + ["lk_fused_gn", ("grid_flow", gf.build_defines(False)),
+               ("grid_flow", gf.build_defines(True))])
+
+
+def _bf16_usage(tk, gf, libs):
+    """The flagged libraries' instantiations: {(S, am, esm, mc, kind):
+    (registers, spill stores, spill loads)} of the chain kernel's plain
+    taps at every S and {(K, kind): ...} of the grid flow; prints each
+    and fails on a spill or a missing instantiation."""
+    from mtf_tpu_torch.ops.kernels import _build
+    chain, spilled = {}, []
+    for st in STATE_DIMS:
+        got = _ptxas_usage(libs[_build.lib_key(
+            "lk_fused_chain", tk.build_defines(st, True))].log)
+        want = {i + (False,) for i in tk.INSTANTIATIONS}
+        _check(set(got) == want, f"bf16 chain library S={st}: "
+               f"instantiations {sorted(got)}")
+        for key, use in got.items():
+            chain[(st,) + key[:4]] = use
+            mode = tk.mode_name(*key[:4], s=st, bf16=True)
+            print(f"ptxas: {_label(*key[:4])} {mode}: {use[0]} registers, "
+                  f"spill stores {use[1]} B, spill loads {use[2]} B")
+            if use[1] or use[2]:
+                spilled.append(mode)
+    k5 = _ptxas_k5(libs[_build.lib_key("grid_flow",
+                                       gf.build_defines(True))].log)
+    _check(sorted(k5) == sorted(gf.INSTANTIATIONS),
+           f"bf16 grid-flow instantiations {sorted(k5)}")
+    for (k, kind), use in sorted(k5.items()):
+        print(f"ptxas: K5{'' if kind == 'linear' else 'c'}+bf16 "
+              f"grid_flow<{k}, {kind}>: {use[0]} registers, spill stores "
+              f"{use[1]} B, spill loads {use[2]} B")
+        if use[1] or use[2]:
+            spilled.append(f"grid_flow<{k}, {kind}>+bf16")
+    _check(not spilled, f"bf16 instantiations spill: {spilled}")
+    return {"chain": chain, "k5": k5}
+
+
 def _ptxas_gn(log):
     """{(S, kind): (registers, spill store bytes, spill load bytes)} of
     K6's instantiations (mangled ILi<S>ELi<kind>E)."""
@@ -1376,21 +1456,24 @@ def _floor_note(row):
 
 
 def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card,
-               plain_reps, **meta):
+               plain_reps, bf16=False, **meta):
     """One chain-kernel launch against its plain form on the card (val
     within 1e-3; raw sums by `raw_verdict`, its rounding floor at S != 8
     only, with the planted faults wherever it was needed; NCC's combined
     g and H within NCC_COMBINED_REL), the kernel timed by `_graph_ms`,
     the plain form by CUDA events, with the
-    launch's bound. Returns the row."""
+    launch's bound; `bf16`, both with the bfloat16-operand flag (the
+    window in `args` already rounded). Returns the row."""
     s = args[2].shape[0]
 
     def run(*a):
-        return tk.lk_fused_chain_raw(*a, am=am, j0=j0, kind=kind, blur=blur)
+        return tk.lk_fused_chain_raw(*a, am=am, j0=j0, kind=kind, blur=blur,
+                                     bf16=bf16)
 
     got = run(*args)
     torch.cuda.synchronize()
-    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind, blur=blur)
+    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind, blur=blur,
+                                 bf16=bf16)
     err_v = float((got[0] - want[0]).abs().max())
     v, planted = _sums_verdict(
         torch, run, args, got, want, lambda: chain_sum_scales(
@@ -1416,7 +1499,7 @@ def _chain_row(torch, tk, args, j0, am, esm, kind, blur, name, card,
     del got, want
     row["ms"] = _graph_ms(torch, lambda: run(*args))
     row["plain_ms"] = _time_ms(torch, lambda: tk.lk_fused_chain_ref(
-        *args, am=am, j0=j0, kind=kind, blur=blur), plain_reps)
+        *args, am=am, j0=j0, kind=kind, blur=blur, bf16=bf16), plain_reps)
     (row["bound_ms"], row["bound_by"], row["bytes"],
      row["flops"]) = _bound_ms(torch, args, am, esm, kind, blur)
     extra = ("" if am != "ncc" else
@@ -1915,7 +1998,7 @@ def _is_tie(df: float, scale: float) -> bool:
 
 def _plain_path_check(sm, key, am, frames, corners, label,
                       interp="linear_mm", cfg=None, ssm="8", boundary=None,
-                      planted=None):
+                      planted=None, lm_ties=True):
     """The same trackers on the plain path (CPU tensors: the kernels'
     plain forms) agree with the CUDA path, each tracker within
     PLAIN_PATH_TOL_PX; a tracker named in `boundary` {index: why} is held
@@ -1927,9 +2010,12 @@ def _plain_path_check(sm, key, am, frames, corners, label,
     decided otherwise, the change of f must be a tie (`_is_tie`).
     `planted` names a fault (PLAIN_PATH_FAULT: the CUDA path updates on
     frames rolled by one column) to run with, which the check must
-    reject: it then fails unless the verdict is a failure. Returns (the
-    largest difference of the other trackers, the disagreements, the
-    verdict)."""
+    reject: it then fails unless the verdict is a failure. `lm_ties`
+    False reports the LM decisions the plain path would have taken
+    otherwise without holding them to ties (`interp_bf16`, whose weights'
+    rounding parts the two paths' objectives beyond float32 ties: ROADMAP
+    Queue 3, item 18). Returns (the largest difference of the other
+    trackers, the disagreements, the verdict)."""
     from mtf_tpu_torch import create_tracker
     from mtf_tpu_torch.sm.grid import GridTracker, SubTrackerGrid
     cfg = cfg if cfg is not None else cfg_of(key, interp)
@@ -1967,7 +2053,7 @@ def _plain_path_check(sm, key, am, frames, corners, label,
     named = np.isin(np.arange(len(sub)), list(boundary))
     diff = float(per[~named].max())
     non_ties = [d for d in log["disagree"] if not d["tie"]]
-    ok = (diff < PLAIN_PATH_TOL_PX and not non_ties
+    ok = (diff < PLAIN_PATH_TOL_PX and not (non_ties and lm_ties)
           and all(per[i] < PLAIN_PATH_BOUNDARY_TOL_PX for i in boundary))
     fault = f" (planted: {planted})" if planted else ""
     print(f"{label} plain-path check{fault}: {PLAIN_PATH_TRACKERS} "
@@ -1979,7 +2065,8 @@ def _plain_path_check(sm, key, am, frames, corners, label,
           + (f"; teacher-forced LM: {log['calls']} decisions, f of the two "
              f"paths parting by up to {log['f_dev']:.3g} tie bounds, "
              f"{len(log['disagree'])} the plain path would have taken "
-             f"otherwise ({len(non_ties)} not ties): "
+             f"otherwise ({len(non_ties)} not ties"
+             + ("" if lm_ties else ", not held under interp_bf16") + "): "
              + json.dumps(log["disagree"][:10])
              + (" ..." if len(log["disagree"]) > 10 else "")
              if log["calls"] else "")
@@ -1991,8 +2078,8 @@ def _plain_path_check(sm, key, am, frames, corners, label,
         _check(diff < PLAIN_PATH_TOL_PX,
                f"{label}: CUDA path vs plain path corners differ by {diff} "
                f"px (per tracker {per.tolist()})")
-        _check(not non_ties, f"{label}: LM decisions that are not ties: "
-               f"{non_ties}")
+        _check(not (non_ties and lm_ties), f"{label}: LM decisions that "
+               f"are not ties: {non_ties}")
         for i, why in boundary.items():
             _check(per[i] < PLAIN_PATH_BOUNDARY_TOL_PX,
                    f"{label}: tracker {i} ({why}) differs by {per[i]} px")
@@ -2023,9 +2110,9 @@ def _k5_operands(torch, corners, frame_d, dev, key="rklt", cfg=None):
     calls, real = [], grid_mod.grid_flow
 
     def record(win, pts, templ, scale, n, n_iters, zncc=True,
-               kind="linear"):
+               kind="linear", bf16=False):
         calls.append((win, pts, templ, scale, n, n_iters, kind))
-        return real(win, pts, templ, scale, n, n_iters, zncc, kind)
+        return real(win, pts, templ, scale, n, n_iters, zncc, kind, bf16)
 
     grid_mod.grid_flow = record
     try:
@@ -2891,6 +2978,10 @@ SLICE13_API_FRAMES = 10  # frames the APIs track
 SLICE13_API_TOL_PX = 1e-4     # the APIs' corners against run_mtf's
 SLICE13_CKPT_AT = 5      # fleet updates before the checkpoint
 SLICE13_BUDGET_S = 60.0
+# eval_suite's frames: each configuration's first 7 updates of its 20-frame
+# sequence (the same frames: a shorter draw of one seed is its prefix), its
+# budget held on their worst error (the fclm legs run 1.3-1.4 s an update)
+SLICE13_SUITE_FRAMES = 8
 SLICE13_FLEET_SIGMA = "0.005"  # run_mtf's syn_sigma: 40x30-px regions
 # the three protocols, then the failure path forced (a threshold under the
 # tracking noise: every object fails, skips 2 frames and is re-initialised
@@ -3182,10 +3273,10 @@ def _slice13_phase(torch, tk, gf, card, dev):
     run_mtf's three legs (fclk/ssd K1, esm/ncc K2 + K3, rklt/ssd K5 + K3)
     in-process with `--write_outputs --reinit_on_failure`; the fleet
     protocol against single runs; the APIs; a checkpoint and the
-    profiler; the port's eval_suite at 20 frames. Each check fails the
-    run. Each stage's seconds are kept; SLICE13_BUDGET_S is the aim of the
-    stages before eval_suite, whose generic MI and CCRE legs alone take
-    longer (`PERF.md` §5)."""
+    profiler; the port's eval_suite at SLICE13_SUITE_FRAMES frames. Each
+    check fails the run. Each stage's seconds are kept; SLICE13_BUDGET_S
+    is the aim of the stages before eval_suite, whose generic MI and CCRE
+    legs alone take longer (`PERF.md` §5)."""
     import tempfile
 
     from mtf_tpu_torch.apps import eval_suite
@@ -3215,7 +3306,7 @@ def _slice13_phase(torch, tk, gf, card, dev):
         t = lap("apis", t)
         out["checkpoint"] = _slice13_checkpoint_profile(torch, dev, seq, tmp)
         t = lap("checkpoint_profile", t)
-    rc = eval_suite.main(["--n_frames", "20"])
+    rc = eval_suite.main(["--n_frames", str(SLICE13_SUITE_FRAMES)])
     lap("eval_suite", t)
     _check(rc == 0, "eval_suite: a configuration missed its budget")
     out["stages_s"] = stages
@@ -3842,6 +3933,605 @@ def synthetic_sequence_host(torch, dev):
     return frames.cpu().numpy(), gt
 
 
+# -- slice 15: per-tracker frames (update_multi) and the options ---------
+# The per-tracker legs: SLICE15_SEQS synthetic sequences of the GT leg
+# (6 frames, sigma 0.004) at seeds SLICE15_SEQ_SEEDS, drawn with the
+# fleet's homography over all B trackers' corners; tracker b reads
+# sequence b mod SLICE15_SEQS. Frame 0 is the scene in every sequence, so
+# the fleet initialises on it, shared.
+SLICE15_SEQS = 8
+SLICE15_SEQ_SEEDS = tuple(range(3, 3 + SLICE15_SEQS))
+SLICE15_STEPS = 20       # the timed window: update_multi calls, then update
+SLICE15_REORDER_PX = 1e-5  # update_multi on copies vs update, where a
+                           # path reorders sums (none known: bit for bit)
+SLICE15_MEM_MARGIN = 4 * 2 ** 30   # the sub-tracker grid's leg: its peak
+                                   # over its frames' bytes
+SLICE15_GT_TRACKERS = 8  # the trackers the JAX reading covers, but for
+# the deterministic option legs that lose trackers on the card, read over
+# more of them: a share lost is not read from 8
+SLICE15_READ_TRACKERS = {"fclk_ssd_crop_blocks": 128,
+                         "fclk_ssd_constant": 128}
+SLICE15_BUDGET_S = 90.0
+B_SLICE15_DFT = 256
+B_SLICE15_BORDER = 1024
+B_SLICE15_ROUTING = 256  # the 3-update runs of every flagged mode and kind
+
+
+def slice15_family():
+    """The per-tracker fleets at the earlier slices' widths: {name: (SM
+    key, AM, SSM key, B, configuration, launches per update, seeds)};
+    `seeds` (None: one run) seed the draws of the stochastic and learned
+    fleets, each seed a run of the leg."""
+    sub = ssm_family()["subgrid"]
+    return {
+        "pf500": ("pffc", "ssim", "8", B_PF, PF500_CFG, {}, GT_SEEDS),
+        "nn1k": ("nnic", "mi", "8", B_NN, NN1K_CFG, {}, GT_SEEDS),
+        "lpfc_ssd": ("lpfc", "ssd", "8", B, slice_cfg(),
+                     {"ssd": MAX_ITERS}, GT_SEEDS),
+        "gtrn_ssd": ("gtrn", "ssd", "8", B_GTRN, slice_cfg(), {}, GT_SEEDS),
+        "subgrid": ("grid", "ssd", "8", B_RKLT, sub[4], sub[5], (None,)),
+        "dft_fclk": ("dft", "ssd", "8", B_SLICE15_DFT,
+                     dict(slice_cfg(), dft_sm="fclk"),
+                     {"ssd_mc": MAX_ITERS}, (None,)),
+        "pfrk": ("pfrk", "ssd", "8", B_PF, stochastic_routing()["pfrk"][4],
+                 {"ssd_esm": MAX_ITERS, "grid_flow@linear": K5_PER_UPDATE},
+                 GT_SEEDS),
+    }
+
+
+def slice15_options():
+    """The option legs on the shared-frame GT leg: {name: (SM key, AM, SSM
+    key, B, configuration, launches per update, seeds)}. crop_blocks
+    takes no coarse phases: the JAX package's blocked sampler raises on a
+    coarse phase's decimated grid (ROADMAP Queue 3)."""
+    return {
+        "fclk_ssd_bf16": ("fclk", "ssd", "8", B,
+                          dict(slice_cfg(), interp_bf16=True),
+                          {"ssd+bf16": MAX_ITERS}, (None,)),
+        "rklt_ssd_bf16": ("rklt", "ssd", "8", B_RKLT,
+                          dict(rklt_cfg(), interp_bf16=True),
+                          {"ssd_esm+bf16": MAX_ITERS,
+                           "grid_flow@linear+bf16": K5_PER_UPDATE}, (None,)),
+        "pf500_bf16": ("pffc", "ssim", "8", B_PF,
+                       dict(PF500_CFG, interp_bf16=True), {}, GT_SEEDS),
+        "fclk_ssd_crop_blocks": ("fclk", "ssd", "8", B,
+                                 dict(slice_cfg(), coarse_pt_iters=(),
+                                      crop_blocks=(2, 2)), {}, (None,)),
+        "fclk_ssd_constant": ("fclk", "ssd", "8", B_SLICE15_BORDER,
+                              dict(slice_cfg(), interp="linear",
+                                   border="constant"), {}, (None,)),
+        "fclk_ssd_highest": ("fclk", "ssd", "8", B,
+                             dict(slice_cfg(), interp_precision="highest"),
+                             {"ssd": MAX_ITERS}, (None,)),
+    }
+
+
+def slice15_corners(name, b):
+    """The corners of a slice-15 leg: `_corners(b)`; for the constant
+    border's leg, every odd tracker moved left until a quarter of its
+    template lies beyond the frame's left edge."""
+    c = _corners(b)
+    if name == "fclk_ssd_constant":
+        half = (c[1::2, 1, 0] - c[1::2, 0, 0]) / 2
+        c[1::2, :, 0] += (0.5 * half + 0.37 - c[1::2, :, 0].mean(1))[:, None]
+    return c
+
+
+def slice15_sequences(scene, corners, ssm):
+    """The SLICE15_SEQS sequences of the per-tracker legs: (frames (S, 6,
+    H, W) on the SSM's device, GT (S, 6, B, 4, 2))."""
+    from mtf_tpu_torch.utils.synth import synthetic_sequence
+    out = [synthetic_sequence(scene, corners, ssm, n_frames=6,
+                              sigma_scale=0.004, seed=sd)
+           for sd in SLICE15_SEQ_SEEDS]
+    import torch
+    return (torch.stack([f for f, _ in out]),
+            np.stack([np.asarray(g) for _, g in out]))
+
+
+# The JAX package's readings of the slice-15 legs on the CPU
+# (scripts/port_slice15_reference_leg.py), first SLICE15_GT_TRACKERS
+# trackers: {name: (the worst seed's mean px, each seed's median px (the
+# mean of the per-frame medians), the most trackers lost of the 8)}.
+# Per frame (seed 0; the script prints every seed's): pf500 mean 0.1613,
+# 0.1408, 0.1254, 0.1261, 0.3847 (tracker 3 lost); nn1k median 0.3092,
+# 0.3461, 0.3423, 0.5769, 0.8245 (5 lost; 3 and 6 at seeds 1 and 2);
+# lpfc 0.1129, 0.0926, 0.0967, 0.076, 0.0939 (every seed the same to 4
+# decimals); gtrn median 1.2773, 1.9965,
+# 3.0443, 2.7108, 4.7448 (all 8 lost at every seed, as on the shared
+# leg); subgrid 0.1923, 0.1695, 0.1924, 0.1943, 0.2063; dft_fclk 0.0503,
+# 0.0509, 0.0396, 0.0423, 0.0439; pfrk (the JAX parts) 0.1163, 0.1002,
+# 0.1083, 0.092, 0.0899; fclk bf16 0.1132, 0.0818, 0.0942, 0.0644,
+# 0.0748; rklt bf16 0.1164, 0.0953, 0.1159, 0.0781, 0.0934; pf500 bf16
+# 0.1195, 0.1248, 0.1419, 0.1061, 0.108; over 128 trackers: crop_blocks
+# median 0.1232, 0.1081, 0.1054, 0.0818, 0.0654 (16 lost), the constant
+# border's 64 inner trackers median 0.1119, 0.1074, 0.0941, 0.0935,
+# 0.0684 (6 lost; within 0.0013 px of the replicate run), its 64 across
+# the edge all lost (median 3.3459 px, at least 1.67 px from the
+# replicate run: the zero border stays where the scene moves, so their
+# templates' outer quarter contradicts every frame); interp_precision
+# highest 0.1107, 0.0837, 0.0923, 0.0646, 0.0731 (the default's).
+SLICE15_JAX_READING = {
+    "pf500": (0.1877, (0.1228, 0.1280, 0.1227), 1),
+    "nn1k": (1.5828, (0.4798, 0.3422, 0.7623), 6),
+    "lpfc_ssd": (0.0944, (0.0901, 0.0901, 0.0901), 0),
+    "gtrn_ssd": (3.8938, (2.7547, 3.5662, 2.5987), 8),
+    "subgrid": (0.1910, (0.1560,), 0),
+    "dft_fclk": (0.0454, (0.0432,), 0),
+    "pfrk": (0.1019, (0.1010, 0.0998, 0.1023), 0),
+    "fclk_ssd_bf16": (0.0857, (0.0824,), 0),
+    "rklt_ssd_bf16": (0.0998, (0.0993,), 0),
+    "pf500_bf16": (0.1557, (0.1147, 0.1157, 0.1187), 0),
+    "fclk_ssd_crop_blocks": (0.1902, (0.0968,), 16),   # of 128
+    "fclk_ssd_constant": (0.3079, (0.0951,), 6),   # of its 64 inner ones
+    "fclk_ssd_highest": (0.0849, (0.0805,), 0),
+}
+# the legs whose draws differ between the packages (the PF's, NN's, LP's
+# and RegNet's): each card seed another sample of the same distribution
+SLICE15_DRAWS_DIFFER = ("pf500", "nn1k", "lpfc_ssd", "gtrn_ssd", "pfrk",
+                        "pf500_bf16")
+
+
+def slice15_limits(name, n):
+    """How a slice-15 leg of n trackers is held. A leg whose draws differ
+    between the packages (SLICE15_DRAWS_DIFFER), or one that loses
+    trackers in the JAX package: ("median", `learned_limit` of the JAX
+    seeds' medians, the most it may lose: the JAX package's worst count
+    of the trackers it read (8, or SLICE15_READ_TRACKERS), plus one where
+    the draws differ (a reading of 8 trackers resolves a share to one in
+    8; over a wider reading, 3 binomial standard deviations of its count),
+    as a share of n, plus LOST_MARGIN); else ("mean", the JAX mean's
+    `gt_limit`, 0)."""
+    mean, medians, lost = SLICE15_JAX_READING[name]
+    if lost == 0 and name not in SLICE15_DRAWS_DIFFER:
+        return "mean", gt_limit(mean), 0
+    lost += name in SLICE15_DRAWS_DIFFER
+    read = SLICE15_READ_TRACKERS.get(name, SLICE15_GT_TRACKERS)
+    if name == "fclk_ssd_constant":
+        read //= 2                            # its inner trackers
+    share = lost / read + LOST_MARGIN
+    if read > SLICE15_GT_TRACKERS:
+        # a wider reading: its count plus 3 binomial standard deviations
+        share += 3 * np.sqrt(max(lost, 1) * (1 - lost / read)) / read
+    return "median", learned_limit(medians), min(n, int(np.ceil(share * n)))
+
+
+def _slice15_held(e, name, label):
+    """A slice-15 leg's errors e (B, 5) held by `slice15_limits`; returns
+    its row."""
+    rule, limit, max_lost = slice15_limits(name, len(e))
+    e = np.where(np.isfinite(e), e, np.inf)     # a non-finite tracker: lost
+    mean = float(np.mean(e))
+    med = float(np.median(e, 0).mean())
+    lost = int((~(e.max(1) <= LOST_PX)).sum())
+    first = float(np.mean(e[:SLICE15_GT_TRACKERS]))
+    print(f"{label} GT: mean {mean:.4f} px, median {med:.4f} px (per frame "
+          f"{[round(float(x), 4) for x in np.median(e, 0)]}), {lost} of "
+          f"{len(e)} lost; first {SLICE15_GT_TRACKERS} trackers' mean "
+          f"{first:.4f}; held by the {rule} (limit {limit:.4f} px"
+          + (f", at most {max_lost} lost" if rule == "median" else "")
+          + f"; JAX reading {SLICE15_JAX_READING[name]})")
+    if rule == "mean":
+        _check(np.isfinite(mean) and mean <= limit,
+               f"{label} GT mean {mean} px (limit {limit})")
+    else:
+        _check(np.isfinite(med) and med <= limit,
+               f"{label} GT median {med} px (limit {limit})")
+        _check(lost <= max_lost, f"{label}: {lost} lost (limit {max_lost})")
+    return {"gt_px": mean, "gt_median_px": med, "lost": lost,
+            "first8_px": first, "rule": rule, "limit_px": limit}
+
+
+def _slice15_counts(tk, gf, expect, n, label):
+    """The launch counts since the last zeroing, each exactly expect x n
+    (0 for a kernel not named); added to MAIN_PATH_LAUNCHES."""
+    counts = _counts(tk, gf)
+    MAIN_PATH_LAUNCHES.update(counts)
+    for name, got in counts.items():
+        want = expect.get(name, 0)
+        lo, hi = want if isinstance(want, tuple) else (want, want)
+        _check(lo * n <= got <= hi * n, f"{label}: {name} launched {got} "
+               f"times in {n} updates (expected {want} per update)")
+    return {k: counts[k] for k in expect}
+
+
+def _slice15_fleet(torch, tk, gf, card, dev, name, spec, frame0, frame_d):
+    """One per-tracker fleet of `slice15_family` at its B: (a)
+    `update_multi` on B copies of a frame against `update` on it (bit for
+    bit, else within SLICE15_REORDER_PX); (b) the per-tracker GT leg at
+    each seed, tracker b on sequence b mod SLICE15_SEQS (`_slice15_held`);
+    for the sub-tracker grid the peak memory of its leg over what it held
+    before, under the frames' bytes plus SLICE15_MEM_MARGIN; (c) exact
+    launches and (d) a timed window of SLICE15_STEPS `update_multi` calls
+    on one update's frames, then as many `update` calls on the scene.
+    Returns its row."""
+    from mtf_tpu_torch import create_tracker
+    from mtf_tpu_torch.parallel import TrackerFleet
+    from mtf_tpu_torch.ssm import get_ssm
+    key, am, ssm, b, cfg, expect, seeds = spec
+    label = f"slice 15 {name} ({key}/{am}/{ssm}) update_multi"
+    t0 = time.perf_counter()
+    corners = slice15_corners(name, b)
+    seqs, gts = slice15_sequences(frame0, corners,
+                                  get_ssm("8", device=dev))
+    idx = torch.arange(b, device=dev) % SLICE15_SEQS
+    sel = np.arange(b) % SLICE15_SEQS
+    row = {"B": b, "seeds": {}}
+    start = None
+    for i, seed in enumerate(seeds):
+        sm = create_tracker(key, am, ssm, device=dev,
+                            **(cfg if seed is None else dict(cfg, seed=seed)))
+        st = sm.initialize(seqs[0, 0], corners)
+        if i == 0:
+            # (a) B copies of one frame against the shared frame
+            f1 = seqs[0, 1]
+            a = sm.corners(sm.update_multi(
+                st, f1.expand((b,) + tuple(f1.shape)).contiguous()))
+            u = sm.corners(sm.update(st, f1))
+            row["copies_exact"] = bool(torch.equal(a, u))
+            row["copies_px"] = float((a - u).abs().max())
+            print(f"{label}: on {b} copies of a frame against update: "
+                  + ("bit for bit" if row["copies_exact"] else
+                     f"max {row['copies_px']:.3g} px"))
+            _check(row["copies_exact"]
+                   or row["copies_px"] <= SLICE15_REORDER_PX,
+                   f"{label}: update_multi on copies {row['copies_px']} px "
+                   f"from update")
+            del a, u
+            start = (sm, st)         # the timed window's start, below
+        # (b) the per-tracker GT leg
+        fleet = TrackerFleet(sm)
+        if name == "subgrid":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        errs = []
+        for t in range(1, seqs.shape[1]):
+            st = fleet.update_multi(st, seqs[idx, t])
+            c = fleet.corners(st).cpu().numpy().transpose(0, 2, 1)
+            errs.append(np.linalg.norm(c - gts[sel, t, np.arange(b)],
+                                       axis=-1).mean(-1))
+        if name == "subgrid":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            frames_b = b * seqs[0, 0].numel() * 4
+            row["peak_bytes"], row["frames_bytes"] = peak, frames_b
+            print(f"{label}: peak {peak / 2**30:.3f} GiB over its leg, "
+                  f"against its per-tracker frames' {frames_b / 2**30:.3f} "
+                  f"GiB + {SLICE15_MEM_MARGIN / 2**30:.0f} GiB ({card})")
+            _check(peak <= frames_b + SLICE15_MEM_MARGIN,
+                   f"{label}: peak {peak} B over its leg")
+        row["seeds"][str(seed)] = _slice15_held(
+            np.stack(errs, 1), name, f"{label} seed {seed}")
+    # (c), (d): exact launches, update_multi and update timed, from the
+    # first seed's init
+    sm, st = start
+    fleet = TrackerFleet(sm, donate=True)
+    frames1 = seqs[idx, 1]
+    st = fleet.update_multi(st, frames1)
+    torch.cuda.synchronize()
+    _zero_counts(tk, gf)
+    t1 = time.perf_counter()
+    for _ in range(SLICE15_STEPS):
+        st = fleet.update_multi(st, frames1)
+    torch.cuda.synchronize()
+    row["update_multi_ms"] = (time.perf_counter() - t1) / SLICE15_STEPS * 1e3
+    row["launches"] = _slice15_counts(tk, gf, expect, SLICE15_STEPS, label)
+    del frames1
+    _zero_counts(tk, gf)
+    t1 = time.perf_counter()
+    for _ in range(SLICE15_STEPS):
+        st = fleet.update(st, frame_d)
+    torch.cuda.synchronize()
+    row["update_ms"] = (time.perf_counter() - t1) / SLICE15_STEPS * 1e3
+    _slice15_counts(tk, gf, expect, SLICE15_STEPS, f"{label} (update)")
+    # RegNet's step can grow a lost tracker's scale to float32 overflow
+    # (SLICE10_NOT_FINITE); the others none
+    bad = int((~torch.isfinite(fleet.corners(st)).flatten(1).all(1)).sum())
+    limit = (not_finite_limit(SLICE10_NOT_FINITE["gtrn_ssd"])
+             if name == "gtrn_ssd" else 0)
+    row["not_finite"] = bad
+    _check(bad <= limit, f"{label}: {bad} trackers' corners not finite "
+           f"(limit {limit})")
+    row["fps_multi"] = b / row["update_multi_ms"] * 1e3
+    row["fps"] = b / row["update_ms"] * 1e3
+    row["wall_s"] = time.perf_counter() - t0
+    print(f"{label} B={b}: update_multi {row['update_multi_ms']:.2f} ms "
+          f"({row['fps_multi']:.1f} frames/s), update "
+          f"{row['update_ms']:.2f} ms ({row['fps']:.1f} frames/s); launches "
+          f"{row['launches']} per {SLICE15_STEPS} updates; "
+          f"{row['wall_s']:.1f} s ({card})")
+    return row
+
+
+def _slice15_option(torch, tk, gf, card, dev, name, spec, frame0, frame_d):
+    """One option leg of `slice15_options`: WARMUP updates through the
+    entry points with exact launches (`_fleet`), the shared GT leg at each
+    seed (`_slice15_held`), the plain-path check of the flagged kernels'
+    legs, and for the constant border the replicate run's corners, which
+    must differ on every tracker that crosses the edge. Returns its
+    row."""
+    from mtf_tpu_torch import create_tracker
+    key, am, ssm, b, cfg, expect, seeds = spec
+    label = f"slice 15 {name} ({key}/{am}/{ssm})"
+    t0 = time.perf_counter()
+    corners = slice15_corners(name, b)
+    sm, _, got = _fleet(torch, key, am, b, card, corners, frame_d, dev, tk,
+                        gf, expect, windows=0, cfg=cfg, label=label)
+    row = {"B": b, "launches": got, "seeds": {}}
+    frames = None
+    for seed in seeds:
+        sm_s = sm if seed is None else create_tracker(
+            key, am, ssm, device=dev, **dict(cfg, seed=seed))
+        e, frames = _gt_errors(sm_s, frame0, corners)
+        if name == "fclk_ssd_constant":
+            # the trackers across the edge are lost in the JAX package too
+            # (SLICE15_JAX_READING): the inner ones are held, the edge
+            # ones' change with the border is checked below
+            edge = np.where(np.isfinite(e[1::2]), e[1::2], np.inf)
+            row["edge_median_px"] = float(np.median(edge, 0).mean())
+            row["edge_lost"] = int((~(edge.max(1) <= LOST_PX)).sum())
+            print(f"{label}: the {len(edge)} trackers across the edge: "
+                  f"median {row['edge_median_px']:.4f} px, "
+                  f"{row['edge_lost']} lost (the JAX package: 3.3459 px, "
+                  f"all 64 of its 128 lost)")
+            e = e[0::2]
+        row["seeds"][str(seed)] = _slice15_held(e, name,
+                                                f"{label} seed {seed}")
+    if name in ("fclk_ssd_bf16", "rklt_ssd_bf16"):
+        row["plain_path_px"] = _plain_path_check(
+            sm, key, am, frames, corners, label, cfg=cfg, lm_ties=False)[0]
+    if name == "fclk_ssd_constant":
+        rep = create_tracker(key, am, ssm, device=dev,
+                             **dict(cfg, border="replicate"))
+        c_con = sm.corners(sm.update(sm.initialize(frame_d, corners),
+                                     frames[1]))
+        c_rep = rep.corners(rep.update(rep.initialize(frame_d, corners),
+                                       frames[1]))
+        d = (c_con - c_rep).abs().flatten(1).amax(1).cpu().numpy()
+        d = np.where(np.isnan(d), np.inf, d)        # one went non-finite
+        row["edge_min_px"] = float(d[1::2].min())
+        row["inner_max_px"] = float(d[0::2].max())
+        print(f"{label}: constant against replicate corners: the edge "
+              f"trackers differ by {row['edge_min_px']:.4f} px at least, "
+              f"the inner ones by {row['inner_max_px']:.3g} at most")
+        _check(row["edge_min_px"] > 1e-3, f"{label}: an edge tracker's "
+               f"corners do not change with the border")
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+def _slice15_precision(torch, tk, gf, card, dev, frame_d):
+    """`interp_precision="highest"` on fclk/ssd/8 (B): 3 updates with the
+    same corners, bit for bit, and the same launches as the default."""
+    from mtf_tpu_torch import create_tracker
+    out = []
+    for cfg in (slice_cfg(), dict(slice_cfg(), interp_precision="highest")):
+        sm = create_tracker("fclk", "ssd", "8", device=dev, **cfg)
+        st = sm.initialize(frame_d, _corners(B))
+        _zero_counts(tk, gf)
+        for _ in range(WARMUP):
+            st = sm.update(st, torch.roll(frame_d, (1, 1), (0, 1)))
+        out.append((sm.corners(st), _slice15_counts(
+            tk, gf, {"ssd": MAX_ITERS}, WARMUP,
+            f"slice 15 fclk/ssd interp_precision {cfg.get('interp_precision')}"
+        )))
+    same = bool(torch.equal(out[0][0], out[1][0]))
+    print(f"slice 15 interp_precision highest against the default: corners "
+          f"{'equal' if same else 'differ'}, launches {out[1][1]} / "
+          f"{out[0][1]} ({card})")
+    _check(same and out[0][1] == out[1][1], "interp_precision highest "
+           "changed the corners or the launches")
+    return {"equal": same, "launches": out[1][1]}
+
+
+def _k5_bf16_check(torch, gf, call, name, card):
+    """One recorded grid-flow call with the bfloat16-operand flag (the
+    window rounded) against its plain form under the flag. A bfloat16
+    weight turns a float32 ulp of a point's coordinate into a bfloat16
+    one, and the two forms sum the displacement in different orders, so
+    after the first iteration their coordinates part by ulps: the call is
+    held iteration by iteration on the plain form's trajectory (each
+    iteration's step from the same points, by K5_TOL, K5_OVER_SHARE and
+    K5_MAX); the whole launch's difference is printed beside it. Timed as
+    `_k5_check`. Returns its row."""
+    win, pts, templ, scale, n, n_iters, kind = call
+    win = win.bfloat16().float()
+    args = (win, pts, templ, scale, n, n_iters, True, kind, True)
+    got = gf.grid_flow(*args)
+    want = gf.grid_flow_ref(*args)
+    whole = float((got - want).abs().max())
+    disp, steps = torch.zeros_like(want), []
+    for _ in range(n_iters):
+        off = (disp * scale[:, None, None]).repeat_interleave(n, dim=1)
+        p_it = (pts + off.transpose(1, 2)).contiguous()
+        step_k = gf.grid_flow(win, p_it, templ, scale, n, 1, True, kind, True)
+        step_p = gf.grid_flow_ref(win, p_it, templ, scale, n, 1, True, kind,
+                                  True)
+        steps.append((step_k - step_p).abs().flatten())
+        disp = disp + step_p
+    d = torch.cat(steps)
+    row = dict(n=n, iters=n_iters, kind=kind, err=float(d.max()),
+               whole_err=whole, n_over=int((d > K5_TOL).sum()),
+               n_steps=d.numel() // 2)
+    print(f"{name}: per-iteration |ddisp| max {row['err']:.3g}, "
+          f"{row['n_over']} of {row['n_steps']} patch steps over {K5_TOL}; "
+          f"the whole launch {whole:.3g}")
+    _check(row["err"] <= K5_MAX and row["n_over"] <= K5_OVER_SHARE
+           * row["n_steps"], f"{name}: cuda vs plain per-iteration disp "
+           f"{row['err']} (limit {K5_MAX}), {row['n_over']} over {K5_TOL}")
+    row["ms"] = _graph_ms(torch, lambda: gf.grid_flow(*args))
+    row["plain_ms"] = _time_ms(torch, lambda: gf.grid_flow_ref(*args), 2)
+    (row["bound_ms"], row["bound_by"], row["bytes"],
+     row["flops"]) = _k5_bound(torch, win, pts, want, scale, n, n_iters,
+                               kind)
+    print(f"{name} B={win.shape[0]} n={n} iters={n_iters}: cuda "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) ({card})")
+    return row
+
+
+def _slice15_kernels(torch, tk, gf, card, dev, frames, rows, rows_k5):
+    """The flagged instantiations against their plain forms under the flag
+    at S = 8, N = 2500 (`_chain_row` on a window rounded to bfloat16:
+    every mode with each tap kind, the multi-channel one at C = 3), each
+    timed beside its unflagged row of `rows`; K5 and K5c flagged at both
+    rklt levels (`_k5_bf16_check`) beside `rows_k5`. Returns ({mode:
+    row}, {kind: {level: row}})."""
+    out = {}
+    for am, esm, c, kind, b in _kernel_specs():
+        if c not in (1, 3):
+            continue
+        mode = tk.mode_name(am, esm, c > 1, kind, bf16=True)
+        args, j0 = _chain_inputs(torch, frames[c], N_POINTS[-1], b, am, esm,
+                                 dev)
+        args = (args[0].bfloat16().float(),) + tuple(args[1:])
+        row = _chain_row(torch, tk, args, j0, am, esm, kind, 0,
+                         f"{_label(am, esm, c > 1, kind)} {mode} C={c} "
+                         f"N={N_POINTS[-1]} B={b}", card, 1, bf16=True, b=b,
+                         c=c)
+        row["unflagged_ms"] = rows[(tk.mode_name(am, esm, c > 1, kind),
+                                    N_POINTS[-1], c)]["ms"]
+        out[mode] = row
+        del args, j0
+    torch.cuda.empty_cache()
+    k5 = {}
+    corners = _corners(B_RKLT)
+    for kind in KINDS:
+        k5[kind] = {}
+        for call in _k5_operands(torch, corners, frames[1], dev,
+                                 cfg=cfg_of("rklt", f"{kind}_mm")):
+            level = "1" if call[5] > 1 else "0"
+            name = "K5" if kind == "linear" else "K5c"
+            r = _k5_bf16_check(torch, gf, call, f"{name}+bf16 {kind} rklt "
+                               f"level {level}", card)
+            r["unflagged_ms"] = rows_k5[kind][level]["ms"]
+            k5[kind][level] = r
+    return out, k5
+
+
+def slice15_bf16_routing(tk):
+    """Every flagged instantiation through the entry points, 3 updates at
+    B_SLICE15_ROUTING: {name: (SM key, AM, configuration, launches per
+    update)}: each chain-kernel mode with each tap kind (the mode's
+    fleet's configuration with `interp_bf16`), and rklt with each kind
+    (K5 / K5c with the flag)."""
+    out = {}
+    for kind in KINDS:
+        interp = f"{kind}_mm"
+        for key, am, m_am, esm, mc in (("fclk", "ssd", "ssd", False, False),
+                                       ("fclk", "ncc", "ncc", False, False),
+                                       ("esm", "ssd", "ssd", True, False),
+                                       ("esm", "ncc", "ncc", True, False),
+                                       ("fclk", "mcssd", "ssd", False, True)):
+            mode = tk.mode_name(m_am, esm, mc, kind, bf16=True)
+            out[f"{key}_{am}_{kind}"] = (key, am, dict(
+                slice_cfg(interp), interp_bf16=True), {mode: MAX_ITERS})
+        out[f"rklt_ssd_{kind}"] = ("rklt", "ssd", dict(
+            cfg_of("rklt", interp), interp_bf16=True),
+            {tk.mode_name("ssd", True, False, kind, bf16=True): MAX_ITERS,
+             f"grid_flow@{kind}+bf16": K5_PER_UPDATE})
+    return out
+
+
+def _slice15_phase(torch, tk, gf, card, dev, frame0, frame_d, frames, rows,
+                   rows_k5):
+    """Slice 15 on the card: the flagged kernels against their plain
+    forms (`_slice15_kernels`), the per-tracker fleets
+    (`_slice15_fleet`), the option legs (`_slice15_option`), the
+    precision check and the flagged routing runs. SLICE15_BUDGET_S is the
+    aim of the whole. Returns its rows."""
+    t0 = time.perf_counter()
+    stages, out = {}, {}
+
+    def lap(name, t_prev):
+        now = time.perf_counter()
+        stages[name] = now - t_prev
+        return now
+
+    out["kernels"], out["k5"] = _slice15_kernels(torch, tk, gf, card, dev,
+                                                 frames, rows, rows_k5)
+    t = lap("kernels", t0)
+    out["fleets"] = {}
+    for name, spec in slice15_family().items():
+        out["fleets"][name] = _slice15_fleet(torch, tk, gf, card, dev, name,
+                                             spec, frame0, frame_d)
+        torch.cuda.empty_cache()
+    t = lap("fleets", t)
+    out["options"] = {}
+    for name, spec in slice15_options().items():
+        out["options"][name] = _slice15_option(torch, tk, gf, card, dev,
+                                               name, spec, frame0, frame_d)
+        torch.cuda.empty_cache()
+    out["precision"] = _slice15_precision(torch, tk, gf, card, dev, frame_d)
+    t = lap("options", t)
+    out["routing"] = {}
+    for name, (key, am, cfg, expect) in slice15_bf16_routing(tk).items():
+        b = B_SLICE15_ROUTING
+        frm = frames[3] if am == "mcssd" else frame_d
+        _, _, got = _fleet(torch, key, am, b, card, _corners(b), frm, dev,
+                           tk, gf, expect, windows=0, cfg=cfg,
+                           label=f"slice 15 bf16 {name}")
+        out["routing"][name] = got
+    torch.cuda.empty_cache()
+    lap("routing", t)
+    out["stages_s"] = stages
+    out["phase_s"] = time.perf_counter() - t0
+    print("slice-15 stages: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in stages.items())
+          + f"; {out['phase_s']:.1f} s (aim {SLICE15_BUDGET_S} s) ({card})")
+    return out
+
+
+def _slice15_entries(tk, slice15, usage_bf16):
+    """The kernels line's entries of the flagged instantiations: each
+    chain-kernel mode and kind at S = 8 and K5 / K5c per kind, with their
+    main-path launches (the slice-15 legs and routing runs)."""
+    out = []
+    for mode, row in slice15["kernels"].items():
+        am, esm, mc, kind = next(
+            i for i in tk.INSTANTIATIONS
+            if tk.mode_name(*i, bf16=True) == mode)
+        regs, st, ld = usage_bf16["chain"][(8, am, esm, mc, kind)]
+        out.append({
+            "name": f"lk_fused_chain[{mode}] ({_label(am, esm, mc, kind)} "
+                    "with the bfloat16-operand flag)",
+            "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES + " (interp_bf16: mtf_tpu/ops/interp.py:"
+                        "269-294)",
+            "launches": MAIN_PATH_LAUNCHES[mode],
+            "max_abs_err": row["err_v"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "unflagged_ms": row["unflagged_ms"],
+            "shape": f"B={row['b']}, " + (f"C={row['c']}, " if mc else "")
+                     + f"window {CROP}x{CROP}, N=2500, {kind} taps",
+            "registers": regs, "spill_stores": st, "spill_loads": ld,
+            "max_raw_rel_err": row["err_raw"]})
+    for kind, levels in slice15["k5"].items():
+        k = "K5" if kind == "linear" else "K5c"
+        regs = [u[0] for (_, kd), u in usage_bf16["k5"].items() if kd == kind]
+        out.append({
+            "name": f"grid_flow[{kind}+bf16] ({k} with the bfloat16-operand "
+                    "flag)",
+            "route": "cuda", "source": K5_SOURCE,
+            "replaces": (K5_REPLACES if kind == "linear" else K5C_REPLACES)
+                        + " (interp_bf16: mtf_tpu/sm/grid.py:213-221)",
+            "launches": MAIN_PATH_LAUNCHES[f"grid_flow@{kind}+bf16"],
+            "max_abs_err": max(r["err"] for r in levels.values()),
+            "ms": sum(r["ms"] for r in levels.values()),
+            "plain_ms": sum(r["plain_ms"] for r in levels.values()),
+            "bound_ms": sum(r["bound_ms"] for r in levels.values()),
+            "bound_by": levels["1"]["bound_by"], "library_ms": None,
+            "unflagged_ms": sum(r["unflagged_ms"] for r in levels.values()),
+            "shape": f"rklt B={B_RKLT}, P=100, both levels",
+            "registers": [min(regs), max(regs)],
+            "by_level": {lv: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
+                                               "err", "whole_err")}
+                         for lv, r in levels.items()}})
+    return out
+
+
 # -- slice 11: the parallel layer ----------------------------------------
 B_SCALING = 64           # bench.py's strong-scaling row: 64 trackers
 SCALING_WIDTHS = (1, 2, 4, 8)
@@ -4144,9 +4834,7 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    specs = [("lk_fused_chain", {"LK_S": st}) for st in STATE_DIMS] \
-        + ["lk_fused_gn", "grid_flow"]
-    libs = _build.load_all(specs)
+    libs = _build.load_all(build_specs(tk, gf))
     build_s = time.perf_counter() - t0
     print("build: " + ", ".join(f"{k} nvcc {v.seconds:.2f} s"
                                 for k, v in libs.items())
@@ -4171,6 +4859,7 @@ def main() -> int:
                     want = REGS_S8[(am, esm, mc)][KINDS.index(kind)]
                     _check(regs == want, f"{mode}: {regs} registers, "
                            f"{want} expected (REGS_S8)")
+    usage_bf16 = _bf16_usage(tk, gf, libs)
     _check(not spilled, f"chain kernel instantiations spill: {spilled}")
     usage_gn = _ptxas_gn(libs["lk_fused_gn"].log)
     _check(sorted(usage_gn) == sorted(tk.GN_INSTANTIATIONS),
@@ -4435,6 +5124,13 @@ def main() -> int:
     slice14_s = time.perf_counter() - t14
     print(f"slice 14 phase: {slice14_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 15: per-tracker frames and the options ------------------------
+    t15 = time.perf_counter()
+    slice15 = _slice15_phase(torch, tk, gf, card, dev, frame0, frame_d,
+                             {1: frame_d, 3: frame3_d}, rows, rows_k5)
+    slice15_s = time.perf_counter() - t15
+    print(f"slice 15 phase: {slice15_s:.1f} s")
+    torch.cuda.empty_cache()
     # -- slice 11: the parallel layer ---------------------------------------
     t11 = time.perf_counter()
     parallel = _parallel_phase(torch, card)
@@ -4507,6 +5203,7 @@ def main() -> int:
         kernels.append(_k5_entry(rows_k5[kind], kind, k5_launches[kind],
                                  usage_k5,
                                  row_k5_mf if kind == "linear" else None))
+    kernels += _slice15_entries(tk, slice15, usage_bf16)
     rule = _rule_summary([rows, rows_sub, rows_gn] + list(rows_s.values())
                          + list(rows_b.values()))
     print(json.dumps({
@@ -4542,6 +5239,8 @@ def main() -> int:
         "slice13_phase_s": slice13_s,
         "slice14": slice14,
         "slice14_phase_s": slice14_s,
+        "slice15": slice15,
+        "slice15_phase_s": slice15_s,
         "parallel": parallel,
         "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,

@@ -26,11 +26,15 @@
 //            (|det| < 1e-12 -> sign(det) * 1e-12 + 1e-12); disp -= H^-1 g
 //   output   disp (2) per patch, in template units.
 //
-// The TPU kernel's bf16 window and tap weights, iota block-indicator
-// reductions, point tiles and 80-row y-bands with their in-band mask are
-// layout artifacts: here the whole window is clamped and every point is
-// live (the semantics of the JAX package's XLA path,
-// sm/grid.py:_track_patches_mm).
+// The TPU kernel's iota block-indicator reductions, point tiles and
+// 80-row y-bands with their in-band mask are layout artifacts: here the
+// whole window is clamped and every point is live (the semantics of the
+// JAX package's XLA path, sm/grid.py:_track_patches_mm). Its bf16 window
+// and tap weights are what that path computes with `interp_bf16`: a build
+// of its own here (-DGF_BF16=1) rounds the tap and derivative weights to
+// bfloat16 (dense_taps::tap_weight; the cubic weights computed in the
+// plain form's order first), the caller having rounded the window; every
+// product and sum stays float32. The build without it is unchanged.
 //
 // Layout (chosen per (n, n_iters) by ops/kernels/grid_flow.py:layout and
 // passed in): one segment of `lanes` threads per (tracker, patch), lanes a
@@ -91,6 +95,10 @@
 
 #include "dense_taps.cuh"
 
+#ifndef GF_BF16
+#define GF_BF16 0
+#endif
+
 namespace {
 
 using dense_taps::cubic_axis;
@@ -100,6 +108,7 @@ using dense_taps::kLinear;
 
 constexpr int kThreads = 256;
 constexpr int kMaxLanes = 32;
+constexpr bool kBf16 = GF_BF16 != 0;   // the bfloat16-operand flag
 
 __device__ __forceinline__ float seg_sum(float v, int lanes) {
   for (int off = lanes >> 1; off > 0; off >>= 1)
@@ -148,7 +157,13 @@ template <int kKind>
 __device__ __forceinline__ void sample_taps(const float* __restrict__ wb,
                                             int wc, float x, float y,
                                             float& v, float& gx, float& gy) {
-  if constexpr (kKind == kLinear) {
+  if constexpr (kKind == kLinear && kBf16) {
+    const float xf = floorf(x), yf = floorf(y);
+    const float* t0 = wb + ((int)yf * wc + (int)xf);
+    dense_taps::linear_taps<true>(__ldg(t0), __ldg(t0 + 1), __ldg(t0 + wc),
+                                  __ldg(t0 + wc + 1), x - xf, y - yf, v, gx,
+                                  gy);
+  } else if constexpr (kKind == kLinear) {
     const float xf = floorf(x), yf = floorf(y);
     const float fx = x - xf, fy = y - yf;
     const float* t0 = wb + ((int)yf * wc + (int)xf);
@@ -161,8 +176,8 @@ __device__ __forceinline__ void sample_taps(const float* __restrict__ wb,
     gy = fy > 0.0f ? bot - top : 0.0f;
   } else {
     float wx[4], dwx[4], wy[4], dwy[4];
-    cubic_axis<kKind>(x, wx, dwx);
-    cubic_axis<kKind>(y, wy, dwy);
+    cubic_axis<kKind, kBf16>(x, wx, dwx);
+    cubic_axis<kKind, kBf16>(y, wy, dwy);
     const float* t0 = wb + (((int)floorf(y) - 1) * wc + ((int)floorf(x) - 1));
     v = gx = gy = 0.0f;
 #pragma unroll
@@ -373,6 +388,16 @@ grid_flow_kernel_8(GRID_FLOW_PARAMS) {
   grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
 }
 
+// The bfloat16 build's cubic kinds up to 8 points per lane (their weights
+// each operation rounded on its own, then to bfloat16): ptxas's own budget
+// spilled at 4 points per lane; two blocks per SM leave up to 128
+// registers.
+template <int K, int kKind>
+__global__ void __launch_bounds__(kThreads, 2)
+grid_flow_kernel_2(GRID_FLOW_PARAMS) {
+  grid_flow_body<K, kKind>(GRID_FLOW_ARGS);
+}
+
 // 16 and 32 points per lane: one block per SM is enough, which lets ptxas
 // use up to 255 registers (with the default budget the cubic_bspl lane of
 // 16 points spills).
@@ -397,6 +422,9 @@ int launch(const void* win, const void* pts, const void* templ,
         w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
   else if constexpr (K == 8 && kKind == kLinear)
     grid_flow_kernel_8<K, kKind><<<blocks, kThreads, 0, stream>>>(
+        w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
+  else if constexpr (kBf16 && kKind != kLinear)
+    grid_flow_kernel_2<K, kKind><<<blocks, kThreads, 0, stream>>>(
         w, p, t, s, d, batch, hc, wc, n_patches, n, lanes, n_iters, zncc);
   else
     grid_flow_kernel<K, kKind><<<blocks, kThreads, 0, stream>>>(
@@ -434,18 +462,21 @@ int launch_kind(const void* win, const void* pts, const void* templ,
 // layout is `lanes` threads per patch (a power of two up to 32) of
 // `per_lane` points each (1, 2, 4, 8, 16 or 32), lanes x per_lane >= n
 // (ops/kernels/grid_flow.py:layout picks it); `kind` is 0 linear, 1 cubic,
-// 2 cubic_bspl. `stream` is the caller's CUDA stream. Returns
+// 2 cubic_bspl; `bf16` must be this build's flag (GF_BF16: 1 rounds the
+// tap and derivative weights to bfloat16, the window holding values the
+// caller rounded: the bfloat16-operand flag of `interp_bf16`). `stream` is
+// the caller's CUDA stream. Returns
 // cudaErrorInvalidValue, launching nothing, for an n, a layout or a kind
 // out of range, else cudaGetLastError() after the launch.
 extern "C" int grid_flow_launch(const void* win, const void* pts,
                                 const void* templ, const void* scale,
                                 void* disp, int batch, int hc, int wc,
                                 int n_patches, int n, int n_iters, int zncc,
-                                int kind, int lanes, int per_lane,
+                                int kind, int lanes, int per_lane, int bf16,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 1 || n > 1024 || lanes < 1 || lanes > kMaxLanes ||
-      (lanes & (lanes - 1)) || lanes * per_lane < n)
+      (lanes & (lanes - 1)) || lanes * per_lane < n || (bf16 != 0) != kBf16)
     return (int)cudaErrorInvalidValue;
   if (kind == kLinear)
     return launch_kind<kLinear>(win, pts, templ, scale, disp, batch, hc, wc,

@@ -36,6 +36,12 @@
 //                 sum val^2, sum n0 val, live count, sum n0).
 // The NCC gradient and selft Hessian are a nonlinear combine of these
 // moments, done on the host side (ncc_combine in ops/kernels/lk_fused.py).
+// The bfloat16-operand flag of `interp_bf16` is a build of its own
+// (-DLK_BF16=1: the plain-tap instantiations only, each rounding every tap
+// and derivative weight to bfloat16, dense_taps::tap_weight, from weights
+// computed in the plain form's order; the caller rounds the window), as
+// the JAX package's dense sampler with compute_dtype bfloat16 does; the
+// build without it is unchanged.
 //
 // The TPU kernel's 128-row y-bands (and their in-band mask) and its pad
 // lanes are layout artifacts: here the whole window is clamped (band == hc
@@ -121,8 +127,12 @@ using dense_taps::linear_sample;
 #ifndef LK_S
 #define LK_S 8
 #endif
+#ifndef LK_BF16
+#define LK_BF16 0
+#endif
 
 constexpr int kS = LK_S;                    // state dims (the SSM's DOF)
+constexpr bool kBf16 = LK_BF16 != 0;        // the bfloat16-operand flag
 constexpr int kMaxBlur = 8;                 // as MAX_BLUR in lk_fused.py
 constexpr int kNScal = 5;                   // NCC scalar moments
 constexpr int kMaxThreads = 256;            // a block is 1-8 warps
@@ -226,6 +236,8 @@ __device__ __forceinline__ void chain_iteration(
     float* __restrict__ scal_out, int hc, int wc, int n, int channels,
     int blur, int win_b) {
   constexpr bool kLin = kKind == kLinear;
+  // the bfloat16-operand flag: the plain taps' weights rounded
+  constexpr bool kWbf = kBf16 && !kBlur;
   // rows 0..2: M0; rows 3 + 3 s + r: row r of M0 G_s
   __shared__ float a_rows[3 + 3 * kS][3];
   // per warp (kWarpSmem floats each): tiles, then Ds, then NCC scalars
@@ -360,8 +372,8 @@ __device__ __forceinline__ void chain_iteration(
       fy = y - yf;
       t0 = wb + (size_t)((int)yf) * wc + (int)xf;
     } else {
-      cubic_axis<kKind>(x, wx, dwx);
-      cubic_axis<kKind>(y, wy, dwy);
+      cubic_axis<kKind, kWbf>(x, wx, dwx);
+      cubic_axis<kKind, kWbf>(y, wy, dwy);
       t0 = wb + (size_t)((int)floorf(y) - 1) * wc + ((int)floorf(x) - 1);
     }
 
@@ -391,7 +403,7 @@ __device__ __forceinline__ void chain_iteration(
           dy += dd * rs;
         }
       } else if constexpr (kLin) {
-        linear_sample(tc, wc, fx, fy, v, dx, dy);
+        linear_sample<kWbf>(tc, wc, fx, fy, v, dx, dy);
       } else {
         // dense_taps::cubic_sample's sum, spelled out
         v = dx = dy = 0.0f;
@@ -511,6 +523,10 @@ __device__ __forceinline__ void chain_iteration(
 // all 255 registers.
 template <bool kNcc, bool kEsm, int kKind>
 constexpr int min_blocks() {
+  // the bfloat16 build's cubic weights (each operation rounded on its own,
+  // then to bfloat16) spilled at three blocks: two, at most 128 registers,
+  // and with ESM's J0 one (it spilled at 128)
+  if (kBf16 && kKind != kLinear) return kEsm ? 1 : 2;
   if (kKind == kLinear && !kEsm) return 0;              // ptxas's own
   if (kEsm && kS == 8) return 3;
   if (kKind != kLinear && (kNcc || kEsm)) return 2;
@@ -532,6 +548,12 @@ lk_fused_chain_kernel_3(CHAIN_PARAMS) {
 template <bool kNcc, bool kEsm, bool kMc, int kKind>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lk_fused_chain_kernel_2(CHAIN_PARAMS) {
+  chain_iteration<kNcc, kEsm, kMc, kKind, false>(CHAIN_ARGS);
+}
+
+template <bool kNcc, bool kEsm, bool kMc, int kKind>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lk_fused_chain_kernel_1(CHAIN_PARAMS) {
   chain_iteration<kNcc, kEsm, kMc, kKind, false>(CHAIN_ARGS);
 }
 
@@ -567,6 +589,8 @@ void launch(const Args& a) {
     CHAIN_LAUNCH(lk_fused_chain_kernel_3);
   else if constexpr (kMin == 2)
     CHAIN_LAUNCH(lk_fused_chain_kernel_2);
+  else if constexpr (kMin == 1)
+    CHAIN_LAUNCH(lk_fused_chain_kernel_1);
   else
     CHAIN_LAUNCH(lk_fused_chain_kernel);
 #undef CHAIN_LAUNCH
@@ -590,10 +614,14 @@ bool launch_mode(const Args& a, int ncc, int esm, int mc) {
   return true;
 }
 
+// (the bfloat16 build instantiates the plain taps only)
 template <int kKind>
 bool launch_kind(const Args& a, int ncc, int esm, int mc) {
-  return a.blur > 1 ? launch_mode<kKind, true>(a, ncc, esm, mc)
-                    : launch_mode<kKind, false>(a, ncc, esm, mc);
+  if constexpr (kBf16)
+    return a.blur > 1 ? false : launch_mode<kKind, false>(a, ncc, esm, mc);
+  else
+    return a.blur > 1 ? launch_mode<kKind, true>(a, ncc, esm, mc)
+                      : launch_mode<kKind, false>(a, ncc, esm, mc);
 }
 
 }  // namespace
@@ -607,8 +635,10 @@ bool launch_kind(const Args& a, int ncc, int esm, int mc) {
 // ones (the window must hold their 2 blur or 2 blur + 2 taps per axis);
 // `warps` (1-8) the warps of each tracker's block
 // (ops/kernels/lk_fused.py:block_warps picks it); `shared` != 0 reads one
-// window (C, Hc, Wc) for every tracker in place of B. `stream` is the
-// caller's CUDA stream. Returns cudaErrorInvalidValue, launching nothing,
+// window (C, Hc, Wc) for every tracker in place of B; `bf16` must be this
+// build's flag (LK_BF16: 1 rounds the plain taps' weights to bfloat16, the
+// window holding values the caller rounded). `stream` is the caller's CUDA
+// stream. Returns cudaErrorInvalidValue, launching nothing,
 // for a combination without an instantiation or a block size out of
 // range, else cudaGetLastError() after the launch.
 extern "C" int lk_fused_chain_launch(const void* win, const void* m0,
@@ -618,14 +648,14 @@ extern "C" int lk_fused_chain_launch(const void* win, const void* m0,
                                      void* scal, int batch, int hc, int wc,
                                      int n, int channels, int ncc, int esm,
                                      int mc, int kind, int blur, int warps,
-                                     int shared, void* stream) {
+                                     int shared, int bf16, void* stream) {
   const Args a{(const float*)win, (const float*)m0, (const float*)gens,
                (const float*)ph, (const float*)templ, (const float*)j0,
                (float*)val, (float*)g, (float*)h, (float*)mom,
                (float*)scal, batch, hc, wc, n, mc ? channels : 1, blur,
                warps, shared ? 0 : 1, (cudaStream_t)stream};
   if (channels < 1 || channels > 4 || blur < 0 || blur > kMaxBlur ||
-      warps < 1 || warps > kMaxWarps)
+      warps < 1 || warps > kMaxWarps || (bf16 != 0) != kBf16)
     return (int)cudaErrorInvalidValue;
   bool ok = false;
   if (kind == kLinear)

@@ -55,10 +55,11 @@ from `members` or from the blocks of a multi.cfg (`multi_cfg=<path or
 text>`, `create_trackers_from_multi`). The tracker lives on the card
 unless `device` says otherwise (`device="cpu"` for a CPU run); without a
 card and without `device` it raises. Every SM key of the JAX factory is
-ported; another key raises `InvalidArgument`, as in the JAX package. The
-options of the JAX package the port has not ported raise
-`NotImplementedError` naming the ROADMAP item that brings them; an option
-that neither package reads is ignored (`_check_options`).
+ported; another key raises `InvalidArgument`, as in the JAX package.
+Every option the JAX factory reads is read as it reads it (`border`
+"constant" for the gather kinds, `crop_blocks`, `interp_bf16`,
+`interp_precision` among them); an option that neither package reads is
+ignored (`_check_options`).
 
 The AMs are every key of the JAX package's registry (SSD, NSSD, ZNCC,
 SAD, NCC, SSIM, SPSS, MI, CCRE, KLD, LKLD, SCV, RSCV, LSCV, LRSCV, RIU,
@@ -122,7 +123,8 @@ from mtf_tpu_torch.utils.config import read_multi_cfg
 from mtf_tpu_torch.utils.excp import InvalidArgument
 
 _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
-              "border", "crop", "coarse_pt_iters", "hess_type", "jac_type",
+              "border", "crop", "crop_blocks", "interp_bf16",
+              "interp_precision", "coarse_pt_iters", "hess_type", "jac_type",
               "enable_lm", "use_pallas", "spi_type", "spi_thresh",
               "sd_learning_rate", "learning_rate",
               # grid and RKLT (`_grid_params`)
@@ -169,9 +171,6 @@ _KNOWN_CFG = {"resx", "resy", "mtf_res", "max_iters", "epsilon", "interp",
               "feat_inlier_thresh", "feat_n_hypotheses",
               # CMT
               *("cmt_" + f for f in CMTParams.__dataclass_fields__)}
-# options the JAX package reads that the port has not ported: each raises
-# where it is set to anything but its JAX default (ROADMAP Queue 1, slice 8)
-_UNPORTED_CFG = ("crop_blocks", "interp_bf16", "interp_precision")
 # the CF and learn trackers take their parameter classes' fields, and TLD
 # its `tld_`-prefixed ones (as the JAX factory reads them)
 _BOX_CFG = {**{k: set(CFParams.__dataclass_fields__) for k in CF_REGISTRY},
@@ -393,17 +392,11 @@ def create_trackers_from_multi(path_or_text: str, device=None, **base_cfg):
 
 
 def _check_options(sm_key: str, cfg: dict) -> None:
-    """The options rule: an option of the JAX package that the port has
-    not ported raises naming its ROADMAP item; an option of another
-    tracker's vocabulary (a box tracker's fields on any other tracker)
-    raises; an option that neither package reads (a run's `syn_sigma`,
-    `pre_proc_type`, the rest of a reference .cfg directory) is ignored,
-    as the JAX factory ignores it."""
-    unported = sorted(k for k in _UNPORTED_CFG if cfg.get(k))
-    if unported:
-        raise NotImplementedError(
-            f"options {unported} are not ported yet: they come with "
-            "ROADMAP Queue 1, slice 8 (options)")
+    """The options rule: an option of another tracker's vocabulary (a box
+    tracker's fields on any other tracker) raises; an option that neither
+    package reads (a run's `syn_sigma`, `pre_proc_type`, the rest of a
+    reference .cfg directory) is ignored, as the JAX factory ignores
+    it."""
     own = _KNOWN_CFG | _BOX_CFG.get(sm_key, set())
     misplaced = sorted(k for k in cfg if k not in own and any(
         k in fields for fields in _BOX_CFG.values()))
@@ -514,6 +507,10 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         interp=str(cfg.get("interp", "linear")),
         border=str(cfg.get("border", "replicate")),
         crop=int(cfg["crop"]) if cfg.get("crop") else None,
+        crop_blocks=(tuple(int(v) for v in cfg["crop_blocks"])
+                     if cfg.get("crop_blocks") else None),
+        interp_bf16=bool(cfg.get("interp_bf16", False)),
+        interp_precision=cfg.get("interp_precision") or None,
         coarse_pt_iters=tuple(
             _stride_pair(v) for v in cfg.get("coarse_pt_iters", ())),
         # the factory's default, unlike SMParams's "self0"

@@ -5,7 +5,13 @@ Images are (H, W) or (H, W, C) float tensors; points are (..., N, 2) in
 (B, H, W, C) tensor holds one image per tracker: `sample_val_grad`,
 `sample` and `sample_dense` then read points (B, ..., N, 2) each from its
 own tracker's image.
-Border handling is 'replicate' (the slice's only border mode).
+A `FrameStack` (frames (F, H, W, C) and an index (B,)) holds the same
+per-tracker images without copies: tracker t reads frame index[t] (the
+sub-tracker grid's B·P sub-trackers read their B parents' frames).
+Border handling of the gather kinds is 'replicate' (indices clamped into
+the image) or 'constant' (a tap outside the image reads 0.0, the JAX
+package's `cval`); the dense kinds clamp coordinates (replicate) and
+ignore `border`, in both packages.
 
 `sample_val_grad` (and `sample`, `sample_grad`) is the gather form of
 the JAX package's `sample`: nearest (the pixel at round(x), derivative
@@ -37,8 +43,16 @@ TPU's tap-weight matmuls:
     phi'(t) = -sign(t) for |t| < 1, so at an exactly integer coordinate
     the derivative along that axis is 0, not the one-sided difference a
     gather form would give; the cubic phi' is continuous there.
+
+`interp_bf16` (the `bf16` argument of `sample_dense`, `sample_windows`
+and `sample_dense_blocked`) is the JAX package's `compute_dtype=bfloat16`:
+the image values and the per-axis tap and derivative weights rounded to
+bfloat16 (round to nearest even), every product and sum in float32 (the
+first contraction's result is not rounded).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -50,16 +64,34 @@ CUBIC = "cubic"            # Catmull-Rom
 LINEAR_MM = "linear_mm"
 MM_SUFFIX = "_mm"          # dense kinds: linear_mm, cubic_mm, cubic_bspl_mm
 REPLICATE = "replicate"
+CONSTANT = "constant"
+BORDERS = (REPLICATE, CONSTANT)
+
+
+class FrameStack(NamedTuple):
+    """Per-tracker frames by index: tracker t reads frame `index[t]` of
+    `frames`, so B trackers read F frames without B copies."""
+    frames: torch.Tensor    # (F, H, W, C), or (F, C, H, W) for windows
+    index: torch.Tensor     # (B,) int64
 
 
 def _as_hwc(img: torch.Tensor) -> torch.Tensor:
     return img[..., None] if img.dim() == 2 else img
 
 
-def _flat(img: torch.Tensor, x: torch.Tensor):
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even), kept in its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _flat(img, x: torch.Tensor):
     """(pixels (·, C), H, W, C, the offset of each point's image in them)
-    of an (H, W[, C]) image, or of per-tracker images (B, H, W, C) read at
-    coordinates x (B, ...)."""
+    of an (H, W[, C]) image, of per-tracker images (B, H, W, C) or of a
+    `FrameStack`, read at coordinates x (B, ...)."""
+    if isinstance(img, FrameStack):
+        f, h, w, c = img.frames.shape
+        base = (img.index * (h * w)).view((-1,) + (1,) * (x.dim() - 1))
+        return img.frames.reshape(f * h * w, c), h, w, c, base
     if img.dim() == 4:
         b, h, w, c = img.shape
         base = (torch.arange(b, device=img.device) * (h * w)).view(
@@ -71,12 +103,18 @@ def _flat(img: torch.Tensor, x: torch.Tensor):
 
 
 def _gather(img_flat: torch.Tensor, base, h: int, w: int, xi: torch.Tensor,
-            yi: torch.Tensor) -> torch.Tensor:
-    """Pixel values at integer coords (...,) -> (..., C), replicate
-    border; `base`, the offset of each point's image (`_flat`)."""
+            yi: torch.Tensor, border: str = REPLICATE) -> torch.Tensor:
+    """Pixel values at integer coords (...,) -> (..., C); `base`, the
+    offset of each point's image (`_flat`). The indices are clamped into
+    the image; with the constant border a tap outside it reads 0.0
+    (`mtf_tpu/ops/interp.py:_gather`)."""
     xc = xi.clamp(0, w - 1)
     yc = yi.clamp(0, h - 1)
-    return img_flat[base + yc * w + xc]
+    v = img_flat[base + yc * w + xc]
+    if border == CONSTANT:
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = torch.where(valid[..., None], v, torch.zeros_like(v))
+    return v
 
 
 def _cubic_weights(f: torch.Tensor, kind: str):
@@ -107,10 +145,12 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     (`mtf_tpu/ops/interp.py:_sample_val_grad`): `linear` (the one-sided
     difference v01 - v00, also at an exactly integer coordinate, unlike
     the dense convention), `cubic` and `cubic_bspl` 4x4 taps, and the
-    dense kinds ("*_mm") through `sample_dense` on the whole image."""
-    if border != REPLICATE:
-        raise NotImplementedError(
-            f"border {border!r} is not ported yet: ROADMAP Queue 1, slice 8")
+    dense kinds ("*_mm") through `sample_dense` on the whole image (which
+    ignores `border`). With the constant border every tap outside the
+    image reads 0.0, and the derivative is the interpolant's over those
+    values."""
+    if border not in BORDERS:
+        raise ValueError(f"unknown border {border!r}; known: {BORDERS}")
     if kind.endswith(MM_SUFFIX):
         return sample_dense(img, pts, kind[:-len(MM_SUFFIX)],
                             need_grad=need_grad)
@@ -120,17 +160,17 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     img_flat, h, w, c, base = _flat(img, x)
     if kind == NEAREST:
         val = _gather(img_flat, base, h, w, torch.round(x).long(),
-                      torch.round(y).long())
+                      torch.round(y).long(), border)
         return val, (val.new_zeros(val.shape + (2,)) if need_grad else None)
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx = (x - x0f)[..., None]
     fy = (y - y0f)[..., None]
     x0, y0 = x0f.long(), y0f.long()
     if kind == LINEAR:
-        v00 = _gather(img_flat, base, h, w, x0, y0)
-        v01 = _gather(img_flat, base, h, w, x0 + 1, y0)
-        v10 = _gather(img_flat, base, h, w, x0, y0 + 1)
-        v11 = _gather(img_flat, base, h, w, x0 + 1, y0 + 1)
+        v00 = _gather(img_flat, base, h, w, x0, y0, border)
+        v01 = _gather(img_flat, base, h, w, x0 + 1, y0, border)
+        v10 = _gather(img_flat, base, h, w, x0, y0 + 1, border)
+        v11 = _gather(img_flat, base, h, w, x0 + 1, y0 + 1, border)
         top = v00 * (1.0 - fx) + v01 * fx
         bot = v10 * (1.0 - fx) + v11 * fx
         val = top * (1.0 - fy) + bot * fy
@@ -140,7 +180,7 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         return val, torch.stack([dx, bot - top], dim=-1)
     wx, dwx = _cubic_weights(fx, kind)
     wy, dwy = _cubic_weights(fy, kind)
-    rows = [[_gather(img_flat, base, h, w, x0 + i - 1, y0 + j - 1)
+    rows = [[_gather(img_flat, base, h, w, x0 + i - 1, y0 + j - 1, border)
              for i in range(4)] for j in range(4)]
     row_v = [sum(rows[j][i] * wx[i] for i in range(4)) for j in range(4)]
     val = sum(row_v[j] * wy[j] for j in range(4))
@@ -195,18 +235,43 @@ def _clamp_margins(kind: str):
     return (0.001, 1.001) if kind == LINEAR else (1.001, 2.001)
 
 
-def _cubic_axis(c: torch.Tensor, kind: str):
+def _cubic_axis(c: torch.Tensor, kind: str, bf16: bool = False):
     """The 4 cubic taps along one axis at clamped coordinates c: the
     first tap's index floor(c) - 1, and per tap j its weight phi(t_j) and
     derivative d/dc phi(t_j) = -phi'(t_j), t_j = floor(c) - 1 + j - c
-    (exact in float32, as the dense form's k - c is)."""
+    (exact in float32, as the dense form's k - c is); with `bf16` each
+    rounded to bfloat16."""
     f = torch.floor(c)
     ws, ds = [], []
     for j in range(4):
         w, dphi = _weights_dense((f + float(j - 1)) - c, kind)
-        ws.append(w)
-        ds.append(-dphi)
+        ws.append(round_bf16(w) if bf16 else w)
+        ds.append(round_bf16(-dphi) if bf16 else -dphi)
     return f - 1.0, ws, ds
+
+
+def _linear_weights(fx: torch.Tensor, bf16: bool):
+    """The two linear tap weights (1 - f, f) of fractions f, with `bf16`
+    rounded to bfloat16."""
+    lo, hi = 1.0 - fx, fx
+    return (round_bf16(lo), round_bf16(hi)) if bf16 else (lo, hi)
+
+
+def _linear_sum(v00, v01, v10, v11, fx, fy, need_grad: bool, bf16: bool):
+    """The dense linear sample from its 2x2 taps and fractions: the value
+    and, with `need_grad`, its derivatives (0 along an axis at an exactly
+    integer coordinate)."""
+    wx0, wx1 = _linear_weights(fx, bf16)
+    wy0, wy1 = _linear_weights(fy, bf16)
+    top = v00 * wx0 + v01 * wx1
+    bot = v10 * wx0 + v11 * wx1
+    val = top * wy0 + bot * wy1
+    if not need_grad:
+        return val, None, None
+    zero = torch.zeros_like(val)
+    dx = torch.where(fx > 0, (v01 - v00) * wy0 + (v11 - v10) * wy1, zero)
+    dy = torch.where(fy > 0, bot - top, zero)
+    return val, dx, dy
 
 
 def _cubic_sum(tap, wx, dwx, wy, dwy, need_grad: bool):
@@ -221,8 +286,9 @@ def _cubic_sum(tap, wx, dwx, wy, dwy, need_grad: bool):
             sum(rows[r] * dwy[r] for r in range(4)))
 
 
-def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   need_grad: bool = False, kind: str = LINEAR):
+def sample_windows(win, x: torch.Tensor, y: torch.Tensor,
+                   need_grad: bool = False, kind: str = LINEAR,
+                   bf16: bool = False):
     """Dense-convention values of per-tracker windows: win (B, Hc, Wc)
     or, with C channels, (B, C, Hc, Wc) at window coordinates x, y
     (B, N) -> (B, N) or (B, C, N). Coordinates are clamped to the dense
@@ -230,12 +296,15 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     `sample(window, pts, kind + "_mm")` does for one window. With
     `need_grad`, returns (val, dx, dy), the derivatives by the dense
     convention (linear: 0 along an axis at an exactly integer
-    coordinate)."""
+    coordinate). `bf16`: bfloat16 window values and tap weights, float32
+    sums (`interp_bf16`)."""
     lo, hi = _clamp_margins(kind)
     gray = win.dim() == 3
     if gray:
         win = win[:, None]
     b, c, hc, wc = win.shape
+    if bf16:
+        win = round_bf16(win)
     cx = _clamp_st(x, lo, wc - hi)
     cy = _clamp_st(y, lo, hc - hi)
     flat = win.reshape(b, c, hc * wc)
@@ -248,18 +317,11 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         i00 = (fys.long() * wc + fxs.long()).clamp(0, (hc - 1) * wc - 2)
         idx = torch.cat([i00, i00 + 1, i00 + wc, i00 + wc + 1], dim=-1)
         taps = flat.gather(2, idx[:, None].expand(b, c, idx.shape[-1]))
-        v00, v01, v10, v11 = taps.chunk(4, dim=-1)
-        top = v00 * (1.0 - fx) + v01 * fx
-        bot = v10 * (1.0 - fx) + v11 * fx
-        val = top * (1.0 - fy) + bot * fy
-        if need_grad:
-            zero = torch.zeros_like(val)
-            dx = torch.where(fx > 0, (v01 - v00) * (1.0 - fy)
-                             + (v11 - v10) * fy, zero)
-            dy = torch.where(fy > 0, bot - top, zero)
+        val, dx, dy = _linear_sum(*taps.chunk(4, dim=-1), fx, fy, need_grad,
+                                  bf16)
     else:
-        x0, wx, dwx = _cubic_axis(cx, kind)
-        y0, wy, dwy = _cubic_axis(cy, kind)
+        x0, wx, dwx = _cubic_axis(cx, kind, bf16)
+        y0, wy, dwy = _cubic_axis(cy, kind, bf16)
         base = (y0.long() * wc + x0.long()).clamp(
             0, (hc - 4) * wc + wc - 4)                      # (B, N)
         n = base.shape[-1]
@@ -278,18 +340,31 @@ def sample_windows(win: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return (val, dx, dy) if need_grad else val
 
 
-def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
-                 crop: int | None = None, need_grad: bool = True):
+def sample_dense(img, pts: torch.Tensor, kind: str = LINEAR,
+                 crop: int | None = None, need_grad: bool = True,
+                 bf16: bool = False, precision: str | None = None):
     """Dense-convention sampling with `kind` taps (linear, cubic,
     cubic_bspl) -> (patch (..., N, C), grad (..., N, C, 2) | None).
 
     `crop`: window size; each batch element's window starts at
     floor(min(pts)) - 2 (clipped into the image), and coordinates are
     clamped to that window, as `jax.lax.dynamic_slice` plus the dense
-    clamp do in the JAX package. The window is never materialised."""
+    clamp do in the JAX package. The window is never materialised.
+    `bf16`: bfloat16 image values and tap weights, float32 sums (the JAX
+    package's `compute_dtype=bfloat16`). `precision` is the JAX package's
+    `interp_precision` ("highest": full float32 contractions instead of
+    the TPU's default bf16 passes); this sampler has no matmul and no
+    TF32, only float32 gathers and products, so every setting computes
+    what "highest" does."""
+    del precision
     lo, hi = _clamp_margins(kind)
     x, y = pts[..., 0], pts[..., 1]
     img_flat, h, w, c, base = _flat(img, x)
+
+    def tap(xi, yi):
+        v = _gather(img_flat, base, h, w, xi, yi)
+        return round_bf16(v) if bf16 else v
+
     if crop is not None and (crop < h or crop < w):
         hc, wc = min(crop, h), min(crop, w)
         ox = crop_origin(x, wc, w, 2.0)[..., None]
@@ -300,11 +375,11 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     cx = _clamp_st(x - ox, lo, wc - hi)
     cy = _clamp_st(y - oy, lo, hc - hi)
     if kind != LINEAR:
-        x0, wx, dwx = _cubic_axis(cx, kind)
-        y0, wy, dwy = _cubic_axis(cy, kind)
+        x0, wx, dwx = _cubic_axis(cx, kind, bf16)
+        y0, wy, dwy = _cubic_axis(cy, kind, bf16)
         xi, yi = (x0 + ox).long(), (y0 + oy).long()
         val, dx, dy = _cubic_sum(
-            lambda r, j: _gather(img_flat, base, h, w, xi + j, yi + r), *[
+            lambda r, j: tap(xi + j, yi + r), *[
                 [t[..., None] for t in ts] for ts in (wx, dwx, wy, dwy)],
             need_grad=need_grad)
         return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
@@ -313,16 +388,59 @@ def sample_dense(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
     fy = _frac_dense(cy - fys)[..., None]
     xi = (fxs + ox).long()
     yi = (fys + oy).long()
-    v00 = _gather(img_flat, base, h, w, xi, yi)
-    v01 = _gather(img_flat, base, h, w, xi + 1, yi)
-    v10 = _gather(img_flat, base, h, w, xi, yi + 1)
-    v11 = _gather(img_flat, base, h, w, xi + 1, yi + 1)
-    top = v00 * (1.0 - fx) + v01 * fx
-    bot = v10 * (1.0 - fx) + v11 * fx
-    val = top * (1.0 - fy) + bot * fy
-    if not need_grad:
-        return val, None
-    dx = torch.where(fx > 0, (v01 - v00) * (1.0 - fy) + (v11 - v10) * fy,
-                     torch.zeros_like(val))
-    dy = torch.where(fy > 0, bot - top, torch.zeros_like(val))
-    return val, torch.stack([dx, dy], dim=-1)
+    val, dx, dy = _linear_sum(tap(xi, yi), tap(xi + 1, yi),
+                              tap(xi, yi + 1), tap(xi + 1, yi + 1), fx, fy,
+                              need_grad, bf16)
+    return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
+
+
+def _tiles(pts: torch.Tensor, grid_shape, blocks):
+    """Points (..., ry·rx, 2) of a row-major (y outer) grid as the
+    `blocks` (by, bx) row-major tiles (..., by·bx, bh·bw, 2)."""
+    by, bx = blocks
+    ry, rx = grid_shape
+    if ry % by or rx % bx:
+        raise ValueError(f"grid {tuple(grid_shape)} not divisible by "
+                         f"{tuple(blocks)}")
+    if pts.shape[-2] != ry * rx:
+        # (a coarse phase's decimated grid: the JAX package's reshape
+        # raises there too)
+        raise ValueError(f"{pts.shape[-2]} points are not the {ry}x{rx} "
+                         "grid the tiles split")
+    bh, bw = ry // by, rx // bx
+    lead = pts.shape[:-2]
+    k = len(lead)
+    p = pts.reshape(lead + (by, bh, bx, bw) + pts.shape[-1:])
+    return p.permute(*range(k), k, k + 2, k + 1, k + 3, k + 4).reshape(
+        lead + (by * bx, bh * bw) + pts.shape[-1:])
+
+
+def _untile(t: torch.Tensor, grid_shape, blocks, tail: int):
+    """`_tiles`' inverse on per-tile values (..., by·bx, bh·bw, *tail)
+    with `tail` trailing dims -> (..., ry·rx, *tail)."""
+    by, bx = blocks
+    ry, rx = grid_shape
+    bh, bw = ry // by, rx // bx
+    lead = t.shape[:-2 - tail]
+    rest = t.shape[t.dim() - tail:]
+    k = len(lead)
+    u = t.reshape(lead + (by, bx, bh, bw) + rest)
+    return u.permute(*range(k), k, k + 2, k + 1, k + 3,
+                     *range(k + 4, u.dim())).reshape(lead + (ry * rx,)
+                                                     + rest)
+
+
+def sample_dense_blocked(img, pts: torch.Tensor, kind: str = LINEAR,
+                         crop: int = 64, grid_shape=(50, 50),
+                         blocks=(2, 2), bf16: bool = False):
+    """Tiled dense sampling (`mtf_tpu/ops/interp.py:sample_dense_blocked`):
+    the row-major (resy, resx) point grid pts (..., N, 2) split into the
+    `blocks` (by, bx) row-major tiles, each sampled by `sample_dense` in
+    its own `crop` window (anchored at the tile's own points), the
+    results put back in grid order -> (patch (..., N, C), grad
+    (..., N, C, 2)). A grid that the blocks do not divide raises
+    ValueError."""
+    tiles = _tiles(pts, grid_shape, blocks)
+    val, grad = sample_dense(img, tiles, kind, crop=crop, bf16=bf16)
+    return (_untile(val, grid_shape, blocks, 1),
+            _untile(grad, grid_shape, blocks, 2))

@@ -61,7 +61,9 @@ def _weights_dense(t: torch.Tensor, kind: str = "linear", blur: int = 0):
     elif kind == "cubic_bspl":
         u = a - 2.0
         w_in = 0.5 * a3 - a2 + 2.0 / 3.0
-        w_out = -(u * u * u) / 6.0
+        # times the float32 reciprocal (what PyTorch's CUDA division by a
+        # scalar computes), on every device alike
+        w_out = -(u * u * u) * (1.0 / 6.0)
         d_in = 1.5 * a2 - 2.0 * a
         d_out = -0.5 * (u * u)
     else:

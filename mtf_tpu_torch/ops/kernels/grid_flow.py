@@ -19,19 +19,23 @@ starting at 0:
     damped 2x2 system, solved in closed form with the JAX package's
     determinant guard (`ops/linalg.py:solve2x2`); disp -= d.
 
+With `bf16` (the bfloat16-operand flag of `interp_bf16`, the semantics of
+the JAX package's `_track_patches_mm` with `compute_dtype=bfloat16`) the
+tap and derivative weights are rounded to bfloat16; the window holds
+values the caller rounded; every product and sum stays float32.
+
 Two levels, one contract:
   * `grid_flow_ref`: plain PyTorch;
   * `grid_flow`: CPU tensors take the plain form, CUDA tensors launch the
     CUDA kernel `csrc/grid_flow.cu` (one launch runs all `n_iters`
     iterations) at the lanes per patch and points per lane that
     `layout` picks; no fallback between them. `grid_flow.launches`
-    counts kernel launches per tap kind.
+    counts kernel launches per tap kind ("linear", ...; "<kind>+bf16"
+    with the flag).
 
-Not carried over from the TPU kernel, being layout artifacts: the bf16
-window and tap-weight casts, the iota block-indicator (E-matrix)
-reductions, the point tiling (`_grid_tiles`) and the 80-row y-bands with
-their in-band mask.
-Without bands every point is live, which is the semantics of the JAX
+Not carried over from the TPU kernel, being layout artifacts: the iota
+block-indicator (E-matrix) reductions, the point tiling (`_grid_tiles`)
+and the 80-row y-bands with their in-band mask. Without bands every point is live, which is the semantics of the JAX
 package's XLA path (`sm/grid.py:_track_patches_mm`) that the TPU kernel's
 docstring states it shares.
 """
@@ -89,11 +93,13 @@ def _kind_check(kind: str) -> None:
 
 def grid_flow_ref(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
                   scale: torch.Tensor, n: int, n_iters: int,
-                  zncc: bool = True, kind: str = "linear") -> torch.Tensor:
+                  zncc: bool = True, kind: str = "linear",
+                  bf16: bool = False) -> torch.Tensor:
     """Plain form. win (B, Hc, Wc), pts (B, 2, P*n) window px,
     patch-major (patch p owns columns [p*n, (p+1)*n)), templ (B, P*n),
     scale (B,) template units -> window px -> disp (B, P, 2) in template
-    units; `kind` the taps (linear, cubic, cubic_bspl)."""
+    units; `kind` the taps (linear, cubic, cubic_bspl); `bf16` the
+    bfloat16 weights (and window values)."""
     _kind_check(kind)
     b, pn = templ.shape
     p = pn // n
@@ -107,7 +113,7 @@ def grid_flow_ref(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
         x = (px + off[..., 0:1]).reshape(b, pn)
         y = (py + off[..., 1:2]).reshape(b, pn)
         val, dx, dy = interp.sample_windows(win, x, y, need_grad=True,
-                                            kind=kind)
+                                            kind=kind, bf16=bf16)
         v = val.reshape(b, p, n)
         if zncc:
             c = v - v.sum(-1, keepdim=True) / n
@@ -156,11 +162,18 @@ def _check(win, pts, templ, scale, n, n_iters, kind):
                              f"{tuple(t.shape)}")
 
 
+def build_defines(bf16: bool = False) -> dict | None:
+    """The defines of the kernel's library: the bfloat16-operand flag is
+    a library of its own (`-DGF_BF16=1`)."""
+    return {"GF_BF16": 1} if bf16 else None
+
+
 @functools.cache
-def _kernel_fn():
-    """The kernel's C entry point, built and bound on first use."""
-    fn = _build.load("grid_flow").lib.grid_flow_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
+def _kernel_fn(bf16: bool = False):
+    """The kernel's C entry point (with the flag or not), built and bound
+    on first use."""
+    fn = _build.load("grid_flow", build_defines(bf16)).lib.grid_flow_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -168,7 +181,8 @@ def _kernel_fn():
 
 def launch(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
            scale: torch.Tensor, n: int, n_iters: int, zncc: bool,
-           kind: str, lanes: int, per_lane: int) -> torch.Tensor:
+           kind: str, lanes: int, per_lane: int,
+           bf16: bool = False) -> torch.Tensor:
     """One CUDA launch at a given layout (`layout` picks it for
     `grid_flow`; a timing sweep may pass any other): checked CUDA
     operands -> disp (B, P, 2). Counts nothing."""
@@ -177,10 +191,11 @@ def launch(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
     disp = torch.empty((b, p, 2), dtype=torch.float32, device=win.device)
     with torch.cuda.device(win.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(win.data_ptr(), pts.data_ptr(), templ.data_ptr(),
-                           scale.data_ptr(), disp.data_ptr(), b, hc, wc, p,
-                           n, int(n_iters), int(zncc), KINDS.index(kind),
-                           lanes, per_lane, stream)
+        err = _kernel_fn(bf16)(win.data_ptr(), pts.data_ptr(),
+                               templ.data_ptr(), scale.data_ptr(),
+                               disp.data_ptr(), b, hc, wc, p, n,
+                               int(n_iters), int(zncc), KINDS.index(kind),
+                               lanes, per_lane, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"grid_flow: kernel launch failed with CUDA error "
                            f"{err} (layout {lanes} lanes x {per_lane})")
@@ -189,21 +204,24 @@ def launch(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
 
 def grid_flow(win: torch.Tensor, pts: torch.Tensor, templ: torch.Tensor,
               scale: torch.Tensor, n: int, n_iters: int,
-              zncc: bool = True, kind: str = "linear") -> torch.Tensor:
+              zncc: bool = True, kind: str = "linear",
+              bf16: bool = False) -> torch.Tensor:
     """`n_iters` joint grid-flow iterations (contract of `grid_flow_ref`)
     -> disp (B, P, 2) in template units. CPU tensors run the plain form;
     CUDA tensors launch the CUDA kernel on the current stream (K5 for
     linear taps, K5c for the cubic kinds) at `layout(n, n_iters)`."""
     _kind_check(kind)
     if win.device.type == "cpu":
-        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc, kind)
+        return grid_flow_ref(win, pts, templ, scale, n, n_iters, zncc, kind,
+                             bf16)
     if win.device.type != "cuda":
         raise ValueError(f"grid_flow: unsupported device {win.device}")
     _check(win, pts, templ, scale, n, n_iters, kind)
     disp = launch(win, pts, templ, scale, n, n_iters, zncc, kind,
-                  *layout(n, n_iters))
-    grid_flow.launches[kind] += 1
+                  *layout(n, n_iters), bf16=bf16)
+    grid_flow.launches[kind + ("+bf16" if bf16 else "")] += 1
     return disp
 
 
-grid_flow.launches = dict.fromkeys(KINDS, 0)
+grid_flow.launches = dict.fromkeys(KINDS + tuple(k + "+bf16" for k in KINDS),
+                                   0)

@@ -42,7 +42,13 @@ Three levels of the chain kernel, each with one contract:
     and with plain or blurred taps; any other combination raises
     `ValueError` on every device. `lk_fused_chain_raw.launches` counts
     kernel launches per instantiation (`mode_name`: "ssd", "ncc_esm",
-    "ssd_mc", "ssd@cubic", "ssd:s6@cubic", "ncc:s2+blur", ...);
+    "ssd_mc", "ssd@cubic", "ssd:s6@cubic", "ncc:s2+blur", ...; a launch
+    with the bfloat16-operand flag counts under "+bf16": "ssd+bf16").
+    With `bf16` (plain taps only) the kernel rounds its tap and derivative
+    weights to bfloat16, as `interp_bf16` asks (a library of its own per
+    S, `-DLK_BF16=1`, whose cubic weights are the plain form's bit for
+    bit before the rounding); the window's values are rounded where the
+    caller makes it;
   * `lk_fused_chain`: the JAX contract, (val, g, h); for NCC the raw
     moments go through `ncc_combine` (h is the NEGATED selft Hessian, as
     in JAX: the caller uses H = -h).
@@ -76,12 +82,14 @@ INSTANTIATIONS = tuple(m + (k,) for k in KINDS for m in MODES)
 
 
 def mode_name(am: str, esm: bool, mc: bool = False, kind: str = "linear",
-              s: int = 8, blurred: bool = False) -> str:
+              s: int = 8, blurred: bool = False, bf16: bool = False) -> str:
     """Key of a kernel instantiation in `lk_fused_chain_raw.launches`:
-    the mode, then ":s<S>" where S != 8, "+blur" for the blurred taps and
-    "@<kind>" for the cubic kinds."""
+    the mode, then ":s<S>" where S != 8, "+blur" for the blurred taps,
+    "+bf16" for the bfloat16-operand flag and "@<kind>" for the cubic
+    kinds."""
     name = am + ("_esm" if esm else "") + ("_mc" if mc else "")
     name += (f":s{s}" if s != 8 else "") + ("+blur" if blurred else "")
+    name += "+bf16" if bf16 else ""
     return name if kind == "linear" else f"{name}@{kind}"
 
 
@@ -103,9 +111,13 @@ def _check_blur(blur: int, kind: str, hc: int, wc: int, who: str) -> None:
 
 
 def _instantiation(window: torch.Tensor, am: str, j0, kind: str, s: int,
-                   blur: int):
+                   blur: int, bf16: bool = False):
     """(am, esm, mc, kind, S, blurred) of a call, or ValueError where the
-    kernel has no such instantiation."""
+    kernel has no such instantiation (the bf16 flag takes plain taps
+    only)."""
+    if bf16 and blur > 1:
+        raise ValueError("lk_fused_chain: the bf16 flag takes plain taps "
+                         "only (blur 0 or 1)")
     if am not in AMS:
         raise ValueError(f"lk_fused_chain: am must be one of {AMS}, "
                          f"got {am!r}")
@@ -159,10 +171,12 @@ def ncc_combine(a: torch.Tensor, R: torch.Tensor, mom: torch.Tensor,
 
 
 def _sample_dense(win: torch.Tensor, xr: torch.Tensor, yr: torch.Tensor,
-                  kind: str, blur: int = 0):
+                  kind: str, blur: int = 0, bf16: bool = False):
     """Dense-convention samples of windows (B, C, Hc, Wc) at window
     coordinates (B, N), clamped to the margins of `kind` widened by the
-    blur radius -> val, dx, dy, each (B, C, N)."""
+    blur radius -> val, dx, dy, each (B, C, N). `bf16`: the tap and
+    derivative weights rounded to bfloat16 (the window's values are the
+    caller's), every product and sum float32."""
     hc, wc = win.shape[-2:]
     lo, hi = interp._clamp_margins(kind)
     r = blur_radius(blur)
@@ -172,6 +186,8 @@ def _sample_dense(win: torch.Tensor, xr: torch.Tensor, yr: torch.Tensor,
     ky = torch.arange(hc, dtype=y.dtype, device=y.device)
     wx, dwx = _weights_dense(kx - x[..., None], kind, blur)  # (B, N, Wc)
     wy, dwy = _weights_dense(ky - y[..., None], kind, blur)  # (B, N, Hc)
+    if bf16:
+        wx, dwx, wy, dwy = map(interp.round_bf16, (wx, dwx, wy, dwy))
     win_t = win.to(wx.dtype).transpose(-1, -2)              # (B, C, Wc, Hc)
     tmp = wx[:, None] @ win_t                               # (B, C, N, Hc)
     tmp_dx = dwx[:, None] @ win_t
@@ -208,18 +224,20 @@ def lk_fused_chain_ref(window: torch.Tensor, M0: torch.Tensor,
                        gens: torch.Tensor, ph: torch.Tensor,
                        templ: torch.Tensor, am: str = "ssd",
                        j0: torch.Tensor | None = None, kind: str = "linear",
-                       blur: int = 0):
+                       blur: int = 0, bf16: bool = False):
     """Plain form. window (B, Hc, Wc), or (B, C, Hc, Wc) for the
     multi-channel SSD mode; M0 (B, 3, 3), gens (S, 3, 3), ph (B, 3, N),
     templ (B, N) (NCC: n0) or (B, C, N), j0 (B, S, N) or None; `blur` > 1
-    samples with the binomial-blurred taps ->
+    samples with the binomial-blurred taps; `bf16` rounds the tap and
+    derivative weights to bfloat16 (plain taps; the window's values are
+    the caller's to round) ->
     SSD: val (B, N) or (B, C, N), g (B, S), JtJ (B, S, S);
     NCC: val (B, N), a (B, S), R (B, S, S), mom (B, 2, S), scal (B, 5)."""
     _, _, mc, _, _, _ = _instantiation(window, am, j0, kind, gens.shape[0],
-                                       blur)
+                                       blur, bf16)
     win = window if mc else window[:, None]                 # (B, C, Hc, Wc)
     xr, yr, jx, jy = project_points(M0, gens, ph)
-    val, dx, dy = _sample_dense(win, xr, yr, kind, blur)
+    val, dx, dy = _sample_dense(win, xr, yr, kind, blur, bf16)
     # (B, C, S, N): each channel's own Jm through the shared warp Jacobian
     Jm = jx[:, None] * dx[:, :, None] + jy[:, None] * dy[:, :, None]
     if mc:
@@ -307,12 +325,20 @@ def block_warps(n: int) -> int:
     return max(1, min(MAX_WARPS, -(-chunks // CHUNKS_PER_WARP)))
 
 
+def build_defines(s: int, bf16: bool = False) -> dict:
+    """The defines of the chain kernel's library of state size `s`, with
+    the bfloat16-operand flag (`-DLK_BF16=1`, its own library) or not."""
+    return {"LK_S": s, "LK_BF16": 1} if bf16 else {"LK_S": s}
+
+
 @functools.cache
-def _kernel_fn(s: int):
-    """The chain kernels' C entry point of state size `s`, built (one
-    library per S, `-DLK_S=<s>`) and bound on first use."""
-    fn = _build.load("lk_fused_chain", {"LK_S": s}).lib.lk_fused_chain_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 \
+def _kernel_fn(s: int, bf16: bool = False):
+    """The chain kernels' C entry point of state size `s` (and flag),
+    built (one library per S and flag, `build_defines`) and bound on first
+    use."""
+    fn = _build.load("lk_fused_chain",
+                     build_defines(s, bf16)).lib.lk_fused_chain_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -330,16 +356,16 @@ def lk_fused_chain_raw(window: torch.Tensor, M0: torch.Tensor,
                        gens: torch.Tensor, ph: torch.Tensor,
                        templ: torch.Tensor, am: str = "ssd",
                        j0: torch.Tensor | None = None, kind: str = "linear",
-                       blur: int = 0):
+                       blur: int = 0, bf16: bool = False):
     """One chain-fused iteration's raw per-tracker sums for B trackers
     (contract of `lk_fused_chain_ref`). CPU tensors run the plain form;
     CUDA tensors launch the CUDA kernel on the current stream. The window
     may be one shared by every tracker (`shared_window`: the frame
     expanded with batch stride 0), which the kernel reads in place."""
-    inst = _instantiation(window, am, j0, kind, gens.shape[0], blur)
+    inst = _instantiation(window, am, j0, kind, gens.shape[0], blur, bf16)
     if window.device.type == "cpu":
         return lk_fused_chain_ref(window, M0, gens, ph, templ, am, j0, kind,
-                                  blur)
+                                  blur, bf16)
     if window.device.type != "cuda":
         raise ValueError(f"lk_fused_chain: unsupported device {window.device}")
     _check(window, M0, gens, ph, templ, j0)
@@ -355,35 +381,37 @@ def lk_fused_chain_raw(window: torch.Tensor, M0: torch.Tensor,
     scal = _out(dev, b, N_SCALARS) if ncc else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn(s)(window.data_ptr(), M0.data_ptr(), gens.data_ptr(),
+        err = _kernel_fn(s, bf16)(window.data_ptr(), M0.data_ptr(), gens.data_ptr(),
                             ph.data_ptr(), templ.data_ptr(), _ptr(j0),
                             val.data_ptr(), g.data_ptr(), h.data_ptr(),
-                            _ptr(mom), _ptr(scal), b, hc, wc, n, c, int(ncc),
-                            int(esm), int(mc), KINDS.index(kind), blur,
-                            block_warps(n), int(shared_window(window)),
-                            stream)
+                            _ptr(mom), _ptr(scal), b, hc, wc, n, c,
+                            int(ncc), int(esm), int(mc), KINDS.index(kind),
+                            blur, block_warps(n), int(shared_window(window)),
+                            int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"lk_fused_chain: kernel launch failed with CUDA "
                            f"error {err}")
-    lk_fused_chain_raw.launches[mode_name(*inst)] += 1
+    lk_fused_chain_raw.launches[mode_name(*inst, bf16=bf16)] += 1
     return (val, g, h, mom, scal) if ncc else (val, g, h)
 
 
 lk_fused_chain_raw.launches = {
-    mode_name(*i, s=s, blurred=bl): 0
-    for s in STATE_DIMS for bl in (False, True) for i in INSTANTIATIONS}
+    mode_name(*i, s=s, blurred=bl, bf16=bf): 0
+    for s in STATE_DIMS for bl in (False, True) for i in INSTANTIATIONS
+    for bf in ((False, True) if not bl else (False,))}
 
 
 def lk_fused_chain(window: torch.Tensor, M0: torch.Tensor,
                    gens: torch.Tensor, ph: torch.Tensor,
                    templ: torch.Tensor, am: str = "ssd",
                    j0: torch.Tensor | None = None, kind: str = "linear",
-                   blur: int = 0):
+                   blur: int = 0, bf16: bool = False):
     """One chain-fused LK iteration -> (val (B, N) or (B, C, N), g (B, S),
     h (B, S, S)), the JAX wrapper's contract: SSD g = Jmᵀ(templ - val),
     h = JmᵀJm (summed over channels); NCC (templ = n0) g the NCC gradient,
     h the negated selft Hessian."""
-    out = lk_fused_chain_raw(window, M0, gens, ph, templ, am, j0, kind, blur)
+    out = lk_fused_chain_raw(window, M0, gens, ph, templ, am, j0, kind, blur,
+                             bf16)
     if am == "ssd":
         return out
     val, a, R, mom, scal = out

@@ -10,6 +10,13 @@ normalization and the search-method protocol, over a batch of B trackers.
 The SSM state lives in a template frame: each init region mapped to a
 centered, unit-scale square by a similarity `norm_mat`, which keeps the
 8-DOF Gauss-Newton solves well-conditioned in float32.
+
+Per-tracker frames by index: a `FrameStack` (frames (F, H, W, C), index
+(B,)) has tracker t read frame index[t], which the samplers
+(`ops/interp.py`), the LK windows and the chain kernel take without
+copying a frame per tracker (the sub-tracker grid's B·P sub-trackers on
+their B parents' frames); `tracker_frames` gives the other search
+methods their (B, H, W, C) stack.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from torch import nn
 from mtf_tpu_torch.am.base import AM, AMState
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import warp as W
+from mtf_tpu_torch.ops.interp import FrameStack
 from mtf_tpu_torch.ops.linalg import inv3x3
 from mtf_tpu_torch.ssm.base import SSM
 
@@ -51,9 +59,17 @@ class SMParams:
     interp: str = "linear"         # + "<kind>_mm": dense sampling
     border: str = "replicate"
     crop: int | None = None        # window size for dense sampling
+    crop_blocks: tuple | None = None  # (by, bx): tiled dense sampling, each
+                                   # tile in its own `crop` (default 64)
+                                   # window (the generic path)
     use_pallas: bool | None = None  # None or True: the chain kernel where
                                    # the configuration fits it (`LKBase.
                                    # _fused_ok`); False: the generic path
+    interp_bf16: bool = False      # bfloat16 image values and tap weights,
+                                   # float32 sums, in the dense samplers
+    interp_precision: str | None = None  # "highest": the JAX package's
+                                   # full-float32 sampling contractions
+                                   # (what the port computes anyway)
     coarse_pt_iters: tuple = ()    # ((stride, n_iters), ...) coarse phases
     hess_type: str = "self0"       # self0 | selft | std | std2
     jac_type: str = "original"     # original | diff_of_jacs (ESM)
@@ -163,6 +179,19 @@ def converge(ssm: SSM, region: RegionState, s: torch.Tensor, n_iters: int,
     return s
 
 
+def is_gray(frame) -> bool:
+    """An (H, W) frame, or per-tracker frames (B, H, W, 1)."""
+    return frame.dim() == 2 or (frame.dim() == 4 and frame.shape[-1] == 1)
+
+
+def tracker_frames(frames) -> torch.Tensor:
+    """Per-tracker frames (B, H, W, C): the stack itself, or a
+    `FrameStack`'s frames gathered by its index (one copy per tracker)."""
+    if isinstance(frames, FrameStack):
+        return frames.frames[frames.index]
+    return frames
+
+
 def multi_frames(frames, device) -> torch.Tensor:
     """Per-tracker frames (B, H, W) or (B, H, W, C) as the (B, H, W, C)
     float32 stack the search methods' `update_multi` reads."""
@@ -192,10 +221,13 @@ def track_sequence(sm, frames, corners0, state0=None):
 
 
 def multi_unported(sm):
-    """The error of an SM whose `update_multi` is not ported."""
+    """The error of a host-detection tracker's `update_multi`: per-tracker
+    frames take a device-only tracker, as in the JAX package (whose fleet
+    `vmap`s `update`, which these trackers' host detection cannot be)."""
     return NotImplementedError(
-        f"{type(sm).__name__}.update_multi (per-tracker frames) is not "
-        "ported yet: ROADMAP Queue 1, item 1 (update_multi)")
+        f"{type(sm).__name__}.update_multi: per-tracker frames need a "
+        "device-only tracker; this one detects on the host (not jittable "
+        "in the JAX package either)")
 
 
 class SearchMethod(nn.Module):
@@ -248,9 +280,11 @@ class SearchMethod(nn.Module):
                              f"{state.ssm_state.shape[0]} trackers")
         return self._update_multi(state, frames)
 
-    def _update_multi(self, state: TrackerState,
-                      frames: torch.Tensor) -> TrackerState:
-        raise multi_unported(self)
+    def _update_multi(self, state: TrackerState, frames) -> TrackerState:
+        """The update on per-tracker frames (B, H, W, C) or a
+        `FrameStack`; search methods whose frame reads are all samples of
+        per-tracker images take it through `_update`."""
+        return self._update(state, tracker_frames(frames))
 
     def corners(self, state: TrackerState) -> torch.Tensor:
         """(B, 2, 4) MTF corner matrices."""

@@ -28,7 +28,8 @@ from mtf_tpu_torch.ops import ransac
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.linalg import inv3x3
 from mtf_tpu_torch.sm.core import (SearchMethod, SMParams, TrackerState,
-                                   image_corners, seeded_generator)
+                                   image_corners, multi_unported,
+                                   seeded_generator)
 
 
 @dataclass(frozen=True)
@@ -259,6 +260,9 @@ class FeatureTracker(SearchMethod):
         return ransac.hyp_indices(gen, self.feat.n_hypotheses,
                                   self.feat.max_keypoints,
                                   ransac.min_sample_size(self.ssm))
+
+    def _update_multi(self, state: TrackerState, frames):
+        raise multi_unported(self)
 
     def update_with_detections(self, state: TrackerState, pts, desc, valid,
                                idx: torch.Tensor | None = None

@@ -36,7 +36,13 @@ takes the mean of each one's corners as its patch centre, fits the
 warp, and re-seats every sub-tracker on the fitted warp.
 
 With `update_multi` each tracker reads its own frame of (B, H, W, C):
-per-tracker pyramid levels, K5 windows and gather samples.
+per-tracker pyramid levels, K5 windows and gather samples; the
+sub-tracker grid's B·P sub-trackers read their parents' B frames by
+index (`interp.FrameStack`), with no frame copied per sub-tracker.
+The gather kinds take either border (`SMParams.border`); `interp_bf16`
+rounds the K5 window's values to bfloat16 and runs K5 with its
+bfloat16-weight flag (the JAX package's `_track_patches_mm` with
+`compute_dtype=bfloat16`).
 
 The previous frame (f2f, forward-backward) is one (H, W[, C]) copy shared
 by the B trackers, owned by the state (a JAX fleet holds B copies), or
@@ -64,7 +70,7 @@ from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.ops.kernels.grid_flow import grid_flow
 from mtf_tpu_torch.ops.linalg import inv3x3, solve2x2
 from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, image_corners,
-                                   seeded_generator)
+                                   is_gray, seeded_generator, tracker_frames)
 
 # the grid window's margin around the point cloud at the start of a level
 _GRID_MARGIN = 4.0
@@ -137,11 +143,6 @@ def _patch_centres(g: GridParams, base_corners: torch.Tensor) -> torch.Tensor:
     return W.apply_warp(H, c_unit.expand(base_corners.shape[0], -1, -1))
 
 
-def _gray(img: torch.Tensor) -> bool:
-    """An (H, W) frame, or per-tracker frames (B, H, W, 1)."""
-    return img.dim() == 2 or (img.dim() == 4 and img.shape[-1] == 1)
-
-
 def _per_tracker(img: torch.Tensor, b: int) -> torch.Tensor:
     """A shared frame (H, W[, C]) as B per-tracker frames (B, H, W, C)
     (a view), or per-tracker frames as they are."""
@@ -163,10 +164,9 @@ class GridTracker(SearchMethod):
         if g.flow not in FLOWS:
             raise ValueError(f"GridParams.flow must be one of {FLOWS}, got "
                              f"{g.flow!r}")
-        if prm.border != "replicate":
-            raise NotImplementedError(
-                "GridTracker is ported for border 'replicate' only; other "
-                "borders come with ROADMAP Queue 1, slice 8")
+        if prm.border not in interp.BORDERS:
+            raise ValueError(f"unknown border {prm.border!r}; known: "
+                             f"{interp.BORDERS}")
         sel = None
         if g.coarse_point_stride > 1:
             r = np.arange(0, g.patch_res, g.coarse_point_stride)
@@ -208,7 +208,7 @@ class GridTracker(SearchMethod):
         templates (B, P, n, C) -> the (B, P, 2) corrections (template
         units)."""
         kind = self.prm.interp
-        if not (kind.endswith(interp.MM_SUFFIX) and _gray(frame)):
+        if not (kind.endswith(interp.MM_SUFFIX) and is_gray(frame)):
             return self._track_patches_gather(frame, norm_l, pts_base,
                                               templates, n_iters)
         b, P, n, _ = pts_base.shape
@@ -227,11 +227,14 @@ class GridTracker(SearchMethod):
         else:
             win = frame[rows[:, :, None], cols[:, None, :]]
         pts = pts - torch.stack([x0, y0], dim=-1)[:, None]
+        flag = {}
+        if self.prm.interp_bf16:
+            win, flag = interp.round_bf16(win), {"bf16": True}
         return grid_flow(win, pts.transpose(1, 2).contiguous(),
                          templates.reshape(b, P * n).contiguous(),
                          norm_l[:, 0, 0].contiguous(), n, n_iters,
                          zncc=self.grid.zncc,
-                         kind=kind[:-len(interp.MM_SUFFIX)])
+                         kind=kind[:-len(interp.MM_SUFFIX)], **flag)
 
     def _window_start(self, v: torch.Tensor, size: int,
                       full: int) -> torch.Tensor:
@@ -343,10 +346,9 @@ class GridTracker(SearchMethod):
                     b, P * n, 2)).reshape(b, P, n, 2)
         return centers_pred, centers_pred[:, :, None, :] + gs.offsets[:, None]
 
-    def _update_multi(self, state: TrackerState,
-                      frames: torch.Tensor) -> TrackerState:
+    def _update_multi(self, state: TrackerState, frames) -> TrackerState:
         # every step below reads per-tracker frames (B, H, W, C) as such
-        return self._update(state, frames)
+        return self._update(state, tracker_frames(frames))
 
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
@@ -472,11 +474,29 @@ class SubTrackerGrid(SearchMethod):
 
     def _update(self, state: TrackerState,
                 frame: torch.Tensor) -> TrackerState:
+        return self._step(state, self.sub.update(state.extra.sub_states,
+                                                 frame))
+
+    def _update_multi(self, state: TrackerState, frames) -> TrackerState:
+        """Each tracker's P sub-trackers on its own frame: one
+        `update_multi` of the B·P sub-trackers, sub-tracker b·P + p
+        reading frame b by index (`FrameStack`: no frame is copied per
+        sub-tracker)."""
+        frames = tracker_frames(frames)
+        P = state.extra.centers0.shape[1]
+        stack = interp.FrameStack(frames, torch.arange(
+            frames.shape[0], device=frames.device).repeat_interleave(P))
+        sub, st = self.sub, state.extra.sub_states
+        return self._step(state, sub._update_multi(st, stack)
+                          if isinstance(sub, SearchMethod)
+                          else sub.update_multi(st, tracker_frames(stack)))
+
+    def _step(self, state: TrackerState, sub_states) -> TrackerState:
+        """The fit and re-seat after the sub-trackers' update."""
         g = self.grid
         gs: SubGridState = state.extra
         region = state.region
         b, P, _ = gs.centers0.shape
-        sub_states = self.sub.update(gs.sub_states, frame)
         # patch centres: the mean of each sub-tracker's corners, pulled
         # back into the template frame for the fit
         centers_img = image_corners(self.sub.ssm, sub_states).reshape(

@@ -23,8 +23,9 @@ DFT.
   4-channel descriptor fields of the frame (`utils/preproc.py`).
 
 The box trackers' frame reads are window samples (`sm/cf._grab`), so they
-take per-tracker frames in `update_multi`; DFT transforms the whole frame
-and raises there (`sm/core.multi_unported`, ROADMAP Queue 1, item 1).
+take per-tracker frames in `update_multi`; DFT transforms the per-tracker
+frames in one batched pass (`utils/preproc.descriptor_fields`) and runs
+its registration SM's `update_multi` on the fields.
 Ties are broken as in the JAX package: `argmax` / `argmin` take the first
 index.
 """
@@ -40,7 +41,7 @@ from torch import nn
 from mtf_tpu_torch.ops.scan import cumsum2
 from mtf_tpu_torch.sm.cf import BoxTracker, _center_size_of, _corners_of, \
     _grab
-from mtf_tpu_torch.sm.core import multi_unported
+from mtf_tpu_torch.sm.core import multi_frames
 
 
 def _shift_grid(r: int, device) -> torch.Tensor:
@@ -710,7 +711,13 @@ class DFT(nn.Module):
         return self.inner.update(state, self._tf(frame))
 
     def update_multi(self, state, frames):
-        raise multi_unported(self)
+        """Each tracker on its own frame of (B, H, W[, C]): the fields of
+        the stack in one batched pass, then the inner SM's
+        `update_multi`."""
+        from mtf_tpu_torch.utils.preproc import descriptor_fields
+        fields = descriptor_fields(multi_frames(frames, self.device),
+                                   self.sigma, batched=True)
+        return self.inner.update_multi(state, fields)
 
     def corners(self, state):
         return self.inner.corners(state)

@@ -83,6 +83,14 @@ class _Carry(NamedTuple):
     f_prev: Any              # (B,) LM objective at the state, or None
 
 
+class _Runs(NamedTuple):
+    """A chain-kernel window of F frames read by runs of trackers: rows
+    start:stop read frame `f` of `frames` (F, [C,] H, W), one kernel call
+    per run, the frame shared by the run's trackers in place."""
+    frames: torch.Tensor
+    runs: tuple              # ((f, start, stop), ...)
+
+
 class _Phase(NamedTuple):
     """One phase of an update: its (decimated) region, the AM state of its
     template, its cached J0 / H0, the image it samples (per-tracker
@@ -145,20 +153,24 @@ def _blur_windows(win: torch.Tensor, stride: int) -> torch.Tensor:
     return sum(float(k[j]) * fh[..., j:j + h, :] for j in range(len(k)))
 
 
-def _windows(frames: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+def _windows(frames, x0: torch.Tensor, y0: torch.Tensor,
              hc: int, wc: int, pad: int = 0) -> torch.Tensor:
     """Each tracker's window (B, C, hc + 2 pad, wc + 2 pad) of its own
-    frame of frames (B, H, W, C), from (x0 - pad, y0 - pad), with the
-    indices clamped into the frame (its replicate border)."""
-    b, h, w, _ = frames.shape
+    frame of frames (B, H, W, C) or of a `FrameStack`, from (x0 - pad,
+    y0 - pad), with the indices clamped into the frame (its replicate
+    border)."""
+    if isinstance(frames, interp.FrameStack):
+        frames, bi = frames
+    else:
+        bi = torch.arange(frames.shape[0], device=frames.device)
+    _, h, w, _ = frames.shape
     dev = frames.device
     rows = (y0.long()[:, None] + torch.arange(-pad, hc + pad, device=dev)
             ).clamp(0, h - 1)
     cols = (x0.long()[:, None] + torch.arange(-pad, wc + pad, device=dev)
             ).clamp(0, w - 1)
-    bi = torch.arange(b, device=dev)[:, None, None]
-    return frames[bi, rows[:, :, None], cols[:, None, :]].permute(
-        0, 3, 1, 2).contiguous()
+    return frames[bi[:, None, None], rows[:, :, None], cols[:, None, :]
+                  ].permute(0, 3, 1, 2).contiguous()
 
 
 def _blur_valid(ext: torch.Tensor, stride: int) -> torch.Tensor:
@@ -209,10 +221,9 @@ class LKBase(SearchMethod):
 
     def __init__(self, am, ssm, prm):
         super().__init__(am, ssm, prm)
-        if prm.border != interp.REPLICATE:
-            raise NotImplementedError(
-                f"border {prm.border!r} is not ported yet: ROADMAP Queue 1, "
-                "slice 8 (non-replicate borders)")
+        if prm.border not in interp.BORDERS:
+            raise ValueError(f"unknown border {prm.border!r}; known: "
+                             f"{interp.BORDERS}")
         if prm.interp not in DENSE_INTERPS + GATHER_INTERPS:
             raise ValueError(f"unknown interp {prm.interp!r}; known: "
                              f"{DENSE_INTERPS + GATHER_INTERPS}")
@@ -253,9 +264,10 @@ class LKBase(SearchMethod):
         Hessian flavour but std2) or NCC (self0, selft), the ESM mean
         Jacobian as the kernel's J0 operand, no ILM or SPI, dense taps, a
         gray frame or 2-4 channels for SSD without ESM, and a matrix SSM
-        with the default matrix `warp_pts_from`. `use_pallas=False` takes
-        the generic path. FCSD's steepest-ascent step has no kernel mode:
-        its JAX `_iteration` never reaches the kernel either."""
+        with the default matrix `warp_pts_from`, and no `crop_blocks`.
+        `use_pallas=False` takes the generic path. FCSD's steepest-ascent
+        step has no kernel mode: its JAX `_iteration` never reaches the
+        kernel either."""
         prm, am, ssm = self.prm, self.am, self.ssm
         fuse_am = am.name == "ssd" or (am.name == "ncc" and prm.hess_type
                                        in ("self0", "selft"))
@@ -268,32 +280,47 @@ class LKBase(SearchMethod):
                 and prm.hess_type in ("self0", "selft", "std")
                 and not prm.spi_type and state.spi_mask is None
                 and (frame.dim() == 2 or mc_ok)
+                and prm.crop_blocks is None
                 and isinstance(ssm, MatrixSSM)
                 and type(ssm).warp_pts_from is MatrixSSM.warp_pts_from
                 and ssm.dof in STATE_DIMS)
 
     # -- sampling and the patch Jacobian -----------------------------------
-    def _sample(self, img: torch.Tensor, pts: torch.Tensor, offset,
-                need_grad: bool, crop=None):
+    def _sample(self, img, pts: torch.Tensor, offset, need_grad: bool,
+                crop=None):
         """Patches (B, N, C) at image points pts (B, N, 2) and, with
         `need_grad`, their derivative (B, N, C, 2): from per-tracker
         windows (B, C, Hc, Wc) at pts - offset (dense taps), or from the
         shared frame (H, W[, C]) (dense taps in a `crop` window, or the
-        gather kinds) or per-tracker frames (B, H, W, C) (the gather
-        kinds)."""
+        gather kinds) or per-tracker frames (B, H, W, C) or a `FrameStack`
+        (either kind). The value-and-gradient sample (the Jacobian's) is
+        the one that `interp_bf16`, `interp_precision` and `crop_blocks`
+        change, as in the JAX package's `_patch_and_jac`
+        (`mtf_tpu/sm/lk.py:161-176`); value-only samples (the LM
+        objective, template learning) stay float32."""
+        prm = self.prm
+        bf16 = need_grad and prm.interp_bf16
         if offset is not None:
             out = interp.sample_windows(
                 img, pts[..., 0] - offset[:, None, 0],
-                pts[..., 1] - offset[:, None, 1], need_grad, self.kind)
+                pts[..., 1] - offset[:, None, 1], need_grad, self.kind,
+                bf16=bf16)
             if not need_grad:
                 return out.transpose(1, 2), None
             val, dx, dy = out
             return (val.transpose(1, 2),
                     torch.stack([dx, dy], dim=-1).transpose(1, 2))
         if self.dense:
-            return interp.sample_dense(img, pts, self.kind, crop=crop,
-                                       need_grad=need_grad)
-        return interp.sample_val_grad(img, pts, self.kind, self.prm.border,
+            if need_grad and prm.crop_blocks is not None:
+                return interp.sample_dense_blocked(
+                    img, pts, self.kind, crop=crop or 64,
+                    grid_shape=(self.am.prm.resy, self.am.prm.resx),
+                    blocks=tuple(prm.crop_blocks), bf16=bf16)
+            return interp.sample_dense(
+                img, pts, self.kind, crop=crop, need_grad=need_grad,
+                bf16=bf16,
+                precision=prm.interp_precision if need_grad else None)
+        return interp.sample_val_grad(img, pts, self.kind, prm.border,
                                       need_grad=need_grad)
 
     def _pts(self, region: RegionState, ssm_state: torch.Tensor,
@@ -428,8 +455,19 @@ class LKBase(SearchMethod):
         ssm = self.ssm
         window, ph_pts, templ, j0 = ph.kernel
         M0 = self._window_warp(state, c.ssm_state, offs3)
-        _, g, h = lk_fused_chain(window, M0, ssm.generators, ph_pts, templ,
-                                 am=self.am.name, j0=j0, kind=self.kind)
+        kw = dict(am=self.am.name, kind=self.kind, bf16=self.prm.interp_bf16)
+        if isinstance(window, _Runs):
+            # one call per run of trackers on one frame (the sub-tracker
+            # grid's P sub-trackers on their parent's frame), read in place
+            out = [lk_fused_chain(
+                window.frames[f].expand((b - a,) + window.frames.shape[1:]),
+                M0[a:b], ssm.generators, ph_pts[a:b], templ[a:b],
+                j0=None if j0 is None else j0[a:b], **kw)[1:]
+                for f, a, b in window.runs]
+            g, h = (torch.cat(x) for x in zip(*out))
+        else:
+            _, g, h = lk_fused_chain(window, M0, ssm.generators, ph_pts,
+                                     templ, j0=j0, **kw)
         # SSD: selft == std == -J^T J at the current J (ESM: the ESM normal
         # matrix); NCC selft: the closed form of the moments; self0: the
         # phase's cached Hessian
@@ -554,7 +592,7 @@ class LKBase(SearchMethod):
         else None. One window for the whole update, from the points at
         the pre-update state: the margin absorbs the motion."""
         prm = self.prm
-        if not (self.dense and prm.crop is not None
+        if not (self.dense and prm.crop is not None and prm.crop_blocks is None
                 and (prm.crop < h or prm.crop < w)):
             return None
         hc, wc = min(prm.crop, h), min(prm.crop, w)
@@ -564,6 +602,12 @@ class LKBase(SearchMethod):
                 interp.crop_origin(pts0[..., 1], hc, h, _CROP_MARGIN),
                 hc, wc)
 
+    def _kernel_window(self, v: torch.Tensor) -> torch.Tensor:
+        """A chain-kernel window as the kernel reads it: with
+        `interp_bf16`, its values rounded to bfloat16 where it is made
+        (the kernel rounds its tap weights)."""
+        return interp.round_bf16(v) if self.prm.interp_bf16 else v
+
     def _views(self, state: TrackerState, frame: torch.Tensor, strides,
                fused: bool):
         """The images an update samples, per variant (the frame, then its
@@ -572,10 +616,11 @@ class LKBase(SearchMethod):
         where the dense taps read a crop smaller than the frame; else the
         shared frame and no offset. With `fused`, also the chain kernel's
         window per variant: the windows, or the shared frame with a batch
-        stride of 0 (never B copies). The fused path crops every variant
-        from the blurred frame; the generic path blurs its windows, as the
-        JAX package's does (the two differ only within a blur radius of a
-        window's edge)."""
+        stride of 0 (never B copies), rounded to bfloat16 with
+        `interp_bf16`. The fused path crops every variant from the blurred
+        frame; the generic path blurs its windows, as the JAX package's
+        does (the two differ only within a blur radius of a window's
+        edge)."""
         h, w = frame.shape[:2]
         mc = frame.dim() == 3
         b = state.ssm_state.shape[0]
@@ -598,48 +643,72 @@ class LKBase(SearchMethod):
                 imgs = [v[:, None] for v in win]
             if not fused:
                 imgs += [_blur_windows(imgs[0], st) for st in strides]
-            kwins = list(win) if fused else None
+            kwins = ([self._kernel_window(v) for v in win] if fused
+                     else None)
             return imgs, kwins, torch.stack([x0, y0], dim=-1)
         kwins = None
         if fused:
-            kwins = [(v.permute(2, 0, 1).contiguous() if mc else v).expand(
+            kwins = [self._kernel_window(
+                v.permute(2, 0, 1).contiguous() if mc else v).expand(
                 (b,) + (v.shape[2:3] if mc else ()) + (h, w))
                 for v in variants]
         return variants, kwins, None
 
-    def _views_multi(self, state: TrackerState, frames: torch.Tensor,
-                     strides, fused: bool):
-        """`_views` of per-tracker frames (B, H, W, C): the same images,
-        each tracker's read from its own frame. Where a crop applies, the
+    def _views_multi(self, state: TrackerState, frames, strides,
+                     fused: bool):
+        """`_views` of per-tracker frames (B, H, W, C) or of a
+        `FrameStack` (F frames read by index): the same images, each
+        tracker's read from its own frame. Where a crop applies, the
         dense taps read windows (B, C, Hc, Wc) gathered from the frames,
-        each blurred variant on a margin of the blur's radius; else the
+        each blurred variant on a margin of the blur's radius. Else the
         stack (B, C, H, W) itself and its blur, with offset 0, so the
-        chain kernel's window is the stack with no copy. The gather kinds
-        read the frames (B, H, W, C)."""
-        b, h, w, c = frames.shape
+        chain kernel's window is the stack with no copy; or, by index, the
+        F frames and their blur as `FrameStack`s, read in place by the
+        samplers, and by the chain kernel one call per run of trackers on
+        one frame (`_Runs`; never a frame per tracker). The gather kinds
+        read the frames (B, H, W, C) or their `FrameStack`. With
+        `interp_bf16` the kernel's windows are rounded."""
+        index = None
+        if isinstance(frames, interp.FrameStack):
+            frames, index = frames
+        b = state.ssm_state.shape[0]
+        h, w, c = frames.shape[1:]
         crop = self._crop(state, h, w)
         if crop is None:
             stack = frames.permute(0, 3, 1, 2)
             blurs = [_blur_windows(stack, st) for st in strides]
-            if not self.dense:
-                return ([frames] + [v.permute(0, 2, 3, 1) for v in blurs],
-                        None, None)
+            if not self.dense or index is not None:
+                hwc = [frames] + [v.permute(0, 2, 3, 1) for v in blurs]
+                imgs = (hwc if index is None
+                        else [interp.FrameStack(v, index) for v in hwc])
+                if not fused:
+                    return imgs, None, None
+                f, n = torch.unique_consecutive(index, return_counts=True)
+                ends = np.cumsum(n.tolist())
+                runs = tuple(zip(f.tolist(), (ends - n.tolist()).tolist(),
+                                 ends.tolist()))
+                kwins = [_Runs(self._kernel_window(
+                    v[:, 0] if c == 1 else v).contiguous(), runs)
+                    for v in [stack] + blurs]
+                return imgs, kwins, None
             # the stack itself for C = 1; one copy of it for C > 1
             imgs = [stack.contiguous()] + blurs
             offset = frames.new_zeros(b, 2)
         else:
+            src = (frames if index is None
+                   else interp.FrameStack(frames, index))
             x0, y0, hc, wc = crop
-            imgs = [_windows(frames, x0, y0, hc, wc)]
+            imgs = [_windows(src, x0, y0, hc, wc)]
             if fused:
                 # every variant cropped from the blurred frame, as `_views`
                 imgs += [_blur_valid(_windows(
-                    frames, x0, y0, hc, wc, (len(_binomial(st)) - 1) // 2),
+                    src, x0, y0, hc, wc, (len(_binomial(st)) - 1) // 2),
                     st) for st in strides]
             else:
                 imgs += [_blur_windows(imgs[0], st) for st in strides]
             offset = torch.stack([x0, y0], dim=-1)
-        kwins = ([v[:, 0] if c == 1 else v for v in imgs]
-                 if fused else None)
+        kwins = ([self._kernel_window(v[:, 0] if c == 1 else v)
+                  for v in imgs] if fused else None)
         return imgs, kwins, offset
 
     def _phases(self, state: TrackerState, cache: LKCache, imgs, kwins,
@@ -732,10 +801,11 @@ class LKBase(SearchMethod):
                            lambda strides, fused: self._views(
                                state, frame, strides, fused))
 
-    def _update_multi(self, state: TrackerState,
-                      frames: torch.Tensor) -> TrackerState:
+    def _update_multi(self, state: TrackerState, frames) -> TrackerState:
         # the route is the one a shared frame of these frames' shape takes
-        fused = self._fused_ok(state, self._frame(frames[0]))
+        one = (frames.frames[0] if isinstance(frames, interp.FrameStack)
+               else frames[0])
+        fused = self._fused_ok(state, self._frame(one))
         return self._track(state, fused, lambda strides, fused:
                            self._views_multi(state, frames, strides, fused))
 

@@ -21,6 +21,10 @@ update's online additions of (`seed`, update count); both are made on the
 tracker's device, shared by the B trackers (every tracker of a JAX fleet
 draws from the same key), and come from `_draw`, which a caller may
 override (the parity tests hand it the JAX package's draws).
+
+`update_multi` runs the same update on per-tracker frames (B, H, W, C):
+each tracker's search and online additions sample its own frame (a gray
+stack (B, H, W, 1) by the dense taps, as an (H, W) frame).
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import torch
 
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, converge,
-                                   points_at, sampler_sigma, seeded_generator)
+                                   is_gray, points_at, sampler_sigma,
+                                   seeded_generator)
 
 # samples per chunk of the dataset build with a dense kind (the JAX
 # package's `lax.map` batch size there): bounds the sampler's memory
@@ -134,7 +139,7 @@ class NN(SearchMethod):
         samples a `crop` (default 192) window per state, anchored at its
         own points."""
         pts = points_at(self.ssm, region, s)
-        if self.prm.interp.endswith(interp.MM_SUFFIX) and frame.dim() == 2:
+        if self.prm.interp.endswith(interp.MM_SUFFIX) and is_gray(frame):
             val, _ = interp.sample_dense(
                 frame, pts, self.prm.interp[:-len(interp.MM_SUFFIX)],
                 crop=self.prm.crop or 192, need_grad=False)

@@ -13,7 +13,14 @@ full resolution; the rest get -1e30.
 With a dense kind (`interp="<kind>_mm"`) on a gray frame every tracker's
 particles sample one window of `crop` pixels anchored at the centre of
 its particle cloud, and a particle with a point outside it is invalid
-(`_apply_window_mask`), as in the JAX package.
+(`_apply_window_mask`), as in the JAX package; `interp_bf16` rounds the
+window's values and the tap weights to bfloat16 there.
+
+`update_multi` runs the same update on per-tracker frames (B, H, W, C):
+each tracker's particles, scoring frame (blurred, downsampled) and
+template learning read its own frame, and a gray stack (B, H, W, 1)
+takes the dense window route, as each tracker of a `vmap`ped JAX fleet
+sees an (H, W) frame. The draws are `update`'s.
 
 Draws: each update's draws (`PFDraw`) are a function of (`seed`, update
 count) alone, made on the tracker's device and shared by the B trackers,
@@ -34,9 +41,9 @@ from mtf_tpu_torch.am.base import AMState
 from mtf_tpu_torch.ops import interp
 from mtf_tpu_torch.ops import warp as W
 from mtf_tpu_torch.sm.composite import where_state
-from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, sampler_sigma,
-                                   seeded_generator)
-from mtf_tpu_torch.sm.lk import _blur2
+from mtf_tpu_torch.sm.core import (SearchMethod, TrackerState, is_gray,
+                                   sampler_sigma, seeded_generator)
+from mtf_tpu_torch.sm.lk import _blur2, _blur_windows
 
 _NEG = -1e30
 
@@ -199,9 +206,9 @@ class PF(SearchMethod):
             pts = pts * pts_scale
         prm = self.prm
         ok = torch.ones((B, P), dtype=torch.bool, device=states.device)
-        if prm.interp.endswith(interp.MM_SUFFIX) and frame.dim() == 2:
+        if prm.interp.endswith(interp.MM_SUFFIX) and is_gray(frame):
             kind = prm.interp[:-len(interp.MM_SUFFIX)]
-            h, w = frame.shape
+            h, w = frame.shape[-3:-1] if frame.dim() == 4 else frame.shape
             crop = prm.crop if crop is None else crop
             if crop is not None and (crop < h or crop < w):
                 hc, wc = min(crop, h), min(crop, w)
@@ -225,12 +232,17 @@ class PF(SearchMethod):
                     hc, device=frame.device)
                 cols = x0.long()[:, None] + torch.arange(
                     wc, device=frame.device)
-                win = frame.reshape(-1)[rows[:, :, None] * w
+                # (each tracker's own frame of per-tracker frames)
+                base = (torch.arange(B, device=frame.device)[:, None, None]
+                        * (h * w) if frame.dim() == 4 else 0)
+                win = frame.reshape(-1)[base + rows[:, :, None] * w
                                         + cols[:, None, :]]  # (B, hc, wc)
-                val = interp.sample_windows(win, x, y, kind=kind)[..., None]
+                val = interp.sample_windows(win, x, y, kind=kind,
+                                            bf16=prm.interp_bf16)[..., None]
             else:
                 val, _ = interp.sample_dense(frame, pts, kind, crop=None,
-                                             need_grad=False)
+                                             need_grad=False,
+                                             bf16=prm.interp_bf16)
         else:
             val = interp.sample(frame, pts, prm.interp, prm.border)
         return val.reshape(B, P, -1, val.shape[-1]), ok
@@ -240,12 +252,18 @@ class PF(SearchMethod):
         pass: the binomial-blurred frame, stride-downsampled with
         `score_downsample`."""
         s = self.pf.score_stride
-        fr_b = _blur2(frame, s)
+        if frame.dim() == 4:
+            # per-tracker frames, each blurred as `_blur2` blurs one
+            fr_b = _blur_windows(frame.permute(0, 3, 1, 2), s).permute(
+                0, 2, 3, 1)
+        else:
+            fr_b = _blur2(frame, s)
         if not self.pf.score_downsample:
             return fr_b, None, None
         crop = (max(32, self.prm.crop // s + 16)
                 if self.prm.crop is not None else None)
-        return fr_b[::s, ::s].contiguous(), 1.0 / s, crop
+        sub = fr_b[:, ::s, ::s] if frame.dim() == 4 else fr_b[::s, ::s]
+        return sub.contiguous(), 1.0 / s, crop
 
     def _log_lik(self, am_state, patch, am=None, p_am=None):
         """(B, P) log-likelihoods of patches (B, P, N, C) against the
@@ -361,7 +379,7 @@ class PF(SearchMethod):
         else:
             bp, sc_am, sc_st = None, self.am, state.am_state
         frame_sc, pscale, crop_sc = frame, None, None
-        if bp is not None and pf.score_blur and frame.dim() == 2:
+        if bp is not None and pf.score_blur and is_gray(frame):
             frame_sc, pscale, crop_sc = self._score_frame(frame)
         patches, valid = self._particle_patches(
             region, prop, frame_sc, base_pts=bp, pts_scale=pscale,
@@ -465,7 +483,7 @@ class PF(SearchMethod):
                              am_state)
         new_score = score_am_state
         if score_am_state is not None:
-            if self.pf.score_blur and frame.dim() == 2:
+            if self.pf.score_blur and is_gray(frame):
                 fr_b, pscale, crop_sc = self._score_frame(frame)
                 patches_b, _ = self._particle_patches(
                     state.region, mean_state[:, None], fr_b,

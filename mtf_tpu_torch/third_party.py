@@ -11,12 +11,16 @@ it lacks raises `NotImplementedError` with the list of the ones it has.
 
 They are axis-aligned box learners; like the reference's adapters they
 report the box as a 4-corner region: corners in (B, 4, 2) (or (4, 2) for
-one tracker), out (B, 2, 4), as every tracker of the port.
+one tracker), out (B, 2, 4), as every tracker of the port. Their
+`update_multi` raises: per-tracker frames need a device-only tracker (the
+JAX fleet `vmap`s `update`, which a host object cannot be).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mtf_tpu_torch.sm.core import multi_unported
 
 
 class ThirdPartyState:
@@ -81,6 +85,9 @@ class CVTrackerAdapter:
                     [[x, y], [x + w, y], [x + w, y + h], [x, y + h]],
                     np.float32)
         return state
+
+    def update_multi(self, state: ThirdPartyState, frames):
+        raise multi_unported(self)
 
     def corners(self, state: ThirdPartyState) -> torch.Tensor:
         """(B, 2, 4) corners on the host."""

@@ -37,12 +37,17 @@ def _conv2(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return y[..., 0] if squeeze else y
 
 
-def gaussian_kernel(size: int = 5, sigma: float = 1.0,
-                    device=None) -> torch.Tensor:
+def _gaussian_taps(size: int, sigma: float, device=None) -> torch.Tensor:
+    """The normalised 1D Gaussian taps (size,) of `gaussian_kernel`."""
     r = torch.arange(size, dtype=torch.float32, device=device) \
         - (size - 1) / 2.0
     k = torch.exp(-r * r / (2 * sigma * sigma))
-    k = k / torch.sum(k)
+    return k / torch.sum(k)
+
+
+def gaussian_kernel(size: int = 5, sigma: float = 1.0,
+                    device=None) -> torch.Tensor:
+    k = _gaussian_taps(size, sigma, device)
     return k[:, None] * k[None, :]
 
 
@@ -81,21 +86,44 @@ def sobel_filter(frame: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(gx * gx + gy * gy)
 
 
-def descriptor_fields(frame: torch.Tensor, sigma: float = 1.5
-                      ) -> torch.Tensor:
+def _sep_corr(x: torch.Tensor, col, row) -> torch.Tensor:
+    """'Same' cross-correlation of x (..., H, W) with the separable kernel
+    col ⊗ row, zero padding, as shift-adds in float32: along rows first,
+    then along columns, zero taps skipped. Every element is the same sum
+    whatever the batch (no convolution algorithm chosen by shape, no TF32
+    on the card)."""
+    h, w = x.shape[-2:]
+    rr, rc = len(row) // 2, len(col) // 2
+    xp = F.pad(x, (rr, rr, 0, 0))
+    t = sum(float(c) * xp[..., :, j:j + w] for j, c in enumerate(row) if c)
+    tp = F.pad(t, (0, 0, rc, rc))
+    return sum(float(c) * tp[..., i:i + h, :] for i, c in enumerate(col)
+               if c)
+
+
+def descriptor_fields(frame: torch.Tensor, sigma: float = 1.5,
+                      batched: bool = False) -> torch.Tensor:
     """Descriptor Fields (Crivellaro & Lepetit, CVPR'14; the reference's
     `ThirdParty/DFT`): the image gradient split into its positive and
     negative x and y parts, each Gaussian-smoothed -> (H, W, 4). Tracking
-    DFT is any LK SM on this 4-channel frame."""
-    g = to_gray(frame) if frame.dim() == 3 else frame
-    kx = torch.tensor(_SOBEL_X, device=frame.device) / 8.0
-    gx = _conv2(g, kx)
-    gy = _conv2(g, kx.T)
-    parts = [torch.clamp(gx, min=0.0), torch.clamp(-gx, min=0.0),
-             torch.clamp(gy, min=0.0), torch.clamp(-gy, min=0.0)]
-    size = int(2 * round(2 * sigma) + 1)
-    return torch.stack([gaussian_filter(p, size=size, sigma=sigma)
-                        for p in parts], dim=-1)
+    DFT is any LK SM on this 4-channel frame. With `batched`, frames
+    (B, H, W[, C]) -> (B, H, W, 4) in one pass: one Sobel pair and one
+    Gaussian over the whole batch. The JAX package's 2D convolutions
+    (`mtf_tpu/utils/preproc.py:80`) are applied here as their separable
+    factors (Sobel/8 = [1, 2, 1] x [-1, 0, 1] / 8, the Gaussian k x k), so
+    a frame's fields do not depend on the batch it is in."""
+    if not batched:
+        return descriptor_fields(frame[None], sigma, batched=True)[0]
+    g = frame
+    if g.dim() == 4:
+        g = g[..., 0] if g.shape[-1] == 1 else to_gray(g)
+    gx = _sep_corr(g, (1.0, 2.0, 1.0), (-0.125, 0.0, 0.125))
+    gy = _sep_corr(g, (-0.125, 0.0, 0.125), (1.0, 2.0, 1.0))
+    parts = torch.stack([torch.clamp(gx, min=0.0), torch.clamp(-gx, min=0.0),
+                         torch.clamp(gy, min=0.0), torch.clamp(-gy, min=0.0)],
+                        dim=-3)                            # (B, 4, H, W)
+    k = _gaussian_taps(int(2 * round(2 * sigma) + 1), sigma).tolist()
+    return _sep_corr(parts, k, k).movedim(-3, -1)
 
 
 def bilateral_filter(frame: torch.Tensor, size: int = 5,

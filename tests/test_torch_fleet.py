@@ -234,7 +234,8 @@ def builds_like_jax(args, kw, channels=0):
     for a, b in zip(tl, jl):
         assert type(a).__name__ == type(b).__name__
         for f in ("enable_lm", "hess_type", "jac_type", "interp", "epsilon",
-                  "spi_type", "max_iters", "crop"):
+                  "spi_type", "max_iters", "crop", "border", "crop_blocks",
+                  "interp_bf16", "interp_precision"):
             assert getattr(a.prm, f) == getattr(b.prm, f), f
         assert a._fused_ok(st, torch.zeros(shape)) == b._fused_ok(
             st, jnp.zeros(shape))
@@ -265,15 +266,11 @@ def builds_like_jax(args, kw, channels=0):
 def test_factory_rejects_unported(args, kw):
     """What the slices ported (the bare esm/fclk configurations, which
     default to `interp="linear"` and `epsilon=0.01`; rklt's enable_spi;
-    the gather interps; done masks; self0; use_pallas; the likelihood and
-    histogram options that SSIM, MI and PF read) builds as the JAX package
-    builds it (`builds_like_jax`; the AM parameters too); non-replicate
-    borders stay unported and raise naming their queue."""
-    if kw.get("border", "replicate") != "replicate":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, "
-                                                      "slice 8"):
-            tcreate(*args, device="cpu", **kw)
-        return
+    the gather interps; done masks; self0; the constant border (which
+    the dense taps ignore, as in the JAX package: fclk on "linear_mm"
+    takes the chain kernel); use_pallas; the likelihood and histogram
+    options that SSIM, MI and PF read) builds as the JAX package builds
+    it (`builds_like_jax`; the AM parameters too)."""
     builds_like_jax(args, kw)
     if {"likelihood_alpha", "n_bins"} & set(kw):
         t = tcreate(*args, device="cpu", **kw)

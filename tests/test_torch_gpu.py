@@ -796,3 +796,74 @@ def test_cuda_run_mtf_small(cuda_device, tmp_path):
     leaves = [x for x in torch.utils._pytree.tree_leaves(run["state"])
               if isinstance(x, torch.Tensor) and x.dim() > 0]
     assert all(x.is_cuda for x in leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("am,esm,c", ALL_MODES)
+@pytest.mark.parametrize("kind", gf.KINDS)
+@pytest.mark.parametrize("s", [2, 8])
+def test_cuda_chain_bf16_flag_matches_plain(cuda_device, s, kind, am, esm,
+                                            c):
+    """The chain kernel's bfloat16-operand flag (its own library per S) in
+    every mode and plain-tap kind, on a window rounded to bfloat16,
+    against the plain form with the flag on the card: val within 1e-3,
+    every raw sum within 1e-4 of its norm (with the rounding floor at
+    S != 8); one launch under the flagged mode's name; the flag differs
+    from the unflagged kernel."""
+    arrays, j0 = _chain_at(625, s, am, esm, c)
+    args = _on(cuda_device, arrays)
+    args[0] = args[0].bfloat16().float()
+    j0 = None if j0 is None else _on(cuda_device, [j0])[0]
+    mode = tk.mode_name(am, esm, c > 1, kind, s, bf16=True)
+    before = tk.lk_fused_chain_raw.launches[mode]
+    got = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind, bf16=True)
+    torch.cuda.synchronize()
+    assert tk.lk_fused_chain_raw.launches[mode] == before + 1
+    want = tk.lk_fused_chain_ref(*args, am=am, j0=j0, kind=kind, bf16=True)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-3
+    scales = None if s == 8 else cs.chain_sum_scales(torch, tk, args, am, j0,
+                                                     kind)
+    assert_raw_close(got[1:], want[1:], scales)
+    plain = tk.lk_fused_chain_raw(*args, am=am, j0=j0, kind=kind)
+    assert float((got[0] - plain[0]).abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("crop", [32, 1000])
+def test_cuda_sub_grid_update_multi_on_copies(cuda_device, crop):
+    """The sub-tracker grid's `update_multi` on the card, its sub-trackers
+    reading their parents' frames by index (with a window: gathered per
+    sub-tracker; without one: the chain kernel once per parent frame),
+    on copies of one frame as `update` on it, bit for bit."""
+    from mtf_tpu_torch import create_tracker
+    rng = np.random.default_rng(0)
+    img = torch.tensor(_window(rng, 240), device=cuda_device)
+    sm = create_tracker("grid", "ssd", "8", device=cuda_device, grid_res=3,
+                        grid_sm="fclk", crop=crop, max_iters=3, epsilon=0.0,
+                        interp="linear_mm")
+    corners = np.float32([[[60.3, 50.2], [140.3, 50.2], [140.3, 130.2],
+                           [60.3, 130.2]]] * 2) + np.float32([[[0, 0]],
+                                                              [[30, 40]]])
+    st = sm.initialize(img, corners)
+    f = torch.roll(img, (1, 2), (0, 1))
+    a = sm.update_multi(st, torch.stack([f, f]))
+    assert torch.equal(sm.corners(a), sm.corners(sm.update(st, f)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", gf.KINDS)
+def test_cuda_k5_bf16_flag_matches_plain(cuda_device, kind):
+    """K5 / K5c with the bfloat16-operand flag (a library of its own) for
+    one iteration, on a window rounded to bfloat16, against the plain
+    form with the flag: disp within 1e-4 template units; one launch under
+    the flagged kind's name."""
+    win, pts, templ, scale = _on(cuda_device, k5_inputs(64, b=8, hw=160,
+                                                        p=30)[:4])
+    win = win.bfloat16().float()
+    before = gf.grid_flow.launches[kind + "+bf16"]
+    got = gf.grid_flow(win, pts, templ, scale, 64, 1, kind=kind, bf16=True)
+    torch.cuda.synchronize()
+    assert gf.grid_flow.launches[kind + "+bf16"] == before + 1
+    want = gf.grid_flow_ref(win, pts, templ, scale, 64, 1, kind=kind,
+                            bf16=True)
+    assert float((got - want).abs().max()) <= 1e-4

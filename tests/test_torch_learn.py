@@ -157,15 +157,18 @@ def test_learn_aliases_and_update_multi():
 
 def test_dft_matches_jax():
     """DFT with FCLK on the descriptor fields (the multi-channel chain
-    kernel's plain form) against the JAX package's fleet; DFT reads whole
-    frames, so `update_multi` raises (ROADMAP Queue 1, item 1)."""
+    kernel's plain form) against the JAX package's fleet; its
+    `update_multi` (the fields of the per-tracker frames in one batched
+    pass) on copies of one frame is `update` on it, bit for bit (its
+    parity with the JAX fleet's: `tests/test_torch_multi.py`)."""
     frames = frames_of(_scene())
     sm = tcreate("dft", "ssd", "8", device="cpu", **DFT_CFG)
     got = port_run(sm, frames, BOXES)
     err = np.abs(got - reference(dft_reference)).max(axis=(1, 2, 3))
     assert np.all(err <= CORNER_TOL), err
     assert sm.inner.name == "fclk" and sm.sigma == 1.5
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-        sm.update_multi(sm.initialize(frames[0], BOXES),
-                        np.stack([frames[1]] * 4))
+    st = sm.initialize(frames[0], BOXES)
+    multi = sm.update_multi(st, np.stack([frames[1]] * len(BOXES)))
+    assert torch.equal(sm.corners(multi),
+                       sm.corners(sm.update(st, frames[1])))
     assert tcreate("dft", device="cpu", resx=16, resy=16).inner.name == "esm"

@@ -325,9 +325,11 @@ def test_kernel_modes_outside_the_trackers_raise():
     with pytest.raises(ValueError, match="kind"):
         tk.lk_fused_chain(win, M0, gens, ph, templ, kind="nearest")
     assert "ssd_mc" in tk.lk_fused_chain_raw.launches
-    # the 15 instantiations at each state size, with plain and blurred taps
+    # the 15 instantiations at each state size, with plain and blurred
+    # taps, and with plain taps under the bfloat16-operand flag
     assert len(tk.INSTANTIATIONS) == 15
-    assert len(tk.lk_fused_chain_raw.launches) == 15 * 2 * len(tk.STATE_DIMS)
+    assert len(tk.lk_fused_chain_raw.launches) == 15 * 3 * len(tk.STATE_DIMS)
+    assert "ssd_mc+bf16" in tk.lk_fused_chain_raw.launches
 
 
 @pytest.mark.parametrize("key", ["mcssd", "ssd3", "MCSSD"])

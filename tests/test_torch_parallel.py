@@ -725,11 +725,17 @@ def test_donating_fleet_takes_per_tracker_frames():
 
 
 def test_update_multi_unported_sms_raise():
-    """Every other SM's `update_multi` names its ROADMAP item."""
+    """The search methods whose `update_multi` raised until it was ported
+    (PF, NN, the sub-tracker grid) now step per-tracker frames through
+    the fleet: on copies of one frame as `update` on it, bit for bit, and
+    on per-tracker frames with finite corners. (Their parity with the JAX
+    package: `tests/test_torch_multi.py`.)"""
+    frames = _shifted_frames(2)
     for key, kw in (("pf", {}), ("nn", dict(nn_n_samples=8)),
                     ("grid", dict(grid_sm="fclk", crop=32))):
         sm = tcreate(key, "ssd", "8", device="cpu", resx=8, resy=8, **kw)
-        st = sm.initialize(_scene(), CORNERS[:1])
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 1"):
-            sm.update_multi(st, _scene()[None])
+        fl = TrackerFleet(sm)
+        st = fl.initialize(_scene(), CORNERS)
+        a = fl.corners(fl.update_multi(st, np.stack([frames[0]] * 2)))
+        assert torch.equal(a, fl.corners(fl.update(st, frames[0]))), key
+        assert torch.isfinite(fl.corners(fl.update_multi(st, frames))).all()

@@ -315,6 +315,8 @@ def test_factory_multi_cfg_builds_like_jax(tmp_path):
                               syn_sigma=0.01))
     for opt in ({"crop_blocks": (2, 2)}, {"interp_bf16": True},
                 {"interp_precision": "highest"}):
-        with pytest.raises(NotImplementedError, match="Queue 1, slice 8"):
-            tcreate("fclk", "ssd", "8", device="cpu", **opt)
+        t = tcreate("fclk", "ssd", "8", device="cpu", **opt)
+        j = jcreate("fclk", "ssd", "8", **opt)
+        for f in ("crop_blocks", "interp_bf16", "interp_precision"):
+            assert getattr(t.prm, f) == getattr(j.prm, f), (opt, f)
     tcreate("fclk", "ssd", "8", device="cpu", interp_bf16=False)
