@@ -30,7 +30,9 @@ tracker node, parity_cv2, the other apps and the examples, and of slice
 15: per-tracker frames (`update_multi`) for PF, NN, LP, RegNet, the
 sub-tracker grid, DFT and pfrk, and the options `interp_bf16` (the
 kernels' bfloat16-operand flag), `crop_blocks`, `border="constant"` and
-`interp_precision`:
+`interp_precision`, and of slice 16: the sub-tracker grid without a crop
+(its sub-trackers on the whole frame, shared, or their parents' frames by
+index):
 
   1. prints the card's name and power limit (nvidia-smi), and whether
      `cv2` imports on the machine (slice 7's cv2 trackers);
@@ -296,7 +298,22 @@ kernels' bfloat16-operand flag), `crop_blocks`, `border="constant"` and
      SLICE15_BUDGET_S is the phase's aim. (Slice 13's eval_suite runs
      SLICE13_SUITE_FRAMES frames, down from 20, to keep the whole script
      under 1,000 s.)
- The plain-path checks (4, 5, 9-11, 13-15, 17) drive an LM tracker's plain
+ 22. slice 16 (`_slice16_phase`), after slice 15: ssd:s2 against its
+     plain form under 3's rules on the whole 480x640 frame shared at a
+     batch stride of 0 (B = 38,400 sub-trackers, N = 16 and 64, some
+     sub-trackers past the frame's edges: the clamps at frame size;
+     `_slice16_kernels`); then the sub-tracker grid of 14 (B = 384 of
+     100) with crop 32 and without a crop (`slice16_family`), each with
+     its exact launches (ssd:s2 10 per update), timed (3 warm-ups, one
+     window of 20 updates), profiled (device ms per update) and its
+     peak memory over its updates; the no-crop grid's GT leg (limit from
+     SLICE16_GT_READING_PX, `scripts/port_slice16_reference_leg.py`) and
+     plain-path check; its `update_multi` on B copies of the frame
+     against `update` (bit for bit) and on per-tracker frames (B runs of
+     100 sub-trackers: ssd:s2 B x 10 per update, exactly), timed; and
+     3 updates of the ICLK sub-trackers' grid (the generic path, no
+     kernel launch).
+ The plain-path checks (4, 5, 9-11, 13-15, 17, 22) drive an LM tracker's plain
  path with the CUDA path's accept/reject decisions (`_teacher_force`);
  where the plain path would have decided otherwise, the change of f
  must be a tie (`_is_tie`, TIE_K).
@@ -1229,7 +1246,8 @@ def _chain_inputs(torch, frame, n, b, am, esm, dev, seed=2, ssm_key="8",
 
 def _bound_ms(torch, args, am, esm, kind="linear", blur=0):
     """Least time of one launch on the card: the bytes it must move (each
-    input read once: the window pixels its points' taps cover (2x2
+    input read once: the window pixels its points' taps cover (a window
+    shared by every tracker, once over all of them) (2x2
     linear, 4x4 cubic, 2r more per axis with blur r + 1) in each of its C
     channels, the warps, points, template and J0; each output written
     once) over the HBM rate, against its FLOPs over the float32 rate.
@@ -1251,8 +1269,14 @@ def _bound_ms(torch, args, am, esm, kind="linear", blur=0):
     i0 = y * wc + x
     idx = torch.cat([i0 + (rr * wc + j) for rr in range(taps)
                      for j in range(taps)], dim=-1)
-    cover = torch.zeros((b, hc * wc), dtype=torch.bool, device=win.device)
-    cover.scatter_(1, idx, True)
+    if win.shape[0] > 1 and win.stride(0) == 0:
+        # one window (the shared frame): its pixels are read once
+        cover = torch.zeros(hc * wc, dtype=torch.bool, device=win.device)
+        cover.scatter_(0, idx.flatten(), True)
+    else:
+        cover = torch.zeros((b, hc * wc), dtype=torch.bool,
+                            device=win.device)
+        cover.scatter_(1, idx, True)
     n_out = s + s * s + ((2 * s + 5) if am == "ncc" else 0)
     nbytes = 4 * (c * int(cover.sum()) + b * (9 + 3 * n + c * n)
                   + gens.numel() + (b * s * n if esm else 0) + b * c * n
@@ -1318,6 +1342,13 @@ def chain_sum_scales(torch, tk, args, am="ssd", j0=None, kind="linear",
     SSD's residual). Returns the list of (B, ...) tensors in the order of
     the raw sums."""
     window, M0, gens, ph, templ = args
+    chunks = tk.ref_chunks(ph.shape[0], ph.shape[-1], *window.shape[-2:])
+    if len(chunks) > 1:
+        # the plain form's chunks (the no-crop sub-grid's shared frame)
+        parts = [chain_sum_scales(
+            torch, tk, (window[c], M0[c], gens, ph[c], templ[c]), am,
+            None if j0 is None else j0[c], kind, blur) for c in chunks]
+        return [torch.cat(x) for x in zip(*parts)]
     mc = window.dim() == 4
     win = window if mc else window[:, None]
     xr, yr, jx, jy = tk.project_points(M0, gens, ph)
@@ -1429,8 +1460,16 @@ def _sums_verdict(torch, run, args, got, want, scales_of, s, rows):
     third = args[2].clone()
     third[rows] *= 1 + 1e-3
     return v, _planted_faults(torch, run, want, scales, v, [
-        (PLANTED_FAULTS[0], (args[0].bfloat16().float(),) + tuple(args[1:])),
+        (PLANTED_FAULTS[0], (_bf16_window(args[0]),) + tuple(args[1:])),
         (PLANTED_FAULTS[1], tuple(args[:2]) + (third,) + tuple(args[3:]))])
+
+
+def _bf16_window(win):
+    """`win` rounded to bfloat16; one shared by every tracker (batch stride
+    0) stays one window."""
+    if win.shape[0] > 1 and win.stride(0) == 0:
+        return win[0].bfloat16().float().expand(win.shape)
+    return win.bfloat16().float()
 
 
 def _floor_fields(row, v, planted):
@@ -4533,6 +4572,248 @@ def _slice15_entries(tk, slice15, usage_bf16):
 
 
 # -- slice 11: the parallel layer ----------------------------------------
+# -- slice 16: the sub-tracker grid without a crop ------------------------
+# `ssm_family`'s sub-tracker grid with no window: its B·P sub-trackers read
+# the whole 480x640 frame, shared (the chain kernel at a batch stride of
+# 0), or with `update_multi` their parents' frames by index (one chain
+# launch per parent frame and iteration: B runs of P sub-trackers)
+SLICE16_UPDATES = 3      # the untimed legs' updates (iclk, update_multi)
+SLICE16_STEPS = 5        # the fused leg's timed updates (host clock)
+SLICE16_MULTI_B = 16     # parents of the update_multi leg's timed run
+# The JAX package's reading of the fused leg on the CPU, first 8 trackers
+# (scripts/port_slice16_reference_leg.py); per frame: see PERF.md
+SLICE16_GT_READING_PX = {"subgrid_nocrop": 0.2359}
+
+
+def slice16_family():
+    """The no-crop sub-tracker grid legs: {name: (SM key, AM, SSM key, B,
+    configuration, launches per update)}: fclk/ssd/2 sub-trackers on the
+    chain kernel (`ssm_family`'s configuration, crop None), and ICLK ones
+    (the JAX package's own no-crop test's `grid_sm`) on the generic
+    path, which launches no kernel."""
+    key, am, ssm, b, cfg, expect, _ = ssm_family()["subgrid"]
+    nocrop = dict(cfg, crop=None)
+    return {
+        "subgrid_nocrop": (key, am, ssm, b, nocrop, expect),
+        "subgrid_iclk_nocrop": (key, am, ssm, b,
+                                dict(nocrop, grid_sm="iclk"), {}),
+    }
+
+
+def shared_chain_inputs(torch, frame, n, b, dev, seed=2):
+    """Chain-kernel operands of the sub-tracker grid without a crop: the
+    whole frame (H, W) read by B trackers at a batch stride of 0,
+    translation (S = 2) warps of the stride-decimated 8x8 template grid,
+    4-12 px wide, centred anywhere within 8 px of the frame (some reach
+    past its edges: the kernel's clamps at frame size), random templates
+    (as `_subgrid_phase`'s)."""
+    from mtf_tpu_torch.ops import warp as W
+    from mtf_tpu_torch.ssm import get_ssm
+    rng = np.random.default_rng(seed)
+    h, w = frame.shape
+    side = int(round(n ** 0.5))
+    g = W.unit_square_grid(side, side, device=dev)
+    ph = torch.cat([g.T, torch.ones(1, n, device=dev)])
+    ph = ph.expand(b, 3, n).contiguous()
+    ssm = get_ssm("2", device=dev)
+    norm = np.zeros((b, 3, 3), np.float32)
+    norm[:, 0, 0] = norm[:, 1, 1] = rng.uniform(4.0, 12.0, b)
+    norm[:, 0, 2] = rng.uniform(-8.0, w + 8.0, b)
+    norm[:, 1, 2] = rng.uniform(-8.0, h + 8.0, b)
+    norm[:, 2, 2] = 1.0
+    state = torch.as_tensor(rng.normal(0, 0.02, (b, 2)), dtype=torch.float32,
+                            device=dev)
+    M0 = (torch.as_tensor(norm, device=dev)
+          @ ssm.to_matrix(state)).contiguous()
+    templ = torch.as_tensor(rng.uniform(0, 255, (b, n)), dtype=torch.float32,
+                            device=dev)
+    return frame.expand(b, h, w), M0, ssm.generators, ph, templ
+
+
+def _slice16_kernels(torch, tk, frame_d, card, dev):
+    """ssd:s2 on the shared frame at the no-crop leg's shapes (B_RKLT x
+    100 sub-trackers, N = 16 and 64) against its plain form
+    (`_chain_row`). Returns {N: row}."""
+    rows, b = {}, B_RKLT * 100
+    h, w = frame_d.shape
+    for n in (16, 64):
+        args = shared_chain_inputs(torch, frame_d, n, b, dev)
+        mode = tk.mode_name("ssd", False, False, "linear", 2)
+        rows[n] = _chain_row(
+            torch, tk, args, None, "ssd", False, "linear", 0,
+            f"K1 sub-grid no crop {mode} N={n} B={b} window {h}x{w} (the "
+            "frame, shared)", card, 2, b=b, c=1)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _slice16_grid(torch, tk, gf, card, dev, name, spec, corners, frame0,
+                  frame_d):
+    """One `update` leg of `slice16_family` (or `ssm_family`'s crop-32
+    grid) at B: exact launches over WARMUP updates and a timed window of
+    STEPS (`_fleet`), then PROFILED_UPDATES updates under the profiler
+    from a fresh init with its peak memory over them; for a fleet whose
+    GT reading is in SLICE16_GT_READING_PX, its GT leg and plain-path
+    check. Returns (its row, the tracker)."""
+    from mtf_tpu_torch.parallel import TrackerFleet
+    key, am, ssm, b, cfg, expect = spec
+    label = f"slice 16 {name} ({key}/{am}/{ssm})"
+    t0 = time.perf_counter()
+    sm, fps, got = _fleet(torch, key, am, b, card, corners, frame_d, dev, tk,
+                          gf, expect, windows=1, cfg=cfg, label=label)
+    fleet = TrackerFleet(sm)
+    st = fleet.initialize(frame_d, corners)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms, per_update, st = _profile_updates(torch, fleet, st, frame_d,
+                                              top=3, label=label)
+    peak = torch.cuda.max_memory_allocated() - base
+    row = {"B": b, "sub_trackers": b * sm.grid.grid_res ** 2, "fps": fps,
+           "update_ms": b / fps * 1e3, "device_ms": dev_ms,
+           "busy_share": dev_ms / (b / fps * 1e3),
+           "device_kernels_per_update": per_update, "peak_bytes": peak,
+           "launches": got}
+    print(f"{label} B={b}: update {row['update_ms']:.2f} ms, device "
+          f"{dev_ms:.3f} ms per update ({per_update:.0f} device kernels), "
+          f"peak {peak / 2**30:.3f} GiB over {PROFILED_UPDATES} updates "
+          f"({card})")
+    reading = SLICE16_GT_READING_PX.get(name)
+    if reading is not None:
+        row["gt_px"], frames = _gt_leg(sm, frame0, corners,
+                                       gt_limit(reading), label)
+        row.update(gt_limit_px=gt_limit(reading), jax_cpu_reading_px=reading)
+        row["plain_path_px"] = _plain_path_check(sm, key, am, frames, corners,
+                                                 label, cfg=cfg)[0]
+        del frames
+    row["wall_s"] = time.perf_counter() - t0
+    return row, sm
+
+
+def _slice16_multi(torch, tk, gf, card, dev, sm, corners, frame_d):
+    """The no-crop grid's `update_multi`: on B copies of the frame against
+    `update` (bit for bit), then on per-tracker frames (tracker b on the
+    frame shifted by (b mod 3, b mod 8 // 3) px), 1 warm-up and
+    SLICE16_UPDATES timed updates with exact launches: one chain launch
+    per parent frame and iteration, B x 10 per update."""
+    from mtf_tpu_torch.parallel import TrackerFleet
+    b = corners.shape[0]
+    label = "slice 16 subgrid_nocrop update_multi"
+    st = sm.initialize(frame_d, corners)
+    a = sm.corners(sm.update_multi(st, frame_d.expand(
+        (b,) + tuple(frame_d.shape)).contiguous()))
+    u = sm.corners(sm.update(st, frame_d))
+    row = {"B": b, "copies_exact": bool(torch.equal(a, u)),
+           "copies_px": float((a - u).abs().max())}
+    print(f"{label}: on {b} copies of the frame against update: "
+          + ("bit for bit" if row["copies_exact"]
+             else f"max {row['copies_px']:.3g} px"))
+    _check(row["copies_exact"], f"{label}: update_multi on copies "
+           f"{row['copies_px']} px from update")
+    del a, u
+    shifts = [(k % 3, k // 3) for k in range(8)]
+    stack = torch.stack([torch.roll(frame_d, sh, (0, 1)) for sh in shifts])
+    frames = stack[torch.arange(b, device=dev) % len(shifts)]
+    fleet = TrackerFleet(sm, donate=True)
+    st = fleet.update_multi(st, frames)
+    torch.cuda.synchronize()
+    _zero_counts(tk, gf)
+    t1 = time.perf_counter()
+    for _ in range(SLICE16_UPDATES):
+        st = fleet.update_multi(st, frames)
+    torch.cuda.synchronize()
+    row["update_multi_ms"] = ((time.perf_counter() - t1) / SLICE16_UPDATES
+                              * 1e3)
+    row["launches"] = _slice15_counts(tk, gf, {"ssd:s2": b * MAX_ITERS},
+                                      SLICE16_UPDATES, label)
+    bad = int((~torch.isfinite(fleet.corners(st)).flatten(1).all(1)).sum())
+    row["not_finite"] = bad
+    _check(bad == 0, f"{label}: {bad} trackers' corners not finite")
+    print(f"{label} B={b}: {row['update_multi_ms']:.2f} ms per update, "
+          f"launches {row['launches']} in {SLICE16_UPDATES} updates "
+          f"({b} runs x {MAX_ITERS} iterations each) ({card})")
+    return row
+
+
+def _slice16_phase(torch, tk, gf, card, dev, frame0, frame_d, corners):
+    """Slice 16 on the card: the kernel on the shared frame
+    (`_slice16_kernels`), the crop-32 and no-crop grids' `update` legs
+    (`_slice16_grid`), the no-crop grid's `update_multi`
+    (`_slice16_multi`) and 3 updates of the ICLK sub-trackers' grid with
+    exact launches (none). Returns its rows."""
+    t0 = time.perf_counter()
+    out = {"kernels": _slice16_kernels(torch, tk, frame_d, card, dev)}
+    fam = slice16_family()
+    sub = ssm_family()["subgrid"]
+    out["subgrid_crop32"], _ = _slice16_grid(
+        torch, tk, gf, card, dev, "subgrid_crop32", sub[:6], corners, frame0,
+        frame_d)
+    torch.cuda.empty_cache()
+    out["subgrid_nocrop"], sm = _slice16_grid(
+        torch, tk, gf, card, dev, "subgrid_nocrop", fam["subgrid_nocrop"],
+        corners, frame0, frame_d)
+    torch.cuda.empty_cache()
+    out["update_multi"] = _slice16_multi(torch, tk, gf, card, dev, sm,
+                                         corners, frame_d)
+    del sm
+    torch.cuda.empty_cache()
+    key, am, ssm, b, cfg, expect = fam["subgrid_iclk_nocrop"]
+    t1, timing = time.perf_counter(), {}
+    _, _, got = _fleet(torch, key, am, b, card, corners, frame_d, dev, tk,
+                       gf, expect, windows=0, warmup=SLICE16_UPDATES,
+                       cfg=cfg, label=f"slice 16 subgrid_iclk_nocrop "
+                                      f"({key}/{am}/{ssm})", timing=timing)
+    wall = time.perf_counter() - t1
+    out["subgrid_iclk_nocrop"] = {
+        "B": b, "updates": SLICE16_UPDATES, "launches": got, "wall_s": wall,
+        "init_s": timing["init_s"],
+        "update_ms": (wall - timing["init_s"]) / SLICE16_UPDATES * 1e3}
+    print(f"slice 16 subgrid_iclk_nocrop B={b}: init "
+          f"{timing['init_s']:.3f} s, then "
+          f"{out['subgrid_iclk_nocrop']['update_ms']:.2f} ms per update "
+          f"(host clock, with the tracker's build) ({card})")
+    torch.cuda.empty_cache()
+    nc, cr = out["subgrid_nocrop"], out["subgrid_crop32"]
+    out["nocrop_vs_crop32"] = {k: nc[k] / cr[k] for k in
+                               ("update_ms", "device_ms", "peak_bytes")}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"slice-16: no crop / crop 32 update "
+          f"{out['nocrop_vs_crop32']['update_ms']:.3f}, device "
+          f"{out['nocrop_vs_crop32']['device_ms']:.3f}, peak "
+          f"{out['nocrop_vs_crop32']['peak_bytes']:.3f}; phase "
+          f"{out['phase_s']:.1f} s ({card})")
+    return out
+
+
+def _slice16_entry(tk, slice16, usage):
+    """The kernels line's entry of ssd:s2 on the shared frame: the N = 64
+    row as the headline, both point counts under `by_n`; `launches` are
+    the no-crop grid's main-path launches (`update`, then
+    `update_multi`)."""
+    rows = slice16["kernels"]
+    head = rows[64]
+    regs, sst, sld = usage[(2, "ssd", False, False, "linear", False)]
+    by_leg = {"update": slice16["subgrid_nocrop"]["launches"]["ssd:s2"],
+              "update_multi": slice16["update_multi"]["launches"]["ssd:s2"]}
+    return {
+        "name": "lk_fused_chain[ssd:s2] sub-grid without a crop (K1 at "
+                "S = 2 on the whole frame, shared)",
+        "route": "cuda", "source": SOURCE,
+        "replaces": f"{REPLACES} (n_s = gens.shape[0], :519)",
+        "launches": sum(by_leg.values()), "launches_by_leg": by_leg,
+        "max_abs_err": max(r["err_v"] for r in rows.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"B={head['b']} sub-trackers, the 480x640 frame at batch "
+                 "stride 0, N=64 (by_n: 16 in the stride-2 phase), linear "
+                 "taps, S=2",
+        "registers": regs, "spill_stores": sst, "spill_loads": sld,
+        "by_n": {str(n): _sub(r) for n, r in sorted(rows.items())},
+    }
+
+
 B_SCALING = 64           # bench.py's strong-scaling row: 64 trackers
 SCALING_WIDTHS = (1, 2, 4, 8)
 PARALLEL_UPDATES = 2     # updates of each sharded path and its reference
@@ -5131,6 +5412,13 @@ def main() -> int:
     slice15_s = time.perf_counter() - t15
     print(f"slice 15 phase: {slice15_s:.1f} s")
     torch.cuda.empty_cache()
+    # -- slice 16: the sub-tracker grid without a crop -----------------------
+    t16 = time.perf_counter()
+    slice16 = _slice16_phase(torch, tk, gf, card, dev, frame0, frame_d,
+                             corners_rk)
+    slice16_s = time.perf_counter() - t16
+    print(f"slice 16 phase: {slice16_s:.1f} s")
+    torch.cuda.empty_cache()
     # -- slice 11: the parallel layer ---------------------------------------
     t11 = time.perf_counter()
     parallel = _parallel_phase(torch, card)
@@ -5204,8 +5492,9 @@ def main() -> int:
                                  usage_k5,
                                  row_k5_mf if kind == "linear" else None))
     kernels += _slice15_entries(tk, slice15, usage_bf16)
-    rule = _rule_summary([rows, rows_sub, rows_gn] + list(rows_s.values())
-                         + list(rows_b.values()))
+    kernels.append(_slice16_entry(tk, slice16, usage))
+    rule = _rule_summary([rows, rows_sub, rows_gn, slice16["kernels"]]
+                         + list(rows_s.values()) + list(rows_b.values()))
     print(json.dumps({
         "kernels": kernels,
         "fleets": {"fclk_ssd": {"B": B, "fps": fps1, "gt_px": gt1},
@@ -5241,6 +5530,8 @@ def main() -> int:
         "slice14_phase_s": slice14_s,
         "slice15": slice15,
         "slice15_phase_s": slice15_s,
+        "slice16": slice16,
+        "slice16_phase_s": slice16_s,
         "parallel": parallel,
         "slice11_phase_s": slice11_s,
         "wall_s": time.perf_counter() - t_start,

@@ -56,4 +56,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from mtf_tpu_torch.am import get_am  # noqa: E402,F401
 from mtf_tpu_torch.factory import create_tracker  # noqa: E402,F401
+from mtf_tpu_torch.ssm import get_ssm  # noqa: E402,F401

@@ -10,6 +10,7 @@ from mtf_tpu_torch.am.ncc import NCC
 from mtf_tpu_torch.am.scv import LRSCV, LSCV, RSCV, SCV
 from mtf_tpu_torch.am.ssd import NSSD, SAD, SSD, ZNCC
 from mtf_tpu_torch.am.ssim import SPSS, SSIM
+from mtf_tpu_torch.utils.excp import InvalidArgument
 
 AM_REGISTRY = {
     "ssd": SSD, "nssd": NSSD, "zncc": ZNCC, "sad": SAD,
@@ -27,7 +28,8 @@ def get_ilm(ilm, params: AMParams) -> IlluminationModel | None:
         return ilm
     k = ilm.lower()
     if k not in ILM_REGISTRY:
-        raise ValueError(f"unknown ILM {ilm!r}; known: {sorted(ILM_REGISTRY)}")
+        raise InvalidArgument(
+            f"unknown ILM {ilm!r}; known: {sorted(ILM_REGISTRY)}")
     if k in ("pgb", "rbf"):
         return ILM_REGISTRY[k](params.resx, params.resy)
     return ILM_REGISTRY[k]()
@@ -51,5 +53,6 @@ def get_am(key: str, params: AMParams | None = None, ilm=None) -> AM:
         params = replace(params, n_channels=3)
         k = base
     if k not in AM_REGISTRY:
-        raise ValueError(f"unknown AM {key!r}; known: {sorted(AM_REGISTRY)}")
+        raise InvalidArgument(
+            f"unknown AM {key!r}; known: {sorted(AM_REGISTRY)}")
     return AM_REGISTRY[k](params, get_ilm(ilm, params))

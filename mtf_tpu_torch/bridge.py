@@ -16,12 +16,17 @@ with a tiny header (frame id + dims) and a ring of slots.
     # consumer process
     r = SharedImageReader("cam0")
     frame_id, frame = r.read_latest()
+
+The writer owns the segment and unlinks it on `close()`; a reader only
+attaches, so a reader process that exits leaves it to the writer and to
+the next reader.
 """
 from __future__ import annotations
 
 import struct
+import sys
 import time
-from multiprocessing import shared_memory
+from multiprocessing import resource_tracker, shared_memory
 
 import numpy as np
 
@@ -67,12 +72,24 @@ class SharedImageWriter:
                 pass
 
 
+def _attach(name: str) -> shared_memory.SharedMemory:
+    """Attach to the writer's segment without owning it. Up to Python
+    3.12 attaching registers the segment with this process's resource
+    tracker, which unlinks it when the process exits, under the writer
+    and any later reader; 3.13 and later take `track=False`."""
+    if sys.version_info >= (3, 13):
+        return shared_memory.SharedMemory(name=name, track=False)
+    shm = shared_memory.SharedMemory(name=name)
+    resource_tracker.unregister(shm._name, "shared_memory")
+    return shm
+
+
 class SharedImageReader:
     def __init__(self, name: str, timeout: float = 5.0):
         t0 = time.time()
         while True:
             try:
-                self.shm = shared_memory.SharedMemory(name=f"mtf_{name}")
+                self.shm = _attach(f"mtf_{name}")
                 break
             except FileNotFoundError:
                 if time.time() - t0 > timeout:

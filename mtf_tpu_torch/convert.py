@@ -185,6 +185,8 @@ def box_to_torch(jstate, device=None, sm=None):
         elif name == "prev_frame":
             out[name] = torch.tensor(_one_frame(jstate.prev_frame, single),
                                      device=device)
+        elif name == "extra":
+            out[name] = tuple(jstate.extra)
         else:
             out[name] = leaf(name, getattr(jstate, name))
     return cls(**out)
@@ -373,6 +375,8 @@ def to_numpy(state, squeeze: bool = False):
                     return tracker(v)
                 if k == "step":
                     return v.numpy()
+                if k == "extra":
+                    return v
                 if k == "prev_frame":
                     # CMT's one shared frame, as the B copies of a vmapped
                     # JAX state

@@ -43,7 +43,8 @@ package's `_fused_ok` takes its Pallas kernel, else the generic path
 sets it. `grid_sm` other than "flow" / "cv" builds a `SubTrackerGrid` of
 `grid_sm` sub-trackers on `grid_am` (default "ssd") and `grid_ssm`
 (default "2") at `grid_patch_res` (default 8), which take the
-configuration's other options (a crop is required). The LK keys take
+configuration's other options (with a crop, each reads a window; with
+none, the whole frame, shared by all of them). The LK keys take
 `interp` "linear_mm", "cubic_mm" (Catmull-Rom), "cubic_bspl_mm" (cubic
 B-spline) or the gather kinds "nearest", "linear", "cubic" and
 "cubic_bspl"; the grid keys the dense and gather kinds but "nearest";
@@ -55,11 +56,13 @@ from `members` or from the blocks of a multi.cfg (`multi_cfg=<path or
 text>`, `create_trackers_from_multi`). The tracker lives on the card
 unless `device` says otherwise (`device="cpu"` for a CPU run); without a
 card and without `device` it raises. Every SM key of the JAX factory is
-ported; another key raises `InvalidArgument`, as in the JAX package.
-Every option the JAX factory reads is read as it reads it (`border`
-"constant" for the gather kinds, `crop_blocks`, `interp_bf16`,
-`interp_precision` among them); an option that neither package reads is
-ignored (`_check_options`).
+ported; another key raises `InvalidArgument`, as in the JAX package,
+and so do an unknown AM, ILM or SSM key and a `casc` or `prl` without
+members (the JAX package raises a bare `KeyError` for the ILM). Every
+option the JAX factory reads is read as it reads it (`border` "constant"
+for the gather kinds, `crop_blocks`, `interp_bf16`, `interp_precision`
+among them); an option that neither package reads is ignored
+(`_check_options`).
 
 The AMs are every key of the JAX package's registry (SSD, NSSD, ZNCC,
 SAD, NCC, SSIM, SPSS, MI, CCRE, KLD, LKLD, SCV, RSCV, LSCV, LRSCV, RIU,
@@ -364,8 +367,8 @@ def _members(sm_key: str, cfg: dict, ilm, device) -> list:
         return create_trackers_from_multi(cfg["multi_cfg"], device=device,
                                           **base)
     if not members:
-        raise ValueError(f"{sm_key} requires members=[(sm, am, ssm), ...] "
-                         "or multi_cfg=<path>")
+        raise InvalidArgument(f"{sm_key} requires members=[(sm, am, ssm), "
+                              "...] or multi_cfg=<path>")
     # a composite's members take its options, but not its own member list
     sub_cfg = {k: v for k, v in cfg.items()
                if k not in ("members", "pyr_sm", "multi_cfg")}
@@ -631,10 +634,6 @@ def create_tracker(sm: str = "fclk", am: str = "ssd", ssm: str = "8",
         grid_sm = str(cfg.get("grid_sm", "flow")).lower()
         gp = _grid_params(cfg, GRID_KEYS[sm_key])
         if grid_sm not in ("flow", "cv"):
-            if not cfg.get("crop"):
-                raise ValueError(
-                    f"grid_sm {grid_sm!r}: the sub-trackers need a crop "
-                    "window (the port's LK samples from one); pass crop=")
             patch_cfg = {k: v for k, v in cfg.items() if k != "grid_sm"}
             patch_cfg["resx"] = patch_cfg["resy"] = gp.patch_res
             sub_sm = create_tracker(grid_sm, str(cfg.get("grid_am", "ssd")),

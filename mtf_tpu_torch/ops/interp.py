@@ -9,9 +9,9 @@ A `FrameStack` (frames (F, H, W, C) and an index (B,)) holds the same
 per-tracker images without copies: tracker t reads frame index[t] (the
 sub-tracker grid's B·P sub-trackers read their B parents' frames).
 Border handling of the gather kinds is 'replicate' (indices clamped into
-the image) or 'constant' (a tap outside the image reads 0.0, the JAX
-package's `cval`); the dense kinds clamp coordinates (replicate) and
-ignore `border`, in both packages.
+the image) or 'constant' (a tap outside the image reads `cval`, 0.0 by
+default); the dense kinds clamp coordinates (replicate) and ignore
+`border` and `cval`, in both packages.
 
 `sample_val_grad` (and `sample`, `sample_grad`) is the gather form of
 the JAX package's `sample`: nearest (the pixel at round(x), derivative
@@ -19,6 +19,10 @@ the JAX package's `sample`: nearest (the pixel at round(x), derivative
 floor(x) + {-1..2}, indices clamped into the image, the derivative of the
 interpolant itself (linear: one-sided at an integer coordinate); a dense
 kind ("*_mm") goes to `sample_dense` on the whole image.
+`sample_with_grad` is its JAX name, `sample_dense_parts` gives
+`sample_dense`'s derivative unstacked, and `sample_grad_fd` /
+`sample_hess_fd` are the central-difference gradient and Hessian of
+`sample` at points (the reference's grad_pts and getImgHess).
 
 Every sampler is differentiable in the points by autograd and
 `torch.func`, and its first derivative is the one it returns: the JAX
@@ -61,7 +65,10 @@ from mtf_tpu_torch.ops.kernels.dense_sample import KINDS, _weights_dense
 NEAREST = "nearest"
 LINEAR = "linear"
 CUBIC = "cubic"            # Catmull-Rom
+CUBIC_BSPL = "cubic_bspl"  # cubic B-spline
 LINEAR_MM = "linear_mm"
+CUBIC_MM = "cubic_mm"
+CUBIC_BSPL_MM = "cubic_bspl_mm"
 MM_SUFFIX = "_mm"          # dense kinds: linear_mm, cubic_mm, cubic_bspl_mm
 REPLICATE = "replicate"
 CONSTANT = "constant"
@@ -103,17 +110,18 @@ def _flat(img, x: torch.Tensor):
 
 
 def _gather(img_flat: torch.Tensor, base, h: int, w: int, xi: torch.Tensor,
-            yi: torch.Tensor, border: str = REPLICATE) -> torch.Tensor:
+            yi: torch.Tensor, border: str = REPLICATE,
+            cval: float = 0.0) -> torch.Tensor:
     """Pixel values at integer coords (...,) -> (..., C); `base`, the
     offset of each point's image (`_flat`). The indices are clamped into
-    the image; with the constant border a tap outside it reads 0.0
+    the image; with the constant border a tap outside it reads `cval`
     (`mtf_tpu/ops/interp.py:_gather`)."""
     xc = xi.clamp(0, w - 1)
     yc = yi.clamp(0, h - 1)
     v = img_flat[base + yc * w + xc]
     if border == CONSTANT:
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        v = torch.where(valid[..., None], v, torch.zeros_like(v))
+        v = torch.where(valid[..., None], v, torch.full_like(v, cval))
     return v
 
 
@@ -139,16 +147,17 @@ def _cubic_weights(f: torch.Tensor, kind: str):
 
 
 def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
-                    border: str = REPLICATE, need_grad: bool = True):
+                    border: str = REPLICATE, need_grad: bool = True,
+                    cval: float = 0.0):
     """Values (..., N, C) and, with `need_grad`, the interpolant's
     derivative d/d(x, y) (..., N, C, 2) at subpixel points, by gather
     (`mtf_tpu/ops/interp.py:_sample_val_grad`): `linear` (the one-sided
     difference v01 - v00, also at an exactly integer coordinate, unlike
     the dense convention), `cubic` and `cubic_bspl` 4x4 taps, and the
     dense kinds ("*_mm") through `sample_dense` on the whole image (which
-    ignores `border`). With the constant border every tap outside the
-    image reads 0.0, and the derivative is the interpolant's over those
-    values."""
+    ignores `border` and `cval`). With the constant border every tap
+    outside the image reads `cval`, and the derivative is the
+    interpolant's over those values."""
     if border not in BORDERS:
         raise ValueError(f"unknown border {border!r}; known: {BORDERS}")
     if kind.endswith(MM_SUFFIX):
@@ -158,19 +167,20 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         raise ValueError(f"unknown interp {kind!r}")
     x, y = pts[..., 0], pts[..., 1]
     img_flat, h, w, c, base = _flat(img, x)
+
+    def tap(xi, yi):
+        return _gather(img_flat, base, h, w, xi, yi, border, cval)
+
     if kind == NEAREST:
-        val = _gather(img_flat, base, h, w, torch.round(x).long(),
-                      torch.round(y).long(), border)
+        val = tap(torch.round(x).long(), torch.round(y).long())
         return val, (val.new_zeros(val.shape + (2,)) if need_grad else None)
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx = (x - x0f)[..., None]
     fy = (y - y0f)[..., None]
     x0, y0 = x0f.long(), y0f.long()
     if kind == LINEAR:
-        v00 = _gather(img_flat, base, h, w, x0, y0, border)
-        v01 = _gather(img_flat, base, h, w, x0 + 1, y0, border)
-        v10 = _gather(img_flat, base, h, w, x0, y0 + 1, border)
-        v11 = _gather(img_flat, base, h, w, x0 + 1, y0 + 1, border)
+        v00, v01 = tap(x0, y0), tap(x0 + 1, y0)
+        v10, v11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)
         top = v00 * (1.0 - fx) + v01 * fx
         bot = v10 * (1.0 - fx) + v11 * fx
         val = top * (1.0 - fy) + bot * fy
@@ -180,8 +190,8 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
         return val, torch.stack([dx, bot - top], dim=-1)
     wx, dwx = _cubic_weights(fx, kind)
     wy, dwy = _cubic_weights(fy, kind)
-    rows = [[_gather(img_flat, base, h, w, x0 + i - 1, y0 + j - 1, border)
-             for i in range(4)] for j in range(4)]
+    rows = [[tap(x0 + i - 1, y0 + j - 1) for i in range(4)]
+            for j in range(4)]
     row_v = [sum(rows[j][i] * wx[i] for i in range(4)) for j in range(4)]
     val = sum(row_v[j] * wy[j] for j in range(4))
     if not need_grad:
@@ -193,16 +203,66 @@ def sample_val_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
 
 
 def sample(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
-           border: str = REPLICATE) -> torch.Tensor:
+           border: str = REPLICATE, cval: float = 0.0) -> torch.Tensor:
     """Sample img at subpixel points -> patch (..., N, C)."""
-    return sample_val_grad(img, pts, kind, border, need_grad=False)[0]
+    return sample_val_grad(img, pts, kind, border, False, cval)[0]
+
+
+def sample_with_grad(img: torch.Tensor, pts: torch.Tensor,
+                     kind: str = LINEAR, border: str = REPLICATE,
+                     cval: float = 0.0):
+    """(patch (..., N, C), derivative (..., N, C, 2)) in one pass: the
+    JAX package's name for `sample_val_grad` with `need_grad`."""
+    return sample_val_grad(img, pts, kind, border, True, cval)
 
 
 def sample_grad(img: torch.Tensor, pts: torch.Tensor, kind: str = LINEAR,
-                border: str = REPLICATE) -> torch.Tensor:
+                border: str = REPLICATE, cval: float = 0.0) -> torch.Tensor:
     """The interpolant's derivative at subpixel points -> (..., N, C, 2)
     (`mtf_tpu/ops/interp.py:sample_grad`)."""
-    return sample_val_grad(img, pts, kind, border, need_grad=True)[1]
+    return sample_val_grad(img, pts, kind, border, True, cval)[1]
+
+
+def _offsets(pts: torch.Tensor, eps: float):
+    """The (eps, 0) and (0, eps) steps in the points' dtype and device."""
+    z = torch.zeros((), dtype=pts.dtype, device=pts.device)
+    e = torch.full((), eps, dtype=pts.dtype, device=pts.device)
+    return torch.stack([e, z]), torch.stack([z, e])
+
+
+def sample_grad_fd(img: torch.Tensor, pts: torch.Tensor, eps: float = 0.5,
+                   kind: str = LINEAR, border: str = REPLICATE,
+                   cval: float = 0.0) -> torch.Tensor:
+    """Central-difference image gradient at points -> (..., N, C, 2), the
+    samples `eps` px either side along each axis (the reference's
+    grad_pts path, `mtf_tpu/ops/interp.py:sample_grad_fd`)."""
+    ex, ey = _offsets(pts, eps)
+
+    def s(p):
+        return sample(img, p, kind, border, cval)
+
+    gx = s(pts + ex) - s(pts - ex)
+    gy = s(pts + ey) - s(pts - ey)
+    return torch.stack([gx, gy], dim=-1) / (2.0 * eps)
+
+
+def sample_hess_fd(img: torch.Tensor, pts: torch.Tensor, eps: float = 0.5,
+                   kind: str = LINEAR, border: str = REPLICATE,
+                   cval: float = 0.0) -> torch.Tensor:
+    """Finite-difference image Hessian at points -> (..., N, C, 2, 2)
+    (the reference's getImgHess, `mtf_tpu/ops/interp.py:sample_hess_fd`)."""
+    ex, ey = _offsets(pts, eps)
+
+    def s(p):
+        return sample(img, p, kind, border, cval)
+
+    c = s(pts)
+    dxx = (s(pts + ex) + s(pts - ex) - 2.0 * c) / (eps * eps)
+    dyy = (s(pts + ey) + s(pts - ey) - 2.0 * c) / (eps * eps)
+    dxy = (s(pts + ex + ey) + s(pts - ex - ey)
+           - s(pts + ex - ey) - s(pts - ex + ey)) / (4.0 * eps * eps)
+    return torch.stack([torch.stack([dxx, dxy], dim=-1),
+                        torch.stack([dxy, dyy], dim=-1)], dim=-2)
 
 
 def crop_origin(pts: torch.Tensor, size: int, full: int,
@@ -341,8 +401,9 @@ def sample_windows(win, x: torch.Tensor, y: torch.Tensor,
 
 
 def sample_dense(img, pts: torch.Tensor, kind: str = LINEAR,
-                 crop: int | None = None, need_grad: bool = True,
-                 bf16: bool = False, precision: str | None = None):
+                 crop: int | None = None, cval: float = 0.0,
+                 need_grad: bool = True, bf16: bool = False,
+                 precision: str | None = None):
     """Dense-convention sampling with `kind` taps (linear, cubic,
     cubic_bspl) -> (patch (..., N, C), grad (..., N, C, 2) | None).
 
@@ -350,13 +411,14 @@ def sample_dense(img, pts: torch.Tensor, kind: str = LINEAR,
     floor(min(pts)) - 2 (clipped into the image), and coordinates are
     clamped to that window, as `jax.lax.dynamic_slice` plus the dense
     clamp do in the JAX package. The window is never materialised.
+    `cval` is ignored, as in the JAX package (the border is replicate).
     `bf16`: bfloat16 image values and tap weights, float32 sums (the JAX
     package's `compute_dtype=bfloat16`). `precision` is the JAX package's
     `interp_precision` ("highest": full float32 contractions instead of
     the TPU's default bf16 passes); this sampler has no matmul and no
     TF32, only float32 gathers and products, so every setting computes
     what "highest" does."""
-    del precision
+    del cval, precision
     lo, hi = _clamp_margins(kind)
     x, y = pts[..., 0], pts[..., 1]
     img_flat, h, w, c, base = _flat(img, x)
@@ -392,6 +454,15 @@ def sample_dense(img, pts: torch.Tensor, kind: str = LINEAR,
                               tap(xi, yi + 1), tap(xi + 1, yi + 1), fx, fy,
                               need_grad, bf16)
     return val, (torch.stack([dx, dy], dim=-1) if need_grad else None)
+
+
+def sample_dense_parts(img, pts: torch.Tensor, kind: str = LINEAR,
+                       crop: int | None = None, cval: float = 0.0,
+                       bf16: bool = False):
+    """`sample_dense` with its derivative unstacked -> (val, dx, dy), each
+    (..., N, C)."""
+    val, grad = sample_dense(img, pts, kind, crop, cval, bf16=bf16)
+    return val, grad[..., 0], grad[..., 1]
 
 
 def _tiles(pts: torch.Tensor, grid_shape, blocks):

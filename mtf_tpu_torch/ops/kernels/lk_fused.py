@@ -32,7 +32,12 @@ Three levels of the chain kernel, each with one contract:
 
   * `lk_fused_chain_ref`: plain PyTorch, the dense tap-weight math of the
     TPU kernel (`_weights_dense`) with full-float32 contractions; returns
-    the raw per-tracker sums;
+    the raw per-tracker sums. A window shared by every tracker (the frame
+    at a batch stride of 0) is read by one product over all trackers'
+    points, never copied per tracker, and trackers are taken in chunks
+    whose tap-weight matrices hold at most `REF_CHUNK_ELEMS` elements
+    (the sub-tracker grid without a crop: 38,400 sub-trackers on a
+    480x640 frame);
   * `lk_fused_chain_raw`: the same outputs; CPU tensors take the plain
     form, CUDA tensors launch the CUDA kernel `csrc/lk_fused_chain.cu`
     (see the source for its design), built once per state size S; there
@@ -73,6 +78,7 @@ from mtf_tpu_torch.ops.kernels.dense_sample import (KINDS, _weights_dense,
 STATE_DIMS = (2, 3, 4, 5, 6, 8)
 MAX_BLUR = 8        # widest binomial blur the kernels take (15 taps)
 N_SCALARS = 5       # NCC: s1 = Σv, s2 = Σv², s3 = Σ n0 v, live count, Σ n0
+REF_CHUNK_ELEMS = 1 << 30   # the plain form's B·N·(Hc + Wc) per chunk
 AMS = ("ssd", "ncc")
 MAX_CHANNELS = 4
 # (am, esm, multi-channel) of every kernel mode, each built for every kind
@@ -188,9 +194,18 @@ def _sample_dense(win: torch.Tensor, xr: torch.Tensor, yr: torch.Tensor,
     wy, dwy = _weights_dense(ky - y[..., None], kind, blur)  # (B, N, Hc)
     if bf16:
         wx, dwx, wy, dwy = map(interp.round_bf16, (wx, dwx, wy, dwy))
-    win_t = win.to(wx.dtype).transpose(-1, -2)              # (B, C, Wc, Hc)
-    tmp = wx[:, None] @ win_t                               # (B, C, N, Hc)
-    tmp_dx = dwx[:, None] @ win_t
+    if shared_window(win):
+        # one frame read by every tracker: one product over all B·N
+        # points, never a copy of the frame per tracker
+        b, n = wx.shape[:2]
+        c = win.shape[1]
+        rhs = win[0].to(wx.dtype).permute(2, 0, 1).reshape(wc, c * hc)
+        tmp, tmp_dx = ((w.reshape(b * n, wc) @ rhs).view(b, n, c, hc)
+                       .transpose(1, 2) for w in (wx, dwx))
+    else:
+        win_t = win.to(wx.dtype).transpose(-1, -2)          # (B, C, Wc, Hc)
+        tmp = wx[:, None] @ win_t                           # (B, C, N, Hc)
+        tmp_dx = dwx[:, None] @ win_t
     val = (wy[:, None] * tmp).sum(-1)                       # (B, C, N)
     dx = -(wy[:, None] * tmp_dx).sum(-1)
     dy = -(dwy[:, None] * tmp).sum(-1)
@@ -235,6 +250,12 @@ def lk_fused_chain_ref(window: torch.Tensor, M0: torch.Tensor,
     NCC: val (B, N), a (B, S), R (B, S, S), mom (B, 2, S), scal (B, 5)."""
     _, _, mc, _, _, _ = _instantiation(window, am, j0, kind, gens.shape[0],
                                        blur, bf16)
+    chunks = ref_chunks(ph.shape[0], ph.shape[-1], *window.shape[-2:])
+    if len(chunks) > 1:
+        parts = [lk_fused_chain_ref(
+            window[c], M0[c], gens, ph[c], templ[c], am,
+            None if j0 is None else j0[c], kind, blur, bf16) for c in chunks]
+        return tuple(torch.cat(x) for x in zip(*parts))
     win = window if mc else window[:, None]                 # (B, C, Hc, Wc)
     xr, yr, jx, jy = project_points(M0, gens, ph)
     val, dx, dy = _sample_dense(win, xr, yr, kind, blur, bf16)
@@ -253,6 +274,14 @@ def lk_fused_chain_ref(window: torch.Tensor, M0: torch.Tensor,
     r = templ - val
     g = (Jm * r[:, None]).sum(-1)
     return val, g, Jm @ Jm.transpose(1, 2)
+
+
+def ref_chunks(b: int, n: int, hc: int, wc: int) -> list:
+    """The slices of B trackers the plain forms take at a time: each
+    chunk's tap-weight matrices (its trackers' N points times Hc + Wc)
+    hold at most REF_CHUNK_ELEMS elements."""
+    step = max(1, REF_CHUNK_ELEMS // max(1, n * (hc + wc)))
+    return [slice(i, min(i + step, b)) for i in range(0, b, step)]
 
 
 def shared_window(window: torch.Tensor) -> bool:

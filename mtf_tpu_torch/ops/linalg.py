@@ -32,11 +32,15 @@ def _chol_subst(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          upper=True)[..., 0]
 
 
-def chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def chol_solve_small(A: torch.Tensor, b: torch.Tensor,
+                     jitter: float = 0.0) -> torch.Tensor:
     """Solve A x = b for SPD A (..., S, S), b (..., S) by a Cholesky with
     pivots clamped at sqrt(max(s, 1e-30)), so a matrix that is not
     positive definite gives finite steps instead of an error. S is small
-    (Gauss-Newton state dims)."""
+    (Gauss-Newton state dims). `jitter` > 0 adds jitter * I to A first."""
+    if jitter:
+        A = A + jitter * torch.eye(A.shape[-1], dtype=A.dtype,
+                                   device=A.device)
     return _chol_subst(_chol_clamped(A), b)
 
 

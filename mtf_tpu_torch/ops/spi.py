@@ -73,6 +73,13 @@ def gftt_mask(patch: torch.Tensor, resy: int, resx: int,
 SPI_KINDS = ("pix_diff", "pixdiff", "diff", "gradient", "grad", "gftt")
 
 
+SPI_REGISTRY = {
+    "pix_diff": pix_diff_mask,
+    "gradient": gradient_mask,
+    "gftt": gftt_mask,
+}
+
+
 def compute_spi_mask(kind: str, template: torch.Tensor, patch: torch.Tensor,
                      resy: int, resx: int, thresh: float) -> torch.Tensor:
     """Dispatch on the reference's spi_type keys -> (B, N)."""

@@ -165,3 +165,18 @@ def grid_from_corners(corners: torch.Tensor, resx: int,
     H = homography_dlt(sq, corners)
     grid = unit_square_grid(resx, resy, corners.dtype, corners.device)
     return apply_warp(H, grid.expand(corners.shape[:-2] + grid.shape))
+
+
+def corners_mtf_to_pts(corners_2x4: torch.Tensor) -> torch.Tensor:
+    """MTF corner matrices (..., 2, 4) -> corner points (..., 4, 2)."""
+    return corners_2x4.transpose(-1, -2)
+
+
+def pts_to_corners_mtf(corners_4x2: torch.Tensor) -> torch.Tensor:
+    """Corner points (..., 4, 2) -> MTF corner matrices (..., 2, 4)."""
+    return corners_4x2.transpose(-1, -2)
+
+
+def center_of_corners(corners_4x2: torch.Tensor) -> torch.Tensor:
+    """The mean (..., 2) of corner points (..., 4, 2)."""
+    return corners_4x2.mean(dim=-2)

@@ -237,6 +237,7 @@ class MOSSEState(NamedTuple):
     num: torch.Tensor        # (B, res, res, C) complex filter numerator
     den: torch.Tensor        # (B, res, res) real summed denominator
     psr: torch.Tensor        # (B,) last peak-to-sidelobe ratio
+    extra: tuple = ()        # the JAX state's empty slot (read nowhere)
 
 
 class MOSSE(BoxTracker):

@@ -135,7 +135,8 @@ class CascadeSM(_Composite):
         """(B, 2, 4) corner matrices of the last member."""
         return self.members[-1].corners(state.members[-1])
 
-    def set_region(self, state: CompositeState, corners) -> CompositeState:
+    def set_region(self, state: CompositeState, corners,
+                   frame=None) -> CompositeState:
         return CompositeState(tuple(
             m.set_region(st, corners)
             for m, st in zip(self.members, state.members)))
@@ -178,7 +179,8 @@ class ParallelSM(_Composite):
     def corners(self, state: CompositeState) -> torch.Tensor:
         return state.extra[0].transpose(-1, -2)
 
-    def set_region(self, state: CompositeState, corners) -> CompositeState:
+    def set_region(self, state: CompositeState, corners,
+                   frame=None) -> CompositeState:
         """Move every member to corners (B, 4, 2); `corners` then reports
         them (the JAX package keeps the previous fused corners)."""
         corners = torch.as_tensor(corners, dtype=torch.float32,
@@ -227,7 +229,8 @@ class PyramidalSM(_Composite):
     def corners(self, state: CompositeState) -> torch.Tensor:
         return self.sm.corners(state.members[0])
 
-    def set_region(self, state: CompositeState, corners) -> CompositeState:
+    def set_region(self, state: CompositeState, corners,
+                   frame=None) -> CompositeState:
         return CompositeState(tuple(
             self.sm.set_region(st, corners / (2.0 ** lvl))
             for lvl, st in enumerate(state.members)))
@@ -319,7 +322,8 @@ class RKLT(nn.Module):
         """(B, 2, 4) corner matrices of the final estimate."""
         return state.extra[0].transpose(-1, -2)
 
-    def set_region(self, state: CompositeState, corners) -> CompositeState:
+    def set_region(self, state: CompositeState, corners,
+                   frame=None) -> CompositeState:
         """Move both members to corners (B, 4, 2); unlike the JAX
         package, which keeps the previous final corners, `corners` then
         reports the new ones."""

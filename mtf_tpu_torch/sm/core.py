@@ -20,7 +20,7 @@ methods their (B, H, W, C) stack.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import torch
@@ -80,6 +80,7 @@ class SMParams:
     lm_up: float = 10.0
     lm_down: float = 0.1
     sd_learning_rate: float = 0.1  # FCSD step size
+    extra: dict = field(default_factory=dict)  # options of a caller's own
 
 
 def make_region(corners_img: torch.Tensor, resx: int,
@@ -120,9 +121,21 @@ def points_at(ssm: SSM, region: RegionState, s: torch.Tensor) -> torch.Tensor:
     return W.apply_warp(nm, ssm.warp_pts(s, bp))
 
 
+def image_pts(ssm: SSM, state: TrackerState) -> torch.Tensor:
+    """Current sampling grids (B, N, 2) in image coordinates."""
+    return points_at(ssm, state.region, state.ssm_state)
+
+
 def image_corners(ssm: SSM, state: TrackerState) -> torch.Tensor:
     """Current region corners (B, 4, 2) in image coordinates."""
     return corners_at(ssm, state.region, state.ssm_state)
+
+
+def sample_patch(frame: torch.Tensor, pts: torch.Tensor,
+                 prm: SMParams) -> torch.Tensor:
+    """Patches (B, N, C) of `frame` at points (B, N, 2) with the search
+    method's taps and border."""
+    return interp.sample(frame, pts, prm.interp, prm.border)
 
 
 def sampler_sigma(ssm: SSM, region: RegionState, ssm_sigma: tuple,
@@ -261,7 +274,7 @@ class SearchMethod(nn.Module):
                                       device=self.device)
         region = make_region(corners_img, self.am.prm.resx, self.am.prm.resy)
         pts0 = W.apply_warp(region.norm_mat, region.base_pts)
-        patch0 = interp.sample(frame, pts0, self.prm.interp, self.prm.border)
+        patch0 = sample_patch(frame, pts0, self.prm)
         st = TrackerState(ssm_state=self.ssm.identity(corners_img.shape[:-2]),
                           am_state=self.am.init(patch0), region=region)
         return st._replace(extra=self._init_extra(st, frame))
@@ -290,11 +303,18 @@ class SearchMethod(nn.Module):
         """(B, 2, 4) MTF corner matrices."""
         return image_corners(self.ssm, state).transpose(-1, -2)
 
-    def set_region(self, state: TrackerState,
-                   corners_img: torch.Tensor) -> TrackerState:
+    def set_region(self, state: TrackerState, corners_img: torch.Tensor,
+                   frame=None) -> TrackerState:
         """Move each tracked region to corners (B, 4, 2) without touching
         its template: the corners are mapped back into the template frame
-        and the SSM state is fitted to them."""
+        and the SSM state is fitted to them (`frame`, the JAX signature's,
+        is not read)."""
         c_t = W.apply_warp(inv3x3(state.region.norm_mat), corners_img)
         return state._replace(
             ssm_state=self.ssm.fit_pts(state.region.base_corners, c_t))
+
+    def reinitialize(self, frame: torch.Tensor,
+                     corners_img: torch.Tensor) -> TrackerState:
+        """A fresh template at new corners (B, 4, 2): the reinit-on-failure
+        protocol's `initialize` (runMTF.cc:499-547)."""
+        return self.initialize(frame, corners_img)

@@ -1,6 +1,7 @@
 from mtf_tpu_torch.ssm.base import SSM  # noqa: F401
 from mtf_tpu_torch.ssm.projective import SSM_REGISTRY
 from mtf_tpu_torch.ssm.spline import SPLINE_REGISTRY
+from mtf_tpu_torch.utils.excp import InvalidArgument
 
 
 def get_ssm(key: str, device=None, **kwargs):
@@ -10,5 +11,5 @@ def get_ssm(key: str, device=None, **kwargs):
     k = key.lower()
     reg = {**SSM_REGISTRY, **SPLINE_REGISTRY}
     if k not in reg:
-        raise ValueError(f"unknown SSM {key!r}; known: {sorted(reg)}")
+        raise InvalidArgument(f"unknown SSM {key!r}; known: {sorted(reg)}")
     return reg[k](device=device, **kwargs)

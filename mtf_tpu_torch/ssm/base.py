@@ -61,6 +61,17 @@ def logm_3x3(A: torch.Tensor, num_sqrts: int = 3,
     return out * (2.0 ** num_sqrts)
 
 
+def jacfwd_warp(ssm, state: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(..., N, 2, S) Jacobian of `ssm.warp_pts` in the state at `state`
+    (..., S) or (S,), pts (..., N, 2), by `torch.func.jacfwd` per batch
+    element (the JAX package's `jax.jacfwd` of `warp_pts`)."""
+    batch = pts.shape[:-2]
+    st = state.expand(batch + (ssm.dof,)).reshape(-1, ssm.dof)
+    jac = torch.func.vmap(torch.func.jacfwd(ssm.warp_pts))(
+        st, pts.reshape((-1,) + pts.shape[-2:]))
+    return jac.reshape(batch + jac.shape[1:])
+
+
 class SSM(nn.Module):
     """Base class: subclasses define name/dof/generators and
     to/from-matrix."""
@@ -151,6 +162,10 @@ class SSM(nn.Module):
     def dwdp_identity(self, pts: torch.Tensor) -> torch.Tensor:
         """(..., N, 2, S) warp Jacobian at identity."""
         return dehom_jacobian_from_generators(self.generators, pts)
+
+    def dwdp_at(self, state: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+        """(..., N, 2, S) exact warp Jacobian at `state` (additive LK)."""
+        return jacfwd_warp(self, state, pts)
 
     # ---- stochastic samplers (StateSpaceModel.h:286-338) -------------
     def random_walk(self, noise: torch.Tensor, state: torch.Tensor,

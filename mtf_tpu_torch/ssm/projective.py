@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 from mtf_tpu_torch.ops import warp as W
-from mtf_tpu_torch.ssm.base import SSM, AdditiveMatrixSSM, ExpSSM
+from mtf_tpu_torch.ssm.base import (SSM, AdditiveMatrixSSM, ExpSSM,  # noqa: F401
+                                     logm_3x3)
 
 
 def _g(rows) -> np.ndarray:

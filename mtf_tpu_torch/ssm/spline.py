@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from mtf_tpu_torch import _device
+from mtf_tpu_torch.ssm.base import SSM, jacfwd_warp
 
 
 def _control_grid(kx: int, ky: int, span: float = 1.1) -> np.ndarray:
@@ -84,14 +85,18 @@ class NonRigidSSM(nn.Module):
     def additive_update(self, state, dp):
         return state + dp
 
+    # the matrix SSMs' samplers and corner fit hold as written: compose,
+    # invert and the fractional warp are additive here
+    random_walk = SSM.random_walk
+    auto_regression1 = SSM.auto_regression1
+    scale_state = SSM.scale_state
+    mean_of_samples = SSM.mean_of_samples
+    fit_corners = SSM.fit_corners
+
     def dwdp_at(self, state: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
         """(..., N, 2, S) warp Jacobian at `state` (..., S), pts
-        (..., N, 2), by `torch.func.jacfwd` per batch element."""
-        batch = pts.shape[:-2]
-        st = state.expand(batch + (self.dof,)).reshape(-1, self.dof)
-        jac = torch.func.vmap(torch.func.jacfwd(self.warp_pts))(
-            st, pts.reshape((-1,) + pts.shape[-2:]))
-        return jac.reshape(batch + jac.shape[1:])
+        (..., N, 2)."""
+        return jacfwd_warp(self, state, pts)
 
     def dwdp_identity(self, pts: torch.Tensor) -> torch.Tensor:
         return self.dwdp_at(self.identity(), pts)

@@ -71,3 +71,11 @@ def synthetic_sequence(img, corners0, ssm, n_frames: int,
         state = ssm.compositional_update(
             state, torch.as_tensor(dp, device=dev))
     return torch.stack(frames), np.stack(gt)
+
+
+def mean_corner_distance(c1, c2) -> float:
+    """Mean corner distance (the reference's MCD tracking error) between
+    corner sets (..., 4, 2), tensors or arrays, over every corner."""
+    c1, c2 = (np.asarray(c.detach().cpu() if torch.is_tensor(c) else c)
+              for c in (c1, c2))
+    return float(np.mean(np.linalg.norm(c1 - c2, axis=-1)))

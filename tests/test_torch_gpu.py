@@ -867,3 +867,39 @@ def test_cuda_k5_bf16_flag_matches_plain(cuda_device, kind):
     want = gf.grid_flow_ref(win, pts, templ, scale, 64, 1, kind=kind,
                             bf16=True)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_no_crop_sub_grid_matches_plain(cuda_device):
+    """The sub-tracker grid without a crop on the card: ssd:s2 on the whole
+    frame shared at a batch stride of 0 (`chip_smoke.shared_chain_inputs`,
+    some sub-trackers past the frame's edges) against its plain form (val
+    within 1e-3, raw sums by `chip_smoke.raw_verdict` with the rounding
+    floor at S = 2); then one grid update on the card against the same
+    grid on the CPU (the plain form) with the card's RANSAC draws, within
+    `chip_smoke.PLAIN_PATH_TOL_PX`, launching ssd:s2 once per iteration."""
+    from mtf_tpu_torch import create_tracker
+    rng = np.random.default_rng(0)
+    img = torch.tensor(_window(rng, 240), device=cuda_device)
+    args = cs.shared_chain_inputs(torch, img, 64, 200, cuda_device)
+    assert tk.shared_window(args[0])
+    got = tk.lk_fused_chain_raw(*args)
+    torch.cuda.synchronize()
+    want = tk.lk_fused_chain_ref(*args)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-3
+    assert_raw_close(got[1:], want[1:],
+                     cs.chain_sum_scales(torch, tk, list(args)))
+    cfg = dict(grid_res=4, grid_sm="fclk", max_iters=4, epsilon=0.0,
+               interp="linear_mm", coarse_pt_iters=((2, 2),))
+    sm = create_tracker("grid", "ssd", "8", device=cuda_device, **cfg)
+    cpu = create_tracker("grid", "ssd", "8", device="cpu", **cfg)
+    cpu._hyp_indices = lambda step, n: sm._hyp_indices(step, n).cpu()
+    corners = np.float32([[[60.3, 50.2], [140.3, 50.2], [140.3, 130.2],
+                           [60.3, 130.2]]] * 2) + np.float32([[[0, 0]],
+                                                              [[30, 40]]])
+    f = torch.roll(img, (1, 2), (0, 1))
+    before = tk.lk_fused_chain_raw.launches["ssd:s2"]
+    a = sm.corners(sm.update(sm.initialize(img, corners), f)).cpu()
+    assert tk.lk_fused_chain_raw.launches["ssd:s2"] == before + 4
+    b = cpu.corners(cpu.update(cpu.initialize(img.cpu(), corners), f.cpu()))
+    assert float((a - b).abs().max()) < cs.PLAIN_PATH_TOL_PX

@@ -278,9 +278,14 @@ def test_grid_sm_builds_the_sub_tracker_grid():
     assert bool(torch.isfinite(trk.corners(st)).all())
     assert isinstance(tcreate("grid", "ssd", "8", device="cpu",
                               grid_sm="flow", **SMALL), GridTracker)
-    with pytest.raises(ValueError, match="crop"):
-        tcreate("grid", "ssd", "8", device="cpu", grid_sm="esm",
-                **dict(SMALL, crop=None))
+    # without a crop (as the JAX factory builds it) the sub-trackers read
+    # the whole frame
+    trk = tcreate("grid", "ssd", "8", device="cpu", grid_sm="esm",
+                  **dict(SMALL, grid_res=3, crop=None))
+    assert isinstance(trk, SubTrackerGrid) and trk.sub.prm.crop is None
+    st = trk.update(trk.initialize(frame, CORNERS),
+                    np.roll(frame, (1, 1), (0, 1)))
+    assert bool(torch.isfinite(trk.corners(st)).all())
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
